@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases device,build,kernels
 
-Phases (each prints one line; any failure exits non-zero before the last
-line):
+Phases (each prints one or more lines; any failure exits non-zero before
+the last line):
   device   require CUDA; print the nvidia-smi name and power limit; TF32 off
-  build    compile cofii2p_tpu_torch/csrc/*.cu with nvcc (first use, cached
-           by source hash under build/cofii2p_tpu_torch/)
-  kernels  each CUDA kernel against its plain PyTorch version at the
-           serving shapes, fp32 and bf16, with the kernel's and the plain
-           version's time (CUDA events)
+  build    compile cofii2p_tpu_torch/csrc/*.cu with nvcc, one process per
+           source (first use, cached by source hash under
+           build/cofii2p_tpu_torch/)
+  kernels  each CUDA kernel against its plain PyTorch version: the serving
+           kernels at the serving shapes, fp32 and bf16; the training
+           kernels (aggregate, transposed aggregate, tie count, maxpool
+           backward) at the trainer's fp32 shapes, B=8, on clouds with
+           duplicated points so that maxima tie; the kernel's and the plain
+           version's time (CUDA events) and the least time the card could
+           take for the same work (the larger of bytes over 3.35 TB/s and
+           operations over the peak rate of their type)
   fp32     the whole forward at B=1 in fp32 through the kernels and through
            the plain versions: FPN and transformer outputs agree
+  grad     one fp32 train step at B=1 on a KITTI-scale frame through the
+           kernels and through the plain versions under autograd
+           (kpconv_kernel='xla'), same weights and draws: losses agree to
+           1e-4 and every parameter gradient to 1e-3 (rms-floored)
   pose     the pipeline's EPnP-RANSAC at serving size (8 frames, 1280
            correspondences, 512 hypotheses) on scenes of known pose with
            outliers and masked rows: it recovers the pose
@@ -26,14 +37,22 @@ line):
            correspondences, on which the JAX package's ransac_pnp itself
            returns NaN poses for some frames; those are counted, not
            failed.
-The line before the last is the JSON kernel summary, the last line
-{"ok": true, "device": {...}}.  Long logs go to chiprun_out/.
+  train    `python -m cofii2p_tpu_torch.train kitti --synthetic --steps 4
+           --batch_size 8` through train.main (fp32, static bands, full
+           KITTI width, val at step 4): launches per step of each kernel,
+           finite losses and gradient norm, parameters moved, the
+           checkpoint restores and one eval_step runs on it; ms/step,
+           frames/s and peak memory.
+The second line before the last is the JSON kernel summary, then the
+nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
+Long logs go to chiprun_out/.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,15 +60,73 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("device", "build", "kernels", "fp32", "pose", "serve")
+PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "train")
 BATCH = 8
 REQUESTS = 3
+TRAIN_STEPS = 4
 PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16}
+# launches per train step: 14 KPConvs forward, 13 feature gradients (not
+# encoder1_1's, whose input needs none), 4 strided shortcuts forward and
+# backward; no fused KPConv and no fused attention while differentiating
+PER_STEP = {"kpconv_aggregate": 14, "kpconv_transpose": 13, "maxpool": 4, "maxpool_count": 4, "maxpool_bwd": 4,
+            "kpconv_fused": 0, "attention": 0}
 KERNELS = {
     "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
     "maxpool": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:208"),
     "attention": ("cofii2p_tpu_torch/csrc/attention.cu", "cofii2p_tpu/ops/attention_kernel.py:53"),
+    "kpconv_aggregate": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:228"),
+    "kpconv_transpose": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:516"),
+    "maxpool_count": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:315"),
+    "maxpool_bwd": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:537"),
 }
+# the path whose launch counts the summary reports for each kernel
+SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention")
+
+
+def wrappers():
+    """Every kernel wrapper by its summary name (each counts its launches)."""
+    from cofii2p_tpu_torch.ops import attention_kernel as att
+    from cofii2p_tpu_torch.ops import kpconv_kernel as kpk
+    from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
+
+    return {"kpconv_fused": kpk.banded_kpconv_fused, "maxpool": mpk.banded_maxpool_fused,
+            "attention": att.fused_attention, "kpconv_aggregate": kpk.banded_kpconv_aggregate_fused,
+            "kpconv_transpose": kpk.banded_kpconv_transpose_fused,
+            "maxpool_count": mpk.banded_maxpool_tie_count_fused, "maxpool_bwd": mpk.banded_maxpool_backward_fused}
+
+
+def reset_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in wrappers().items()}
+
+
+class Tally:
+    """Per kernel: the summed times and bounds of the cases timed."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, err, ms, plain_ms, bound_ms_by, library_ms=None):
+        r = self.rows.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                            t_bytes=0.0, t_ops=0.0, library_ms=None))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        b_ms, by = bound_ms_by
+        r["bound_ms"] += b_ms
+        r["t_bytes" if by == "bytes" else "t_ops"] += b_ms
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+
+    def results(self):
+        return {name: dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                           bound_ms=r["bound_ms"], bound_by="bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
+                           library_ms=r["library_ms"])
+                for name, r in self.rows.items()}
 
 
 class PhaseError(RuntimeError):
@@ -78,8 +155,39 @@ def synthetic_cloud(n, gen, device):
     return pts[morton_order(pts, ordering="xz")].to(device)
 
 
-def check_kernels(device, gen, results):
-    """Each kernel against its plain version at the serving shapes (B=8)."""
+def pyramid_with_duplicates(sizes, batch, gen, device, share=8):
+    """Per frame, a KITTI-extent cloud in which one row in ``share``
+    repeats another, as resample_fixed pads a cloud, and each next level a
+    random subset of the previous one, every level Morton-ordered, as the
+    pipeline builds its pyramid.  Returns the levels [(B, N_l, 3)] and, per
+    row, the index of the base row it copies [(B, N_l)], so that features
+    gathered by it tie exactly where coordinates do."""
+    import torch
+
+    from cofii2p_tpu_torch.ops.pyramid import morton_order
+
+    levels, idents = [[] for _ in sizes], [[] for _ in sizes]
+    base = sizes[0] - sizes[0] // share
+    for _ in range(batch):
+        u = torch.rand(base, 3, generator=gen)
+        pts = torch.stack([u[:, 0] * 80 - 40, u[:, 1] * 4 - 2, u[:, 2] * 80], -1)
+        ident = torch.cat([torch.arange(base), torch.randint(0, base, (sizes[0] - base,), generator=gen)])
+        pts = pts[ident]
+        for lvl, n in enumerate(sizes):
+            if lvl:
+                keep = torch.randperm(pts.shape[0], generator=gen)[:n]
+                pts, ident = pts[keep], ident[keep]
+            order = morton_order(pts, ordering="xz")
+            pts, ident = pts[order], ident[order]
+            levels[lvl].append(pts)
+            idents[lvl].append(ident)
+    return ([torch.stack(x).to(device) for x in levels], [torch.stack(x).to(device) for x in idents])
+
+
+def check_kernels(device, gen, tally):
+    """Each kernel against its plain version: the serving kernels at the
+    serving shapes (B=8, fp32 and bf16), the training kernels at the
+    trainer's fp32 shapes (B=8)."""
     import torch
 
     from cofii2p_tpu_torch.config import KITTIConfig
@@ -87,7 +195,7 @@ def check_kernels(device, gen, results):
     from cofii2p_tpu_torch.ops.banded import dynamic_band_starts, kernel_reach
     from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_fused, banded_kpconv_fused_plain
     from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_fused, banded_maxpool_plain
-    from cofii2p_tpu_torch.utils.kernel_bench import time_ms
+    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, time_ms
 
     cfg = KITTIConfig()
     r0, s0, plan = cfg.init_radius, cfg.init_sigma, cfg.kpconv_band_plan
@@ -104,7 +212,6 @@ def check_kernels(device, gen, results):
     a_cases.append(("lvl2 w192 C128", q2, q2, 128, 128, r2_, s2_, 192, st))
     q4 = levels[4]
     a_cases.append(("lvl4 static C512", q4, q4, 512, 512, r0 * 16, s0 * 16, plan[4], None))
-    worst_a, a_ms, a_plain_ms = 0.0, None, None
     for name, q, s, cin, cout, r, sg, bw, starts in a_cases:
         f = torch.randn(b, s.shape[1], cin, generator=gen).to(device)
         w = (torch.randn(15, cin, cout, generator=gen) / cin**0.5).to(device)
@@ -122,17 +229,16 @@ def check_kernels(device, gen, results):
         e16 = rel_err(out16, ref)
         if e16 > 5e-2:
             raise PhaseError(f"kpconv {name}: bf16 rel err {e16:.3e} > 5e-2 vs fp32 plain")
-        worst_a = max(worst_a, (out - ref).abs().max().item())
-        k_ms = time_ms(lambda: banded_kpconv_fused(fb, q, s, w, r, sg, 15, 128, bw, torch.bfloat16, starts))
-        p_ms = time_ms(lambda: banded_kpconv_fused_plain(fb, q, s, w, r, sg, 15, 128, bw, torch.bfloat16, starts))
-        say("kernels", f"kpconv_fused {name} B={b} N={s.shape[1]}: fp32 rel {e32:.2e}, bf16 rel {e16:.2e}, "
-            f"counts equal; bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        if name == "lvl2 w192 C128":
-            a_ms, a_plain_ms = k_ms, p_ms
-    results["kpconv_fused"] = dict(max_abs_err=worst_a, ms=a_ms, plain_ms=a_plain_ms)
+        args16 = (fb, q, s, w, r, sg, 15, 128, bw, torch.bfloat16, starts)
+        k_ms = time_ms(lambda: banded_kpconv_fused(*args16))
+        p_ms = time_ms(lambda: banded_kpconv_fused_plain(*args16), 3)
+        n = s.shape[1]
+        bd = call_bound("banded_kpconv_fused", args16)
+        tally.add("kpconv_fused", (out - ref).abs().max().item(), k_ms, p_ms, bd)
+        say("kernels", f"kpconv_fused {name} B={b} N={n}: fp32 rel {e32:.2e}, bf16 rel {e16:.2e}, "
+            f"counts equal; bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
 
     # --- B: maxpool ------------------------------------------------------
-    worst_b, b_ms, b_plain_ms = 0.0, None, None
     for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
         q, s = levels[ql], levels[sl]
         r, sg = r0 * 2 ** (sl), s0 * 2 ** (sl)
@@ -147,14 +253,13 @@ def check_kernels(device, gen, results):
                 bad = (out != ref).sum().item()
                 if bad or out.dtype != dtype:
                     raise PhaseError(f"maxpool C={c} {mode} {dtype}: {bad} mismatches")
-                worst_b = max(worst_b, (out.float() - ref.float()).abs().max().item())
             k_ms = time_ms(lambda: banded_maxpool_fused(f, q, s, ra, 128, bw, starts))
-            p_ms = time_ms(lambda: banded_maxpool_plain(f, q, s, ra, 128, bw, starts))
-            say("kernels", f"maxpool C={c} {mode} B={b} M={q.shape[1]} N={s.shape[1]}: 0 mismatches fp32+bf16; "
-                f"bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-            if c == 256 and mode == "w192":
-                b_ms, b_plain_ms = k_ms, p_ms
-    results["maxpool"] = dict(max_abs_err=worst_b, ms=b_ms, plain_ms=b_plain_ms)
+            p_ms = time_ms(lambda: banded_maxpool_plain(f, q, s, ra, 128, bw, starts), 3)
+            m, n = q.shape[1], s.shape[1]
+            bd = call_bound("banded_maxpool_fused", (f, q, s, ra, 128, bw, starts))
+            tally.add("maxpool", 0.0, k_ms, p_ms, bd)
+            say("kernels", f"maxpool C={c} {mode} B={b} M={m} N={n}: 0 mismatches fp32+bf16; "
+                f"bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
 
     # --- C: attention ----------------------------------------------------
     q, k, v = (torch.randn(b, 1280, 4, 32, generator=gen).to(device) for _ in range(3))
@@ -169,9 +274,117 @@ def check_kernels(device, gen, results):
         raise PhaseError(f"attention: fp32 abs {e32:.2e} (<=1e-5), bf16 abs {e16:.2e} (<=2e-2), dtype {out16.dtype}")
     c_ms = time_ms(lambda: fused_attention(qb, kb, vb))
     c_plain = time_ms(lambda: fused_attention_plain(qb, kb, vb))
+    # the library's fused attention on the same inputs, timed as a yardstick only
+    qh, kh, vh = (x.transpose(1, 2) for x in (qb, kb, vb))
+    c_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
+    bd = call_bound("fused_attention", (qb, kb, vb))
+    tally.add("attention", e32, c_ms, c_plain, bd, library_ms=c_lib)
     say("kernels", f"attention (8,1280,4,32): fp32 abs {e32:.2e}, bf16 abs {e16:.2e}, out bf16; "
-        f"bf16 kernel {c_ms:.3f} ms, plain {c_plain:.3f} ms")
-    results["attention"] = dict(max_abs_err=e32, ms=c_ms, plain_ms=c_plain)
+        f"bf16 kernel {c_ms:.3f} ms, plain {c_plain:.3f} ms, scaled_dot_product_attention {c_lib:.3f} ms, "
+        f"bound {bd[0]:.3f} ms ({bd[1]})")
+
+    check_training_kernels(device, gen, tally, cfg)
+
+
+def check_training_kernels(device, gen, tally, cfg):
+    """The four kernels of the training backward path against their plain
+    versions, fp32, B=8, at the trainer's shapes."""
+    import torch
+
+    from cofii2p_tpu_torch.ops.banded import kernel_reach
+    from cofii2p_tpu_torch.ops.kpconv_kernel import (
+        banded_kpconv_aggregate_fused,
+        banded_kpconv_aggregate_plain,
+        banded_kpconv_transpose_fused,
+        banded_kpconv_transpose_plain,
+    )
+    from cofii2p_tpu_torch.ops.maxpool_kernel import (
+        banded_maxpool_backward_fused,
+        banded_maxpool_fused,
+        banded_maxpool_route_plain,
+        banded_maxpool_tie_count_fused,
+        banded_maxpool_tie_count_plain,
+    )
+    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, time_ms
+
+    b, r0, s0, plan = BATCH, cfg.init_radius, cfg.init_sigma, cfg.kpconv_band_plan
+    sizes = cfg.pyramid_sizes
+    levels, idents = pyramid_with_duplicates(sizes, b, gen, device)
+
+    # --- #2 aggregate and #9 transposed aggregate -----------------------------
+    cases = [("lvl0 C32 band 128", 0, 0, 32, r0, s0, plan[0]),
+             ("lvl1<-lvl0 strided C32", 1, 0, 32, r0, s0, plan[0]),
+             ("lvl4 C512 full band", 4, 4, 512, r0 * 16, s0 * 16, plan[4])]
+    for name, ql, sl, c, r, sg, bw in cases:
+        q, s = levels[ql], levels[sl]
+        m, n = q.shape[1], s.shape[1]
+        f = torch.randn(b, n, c, generator=gen).to(device)
+        ref, ref_cnt = banded_kpconv_aggregate_plain(f, q, s, r, sg, 15, 128, bw)
+        out, cnt = banded_kpconv_aggregate_fused(f, q, s, r, sg, 15, 128, bw)
+        torch.cuda.synchronize()
+        e2 = rel_err(out, ref)
+        if not torch.equal(cnt, ref_cnt) or e2 > 1e-3:
+            raise PhaseError(f"kpconv_aggregate {name}: counts differ at {(cnt != ref_cnt).sum().item()} "
+                             f"queries, rel err {e2:.3e} (<= 1e-3)")
+        k_ms = time_ms(lambda: banded_kpconv_aggregate_fused(f, q, s, r, sg, 15, 128, bw))
+        p_ms = time_ms(lambda: banded_kpconv_aggregate_plain(f, q, s, r, sg, 15, 128, bw), 3)
+        bd = call_bound("banded_kpconv_aggregate_fused", (f, q, s, r, sg, 15, 128, bw))
+        tally.add("kpconv_aggregate", (out - ref).abs().max().item(), k_ms, p_ms, bd)
+        say("kernels", f"kpconv_aggregate {name} B={b} M={m} N={n}: counts equal, rel {e2:.2e}; "
+            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        del out, ref
+        g = torch.randn(b, m, 15, c, generator=gen).to(device)
+        ref = banded_kpconv_transpose_plain(g, q, s, r, sg, 15, 128, bw)
+        out = banded_kpconv_transpose_fused(g, q, s, r, sg, 15, 128, bw)
+        torch.cuda.synchronize()
+        e9 = rel_err(out, ref)
+        if e9 > 1e-4:
+            raise PhaseError(f"kpconv_transpose {name}: rel err {e9:.3e} > 1e-4")
+        k_ms = time_ms(lambda: banded_kpconv_transpose_fused(g, q, s, r, sg, 15, 128, bw))
+        p_ms = time_ms(lambda: banded_kpconv_transpose_plain(g, q, s, r, sg, 15, 128, bw), 3)
+        bd = call_bound("banded_kpconv_transpose_fused", (g, q, s, r, sg, 15, 128, bw))
+        tally.add("kpconv_transpose", (out - ref).abs().max().item(), k_ms, p_ms, bd)
+        say("kernels", f"kpconv_transpose {name} B={b} M={m} N={n}: rel {e9:.2e}; "
+            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        del g, out, ref
+
+    # --- #12 tie count and #13 maxpool backward, with tied maxima -------------
+    for c, ql, sl in ((128, 1, 0), (1024, 4, 3)):
+        q, s = levels[ql], levels[sl]
+        m, n = q.shape[1], s.shape[1]
+        r, sg, bw = r0 * 2 ** sl, s0 * 2 ** sl, plan[sl]
+        ra = kernel_reach(r, sg)
+        base = torch.randn(b, sizes[0], c, generator=gen).to(device)
+        f = torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, c))  # duplicated points tie
+        out = banded_maxpool_fused(f, q, s, ra, 128, bw)
+        ref = banded_maxpool_tie_count_plain(f, q, s, out, ra, 128, bw)
+        cnt = banded_maxpool_tie_count_fused(f, q, s, out, ra, 128, bw)
+        torch.cuda.synchronize()
+        if not torch.equal(cnt, ref):
+            raise PhaseError(f"maxpool_count C={c}: {(cnt != ref).sum().item()} counts differ")
+        ties = int((cnt > 1).sum())
+        if ties == 0:
+            raise PhaseError(f"maxpool_count C={c}: no tied maximum in a cloud with duplicated points")
+        k_ms = time_ms(lambda: banded_maxpool_tie_count_fused(f, q, s, out, ra, 128, bw))
+        p_ms = time_ms(lambda: banded_maxpool_tie_count_plain(f, q, s, out, ra, 128, bw), 3)
+        bd = call_bound("banded_maxpool_tie_count_fused", (f, q, s, out, ra, 128, bw))
+        tally.add("maxpool_count", 0.0, k_ms, p_ms, bd)
+        say("kernels", f"maxpool_count C={c} B={b} M={m} N={n}: counts equal, {ties} tied (query, channel) "
+            f"maxima; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        gs = torch.randn(b, m, c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
+        ref = banded_maxpool_route_plain(gs, f, q, s, out, ra, 128, bw)
+        got = banded_maxpool_backward_fused(gs, f, q, s, out, ra, 128, bw)
+        torch.cuda.synchronize()
+        e13 = rel_err(got, ref)
+        if e13 > 1e-5:
+            raise PhaseError(f"maxpool_bwd C={c}: rel err {e13:.3e} > 1e-5")
+        k_ms = time_ms(lambda: banded_maxpool_backward_fused(gs, f, q, s, out, ra, 128, bw))
+        p_ms = time_ms(lambda: banded_maxpool_route_plain(gs, f, q, s, out, ra, 128, bw), 3)
+        bd = call_bound("banded_maxpool_backward_fused", (gs, f, q, s, out, ra, 128, bw))
+        tally.add("maxpool_bwd", (got - ref).abs().max().item(), k_ms, p_ms, bd)
+        say("kernels", f"maxpool_bwd C={c} B={b} M={m} N={n}: rel {e13:.2e}; "
+            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        del base, f, out, ref, cnt, gs, got
 
 
 def frames(cfg, count, device, start=0):
@@ -216,6 +429,247 @@ def check_fp32_path(device, seed):
     if worst > 1e-3:
         raise PhaseError(f"fp32 kernels vs plain: {errs}")
     say("fp32", "B=1 forward, kernels vs plain versions: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+
+def check_grad(device, seed):
+    """One fp32 train step at B=1 on a KITTI-scale frame, through the
+    kernels (the autograd Functions) and through the plain versions under
+    autograd, with the same weights and draws.
+
+    Whole step: the loss terms agree to 1e-4, and every parameter gradient
+    to 1e-3 as rms(difference) / rms(gradient); the biases a one-channel
+    group norm cancels (zero in exact arithmetic) are divided by the rms of
+    the whole gradient instead.  The element-wise worst is printed, not
+    gated: the two forwards differ by fp32 rounding, which flips a few
+    leaky-ReLU signs and near-tied maxima, and each flip moves single
+    gradient elements by O(1e-2) of their tensor (PERF.md, Findings).
+    Layer by layer: every KPConv and strided maxpool call of the kernel
+    step is replayed on its own inputs through its autograd Function and
+    through autograd of its plain version, with one random cotangent:
+    feature and weight gradients agree to 1e-4 (KPConv) and 1e-5 (maxpool),
+    element-wise.
+    """
+    import torch
+
+    from cofii2p_tpu_torch import train_lib
+    from cofii2p_tpu_torch.config import KITTIConfig
+    from cofii2p_tpu_torch.models.kpconv import KPConv, ResidualBlock, norm_cancelled_biases
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.utils.convert import randomize
+
+    cfg = KITTIConfig()
+    hb = frames(cfg, 1, device)
+    draws = train_lib.make_train_draws(cfg, 1, torch.Generator(device).manual_seed(seed), device)
+    model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed))
+    state, cancelled = model.state_dict(), set(norm_cancelled_biases(model))
+    results, calls = {}, []
+
+    def record(mod, args):
+        calls.append((mod, tuple(a.detach() if torch.is_tensor(a) else a for a in args)))
+
+    torch.cuda.reset_peak_memory_stats()
+
+    for name, kernel in (("kernels", "auto"), ("plain", "xla")):
+        model = CoFiI2P(cfg.replace(kpconv_kernel=kernel)).to(device)
+        model.load_state_dict(state)
+        hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+                 if kernel == "auto" and (isinstance(m, KPConv) or (isinstance(m, ResidualBlock) and m.strided))]
+        with torch.no_grad():
+            batch = train_lib.prepare_batch(cfg, hb, draws)
+        reset_launches()
+        terms = train_lib.loss_fn(cfg, model, batch)
+        terms["loss"].backward()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for h in hooks:
+            h.remove()
+        # parameters the losses do not reach (the image score head, the /32
+        # ResNet stage) have no gradient, where JAX's would be zeros
+        results[name] = ({k: terms[k].detach() for k in train_lib.METRICS},
+                         {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                          for n, p in model.named_parameters()}, launches)
+        del model, terms, batch
+        torch.cuda.empty_cache()
+    (lk, gk, launches), (lp, gp, plain_launches) = results["kernels"], results["plain"]
+    if any(plain_launches.values()):
+        raise PhaseError(f"grad: the plain step launched kernels {plain_launches}")
+    for name in ("kpconv_aggregate", "kpconv_transpose", "maxpool", "maxpool_count", "maxpool_bwd"):
+        if launches[name] != PER_STEP[name]:
+            raise PhaseError(f"grad: {name} launched {launches[name]} times in the step, expected {PER_STEP[name]}")
+    if not all(torch.isfinite(g).all() for g in gk.values()):
+        raise PhaseError("grad: non-finite gradients through the kernels")
+    loss_err = {k: rel_err(lk[k], lp[k]) for k in lk}
+    rms_err = grad_rms_errors(gk, gp, cancelled)
+    worst = max(rms_err, key=rms_err.get)
+    elem = {n: rel_err(gk[n], gp[n]) for n in gp if n not in cancelled}
+    worst_elem = max(elem, key=elem.get)
+    if max(loss_err.values()) > 1e-4 or rms_err[worst] > 1e-3:
+        bad = sorted(rms_err.items(), key=lambda kv: -kv[1])[:5]
+        raise PhaseError(f"grad: losses {loss_err} (<= 1e-4), worst gradients {bad} (<= 1e-3)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    local = check_layer_grads(calls, device)
+    say("grad", f"B=1 fp32 train step (peak {peak:.1f} GiB), kernels vs plain versions under autograd: losses "
+        + ", ".join(f"{k} {float(lk[k]):.4f} (rel {v:.1e})" for k, v in loss_err.items())
+        + f"; {len(rms_err)} parameter gradients, worst rms-relative {rms_err[worst]:.2e} ({worst}); "
+        f"element-wise worst {elem[worst_elem]:.2e} ({worst_elem}); " + local)
+
+
+def grad_rms_errors(grads, ref, cancelled):
+    """rms(grads - ref) / rms(ref) per tensor; the biases in ``cancelled``
+    (zero gradient in exact arithmetic) are divided by the rms of the whole
+    reference gradient instead."""
+    import torch
+
+    flat = torch.cat([r.flatten().double() for r in ref.values()])
+    rms_all = flat.pow(2).mean().sqrt().item()
+    errs = {}
+    for name, r in ref.items():
+        d = (grads[name].double() - r.double()).pow(2).mean().sqrt().item()
+        scale = rms_all if name in cancelled else r.double().pow(2).mean().sqrt().item()
+        errs[name] = d / max(scale, 1e-30)
+    return errs
+
+
+def check_layer_grads(calls, device):
+    """Each recorded KPConv and strided-maxpool call of the kernel step,
+    replayed through its autograd Function and through autograd of its
+    plain version on the same inputs with one random cotangent."""
+    import torch
+
+    from cofii2p_tpu_torch.models.kpconv import KPConv
+    from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_apply, banded_kpconv_fused_plain
+    from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_apply, banded_maxpool_plain
+
+    gen = torch.Generator(device).manual_seed(0)
+    worst_kp, worst_mp, n_kp, n_mp = 0.0, 0.0, 0, 0
+    while calls:
+        mod, (s_feats, q, s, *_) = calls.pop(0)
+        grads, g = [], None
+        if isinstance(mod, KPConv):
+            for fn in (banded_kpconv_apply, banded_kpconv_fused_plain):
+                f = s_feats.clone().requires_grad_()
+                w = mod.weights.detach().clone().requires_grad_()
+                out, _ = fn(f, q, s, w, mod.radius, mod.sigma, mod.kernel_size, mod.tile, mod.band_width, mod.dtype)
+                g = torch.randn(out.shape, generator=gen, device=device) if g is None else g
+                out.backward(g)
+                grads.append((f.grad, w.grad))
+                del out, f, w
+            e = max(rel_err(grads[0][0], grads[1][0]), rel_err(grads[0][1], grads[1][1]))
+            worst_kp, n_kp = max(worst_kp, e), n_kp + 1
+            if e > 1e-4:
+                raise PhaseError(f"grad: KPConv M={q.shape[1]} N={s.shape[1]} C={s_feats.shape[-1]}: "
+                                 f"feature/weight gradient rel {e:.2e} > 1e-4 against the plain version")
+        else:
+            for fn in (banded_maxpool_apply, banded_maxpool_plain):
+                f = s_feats.clone().requires_grad_()
+                out = fn(f, q, s, mod.r_active, mod.tile, mod.band_width)
+                g = torch.randn(out.shape, generator=gen, device=device) if g is None else g
+                out.backward(g)
+                grads.append(f.grad)
+                del out, f
+            e = rel_err(grads[0], grads[1])
+            worst_mp, n_mp = max(worst_mp, e), n_mp + 1
+            if e > 1e-5:
+                raise PhaseError(f"grad: maxpool M={q.shape[1]} C={s_feats.shape[-1]}: gradient rel {e:.2e} > 1e-5")
+        del grads, g, s_feats
+        torch.cuda.empty_cache()
+    if (n_kp, n_mp) != (14, 4):
+        raise PhaseError(f"grad: replayed {n_kp} KPConv and {n_mp} maxpool calls, expected 14 and 4")
+    return (f"layer by layer on the step's own inputs: {n_kp} KPConvs worst rel {worst_kp:.2e} (<= 1e-4), "
+            f"{n_mp} maxpools worst rel {worst_mp:.2e} (<= 1e-5)")
+
+
+def train(device, seed, smi_line):
+    """The trainer's main path through its CLI entry point, then a restore
+    of its checkpoint and one eval_step on it."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cofii2p_tpu_torch import train as train_cli
+    from cofii2p_tpu_torch import train_lib
+    from cofii2p_tpu_torch.config import KITTIConfig
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint
+
+    steps, frames_total = [], 40
+    captured = {}
+    make_step = train_lib.make_train_step
+
+    def recording_make_train_step(cfg, model, optimizer, has_normals=True):
+        captured["model"] = model
+        captured["before"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_step(cfg, model, optimizer, has_normals)
+
+        def timed_step(host_batch, draws):
+            torch.cuda.synchronize()
+            before = read_launches()
+            t0 = time.perf_counter()
+            metrics = step(host_batch, draws)
+            torch.cuda.synchronize()
+            per_step = {k: v - before[k] for k, v in read_launches().items()}
+            steps.append((time.perf_counter() - t0, per_step, {k: float(v) for k, v in metrics.items()}))
+            return metrics
+
+        return timed_step
+
+    root = tempfile.mkdtemp(prefix="train_", dir=OUT_DIR)
+    argv = ["kitti", f"root_path={root}", f"val_freq={TRAIN_STEPS}", "--synthetic", "--steps", str(TRAIN_STEPS),
+            "--batch_size", str(BATCH), "--synthetic_frames", str(frames_total)]
+    train_lib.make_train_step = recording_make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        save_dir = train_cli.main(argv)
+    finally:
+        train_lib.make_train_step = make_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # every step and the validation at the last one
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    if len(steps) != TRAIN_STEPS:
+        raise PhaseError(f"train: {len(steps)} steps ran, expected {TRAIN_STEPS}")
+    for i, (_, per_step, metrics) in enumerate(steps):
+        for name, want in PER_STEP.items():
+            if per_step[name] != want:
+                raise PhaseError(f"train: step {i} launched {name} {per_step[name]} times, expected {want}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise PhaseError(f"train: step {i} metrics not finite: {metrics}")
+    model = captured["model"]
+    moved = sum(int(not torch.equal(p.detach(), captured["before"][n])) for n, p in model.named_parameters())
+    if moved == 0:
+        raise PhaseError("train: no parameter changed in 4 steps")
+    path = latest_checkpoint(save_dir)
+    if path is None:
+        raise PhaseError(f"train: no checkpoint under {save_dir}")
+    cfg = KITTIConfig()
+    restored = CoFiI2P(cfg).to(device)
+    step_no = restore_checkpoint(path, restored)
+    mismatched = [k for k, v in model.state_dict().items() if not torch.equal(v, restored.state_dict()[k])]
+    if step_no != TRAIN_STEPS or mismatched:
+        raise PhaseError(f"train: checkpoint step {step_no}, {len(mismatched)} tensors differ after restore")
+    hb = frames(cfg, BATCH, device, start=frames_total)
+    recalls = train_lib.make_eval_step(cfg, restored)(
+        hb, train_lib.make_train_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device))
+    recalls = {k: float(v) for k, v in recalls.items()}
+    if not all(math.isfinite(v) for v in recalls.values()):
+        raise PhaseError(f"train: eval_step on the restored checkpoint not finite: {recalls}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    ms = [dt * 1e3 for dt, _, _ in steps]
+    steady = sum(ms[1:]) / max(len(ms) - 1, 1)
+    say("train", f"{TRAIN_STEPS} steps x {BATCH} frames ({cfg.img_H}x{cfg.img_W}, {cfg.num_pc} pts), fp32 static bands, "
+        "through train.main "
+        f"in {wall:.1f} s: losses " + " -> ".join(f"{m['loss']:.4f}" for _, _, m in steps)
+        + f", grad norm {steps[-1][2]['grad_norm']:.3f}; ms/step " + ", ".join(f"{x:.1f}" for x in ms)
+        + f" (steady {steady:.1f} ms, {BATCH * 1e3 / steady:.2f} frames/s); peak {peak:.2f} GiB; "
+        + "launches/step " + ", ".join(f"{k} {v}" for k, v in steps[-1][1].items())
+        + f"; {moved} parameter tensors moved; restored {os.path.basename(path)}, eval_step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in recalls.items()) + f"; card {smi_line}")
+    return launches
 
 
 def check_pose(device, gen):
@@ -274,8 +728,7 @@ def serve(device, seed, smi_line, profile=False):
     run(requests[0], gen)  # warm-up
     torch.cuda.synchronize()
     wrappers = {"kpconv_fused": banded_kpconv_fused, "maxpool": banded_maxpool_fused, "attention": fused_attention}
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     outs = [run(hb, gen) for hb in requests[1:]]
@@ -362,27 +815,34 @@ def main():
             fh.write(cuda_lib.build_log)
     say("build", f"{os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
 
-    results = {}
+    tally = Tally()
     gen = torch.Generator().manual_seed(args.seed)
+    launches = {}
     try:
         if "kernels" in phases:
-            check_kernels(device, gen, results)
+            check_kernels(device, gen, tally)
         if "fp32" in phases:
             check_fp32_path(device, args.seed)
+        if "grad" in phases:
+            check_grad(device, args.seed)
         if "pose" in phases:
             check_pose(device, gen)
-        launches = {}
         if "serve" in phases:
-            launches, _, _ = serve(device, args.seed, smi_line, args.profile)
+            served, _, _ = serve(device, args.seed, smi_line, args.profile)
+            launches.update({k: served[k] for k in SERVE_KERNELS})
+        if "train" in phases:
+            trained = train(device, args.seed, smi_line)
+            launches.update({k: v for k, v in trained.items() if k not in SERVE_KERNELS})
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     if set(phases) != set(PHASES):
         say("done", f"phases {','.join(phases)} passed; the result lines need every phase")
         return 0
+    results = tally.results()
     summary = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
-             launches=launches.get(name, 0), **results.get(name, {}))
+             launches=launches[name], **results[name])
         for name in KERNELS
     ]}
     print(json.dumps(summary))

@@ -1,12 +1,16 @@
-// Fused banded KPConv for Hopper: neighbor aggregation and the kernel-weight
-// contraction in one kernel.
+// Banded KPConv for Hopper: neighbor aggregation, with the kernel-weight
+// contraction fused in (CONTRACT) or the per-kernel-point aggregate written
+// out (the training forward).
 //
 // Replaces: cofii2p_tpu/ops/kpconv_kernel.py::banded_kpconv_fused_pallas
-// (body _agg_fused_kernel).  Same function: for each query m,
+// (body _agg_fused_kernel) and, with CONTRACT off,
+// banded_kpconv_aggregate_pallas (body _agg_kernel).  Fused: for each query m,
 //   out[m, :] = sum_k ( sum_j infl_k(q_m, s_j) f_j ) @ W_k
 // over the band rows j of m's 128-query tile that lie within kernel reach,
 // plus count[m] = max(#in-reach band rows, 1).  The output is fp32 and
-// unnormalised; the caller divides by count and adds the bias.
+// unnormalised; the caller divides by count and adds the bias.  Aggregate:
+// weighted[m, k, :] = sum_j infl_k(q_m, s_j) f_j in fp32, the residual the
+// weight gradient needs, and the same count.
 //
 // What bounds it on the H100: at the deep levels (Cin = Cout = 512) the
 // contraction (15 * Cin * Cout MACs per query) and the weight reads; at the
@@ -20,12 +24,21 @@
 // Band rows with no in-reach query of the block are compacted out once per
 // block (an ordered list in shared memory), so the 15 passes only touch
 // rows that contribute.  No tensor cores yet: wgmma/TMA staging of the
-// contraction is later work.
+// contraction is later work.  The aggregate variant is bound by writing
+// its (B, M, 15, Cin) fp32 output (up to 315 MB a call at B = 8): each
+// thread writes acc_k straight from registers, one coalesced row of Cin
+// channels per query, instead of parking it; membership, influence and
+// counts are the same code as the fused variant's, so the two agree on
+// every count by construction.
 //
 // Exactness: membership d2 is computed as the JAX package computes it,
 // centred on the first query of the 128-row band tile (also when the block
 // covers fewer queries), with round-to-nearest intrinsics so no FMA is
 // contracted; the in-reach counts therefore equal the plain version's.
+// Influence takes its offset from the uncentred coordinates, s_j - q_m,
+// which is exact for nearby points: centred on a tile reference metres
+// away (a tile can straddle a Morton jump) each coordinate rounds at the
+// reference's scale, ~4e-6 m at 32 m, an influence error of ~2e-5.
 // bf16 rounding points follow the TPU kernel: influence and features are
 // rounded to the compute dtype before their product, the fp32 accumulator
 // is rounded before the contraction, W arrives already rounded.
@@ -45,7 +58,9 @@ constexpr int kAccElems = kThreads * kE;  // TQ * pad(Cin) bound
 // channel and the queries q0 + R * i.  A >= 1: Cin padded to 256 * A, so a
 // thread owns channels tid + 256 * a (a < A) of queries i / A.  AO is the
 // same for the output width.
-template <int A, int AO>
+// CONTRACT: out (B, M, Cout) = sum_k acc_k @ W_k; otherwise out is the
+// aggregate (B, M, K, Cin) and W is unused.
+template <int A, int AO, bool CONTRACT>
 __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const void* __restrict__ feats, int f_bf16, const float* __restrict__ W,
@@ -54,7 +69,9 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     int Cout, int K, int tile, int num_tiles, int band, int TQ, int cin_shift,
     int cout_shift, float r2, float sigma, int round) {
   __shared__ float qc_s[kMaxTQ * 3];
+  __shared__ float qa_s[kMaxTQ * 3];  // uncentred, for the influence
   __shared__ float pc_s[kRB * 3];
+  __shared__ float pa_s[kRB * 3];
   __shared__ int cnt_s[kMaxTQ];
   __shared__ int act[kSeg];
   __shared__ int warp_tot[kThreads / 32];
@@ -72,8 +89,10 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
   const float* srow = s_pts + ((long)b * N + start) * 3;
   const long frow0 = ((long)b * N + start) * Cin;
 
-  for (int i = tid; i < TQ * 3; i += kThreads)
-    qc_s[i] = __fsub_rn(q_pts[((long)b * M + m0) * 3 + i], ref_p[i % 3]);
+  for (int i = tid; i < TQ * 3; i += kThreads) {
+    qa_s[i] = q_pts[((long)b * M + m0) * 3 + i];
+    qc_s[i] = __fsub_rn(qa_s[i], ref_p[i % 3]);
+  }
   for (int i = tid; i < TQ; i += kThreads) cnt_s[i] = 0;
   __syncthreads();
 
@@ -141,7 +160,8 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
         const int nr = min(kRB, n_act - r0);
         if (tid < nr * 3) {
           const int j = seg0 + act[r0 + tid / 3];
-          pc_s[tid] = __fsub_rn(srow[j * 3 + tid % 3], ref_p[tid % 3]);
+          pa_s[tid] = srow[j * 3 + tid % 3];
+          pc_s[tid] = __fsub_rn(pa_s[tid], ref_p[tid % 3]);
         }
         __syncthreads();
         // influence of kernel point k for (query, chunk row)
@@ -152,9 +172,11 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
             const float* qc = qc_s + 3 * q;
             const float* pc = pc_s + 3 * r;
             if (cofii2p::membership_d2(qc, pc[0], pc[1], pc[2]) <= r2) {
-              const float dx = (pc[0] - qc[0]) - kx;
-              const float dy = (pc[1] - qc[1]) - ky;
-              const float dz = (pc[2] - qc[2]) - kz;
+              const float* qa = qa_s + 3 * q;
+              const float* pa = pa_s + 3 * r;
+              const float dx = (pa[0] - qa[0]) - kx;
+              const float dy = (pa[1] - qa[1]) - ky;
+              const float dz = (pa[2] - qa[2]) - kz;
               v = fmaxf(1.f - sqrtf(dx * dx + dy * dy + dz * dz) / sigma, 0.f);
               if (round) v = cofii2p::round_bf16(v);
             }
@@ -192,6 +214,22 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
       }
     }
 
+    if constexpr (!CONTRACT) {
+      // the aggregate acc_k, unrounded fp32, straight to weighted[b, m, k, :]
+#pragma unroll
+      for (int i = 0; i < kE; ++i) {
+        int q, c;
+        if (A == 0) {
+          q = q0 + R * i;
+          c = tid & cin_mask;
+        } else {
+          q = i / (A > 0 ? A : 1);
+          c = tid + kThreads * (i % (A > 0 ? A : 1));
+        }
+        if (q < TQ && c < Cin) out[(((long)b * M + m0 + q) * K + k) * Cin + c] = acc[i];
+      }
+      continue;
+    }
     // park acc_k (rounded to the compute dtype) as a (TQ, Cin) matrix
 #pragma unroll
     for (int i = 0; i < kE; ++i) {
@@ -236,17 +274,19 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     __syncthreads();
   }
 
+  if constexpr (CONTRACT) {
 #pragma unroll
-  for (int i = 0; i < kE; ++i) {
-    int q, d;
-    if (AO == 0) {
-      q = qo0 + RO * i;
-      d = tid & cout_mask;
-    } else {
-      q = i / (AO > 0 ? AO : 1);
-      d = tid + kThreads * (i % (AO > 0 ? AO : 1));
+    for (int i = 0; i < kE; ++i) {
+      int q, d;
+      if (AO == 0) {
+        q = qo0 + RO * i;
+        d = tid & cout_mask;
+      } else {
+        q = i / (AO > 0 ? AO : 1);
+        d = tid + kThreads * (i % (AO > 0 ? AO : 1));
+      }
+      if (q < TQ && d < Cout) out[((long)b * M + m0 + q) * Cout + d] = o[i];
     }
-    if (q < TQ && d < Cout) out[((long)b * M + m0 + q) * Cout + d] = o[i];
   }
   for (int q = tid; q < TQ; q += kThreads) count[(long)b * M + m0 + q] = max(cnt_s[q], 1);
 }
@@ -257,13 +297,13 @@ int log2_pad(int x) {
   return s;
 }
 
-template <int A, int AO>
+template <int A, int AO, bool CONTRACT = true>
 void launch(dim3 grid, cudaStream_t st, const float* q, const float* s,
             const void* f, int f_bf16, const float* W, const float* kp,
             const int* starts, float* out, int* count, int M, int N, int Cin,
             int Cout, int K, int tile, int num_tiles, int band, int TQ,
             int cs, int os, float r2, float sigma, int round) {
-  kpconv_fused_kernel<A, AO><<<grid, kThreads, 0, st>>>(
+  kpconv_fused_kernel<A, AO, CONTRACT><<<grid, kThreads, 0, st>>>(
       q, s, f, f_bf16, W, kp, starts, out, count, M, N, Cin, Cout, K, tile,
       num_tiles, band, TQ, cs, os, r2, sigma, round);
 }
@@ -307,6 +347,39 @@ extern "C" int kpconv_fused_launch(
   COFII2P_LAUNCH(2, 0)
   COFII2P_LAUNCH(2, 1)
   COFII2P_LAUNCH(2, 2)
+#undef COFII2P_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The aggregate (training forward): q, s, f, kp, starts as above; weighted
+// (B, M, K, Cin) fp32, count (B, M) int32.  TQ divides tile, TQ <= 128,
+// TQ * pad(Cin) <= 8192.
+extern "C" int kpconv_aggregate_launch(
+    const void* q, const void* s, const void* f, int f_bf16, const void* kp,
+    const void* starts, void* weighted, void* count, int B, int M, int N,
+    int Cin, int K, int tile, int num_tiles, int band, int TQ, int round,
+    float r2, float sigma, void* stream) {
+  const int cs = log2_pad(Cin);
+  const int A = cs < 8 ? 0 : 1 << (cs - 8);
+  if (A > 2 || TQ < 1 || TQ > kMaxTQ || tile % TQ || M % TQ ||
+      (TQ << cs) > kAccElems || band > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(M / TQ, B);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const float*>(q);
+  auto sp = static_cast<const float*>(s);
+  auto kpp = static_cast<const float*>(kp);
+  auto stp = static_cast<const int*>(starts);
+  auto wp = static_cast<float*>(weighted);
+  auto cp = static_cast<int*>(count);
+#define COFII2P_LAUNCH(a)                                                      \
+  if (A == a)                                                                  \
+    launch<a, 0, false>(grid, st, qp, sp, f, f_bf16, nullptr, kpp, stp, wp, cp, \
+                        M, N, Cin, 0, K, tile, num_tiles, band, TQ, cs, 0, r2, \
+                        sigma, round);
+  COFII2P_LAUNCH(0)
+  COFII2P_LAUNCH(1)
+  COFII2P_LAUNCH(2)
 #undef COFII2P_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,11 +6,15 @@ cofii2p_tpu/utils/checkpoint.py::export_t7 writes (``encoder1_1.KPConv.
 weights``, ``encoder2_1.norm_conv.norm.weight``, ...), so a reference
 state dict loads with ``strict=True``.
 
-Every KPConv goes through ops/kpconv_kernel.py::banded_kpconv_fused and
-every strided shortcut through ops/maxpool_kernel.py::banded_maxpool_fused
+Every KPConv goes through ops/kpconv_kernel.py::banded_kpconv_apply and
+every strided shortcut through ops/maxpool_kernel.py::banded_maxpool_apply
 when ``kernel`` is 'auto' or 'pallas' (the CUDA kernels on the card, their
-plain versions on the CPU); ``kernel='xla'`` calls the plain versions
-directly, as the JAX config's 'xla' selects the XLA twins.
+plain versions on the CPU): differentiated, through the autograd Functions
+whose backwards are kernels too; otherwise the fused KPConv kernel where
+``fused_contraction_fits`` (all 14 convs in bf16, 12 in fp32), else the
+aggregate kernel and a matmul, as the JAX package chooses.
+``kernel='xla'`` calls the plain versions directly under plain autograd,
+as the JAX config's 'xla' selects the XLA twins.
 """
 
 from __future__ import annotations
@@ -22,8 +26,8 @@ from torch import nn
 from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
 from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu
 from cofii2p_tpu_torch.ops.banded import banded_nearest_index, dynamic_band_starts, kernel_reach
-from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_fused, banded_kpconv_fused_plain
-from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_fused, banded_maxpool_plain
+from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_apply, banded_kpconv_fused_plain, fused_contraction_fits
+from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_apply, banded_maxpool_plain
 
 KERNELS = ("auto", "pallas", "xla")
 
@@ -32,8 +36,8 @@ class KPConv(nn.Module):
     """Rigid kernel-point convolution over banded radius neighborhoods.
 
     forward(s_feats (B, N, Cin), q_points (B, M, 3), s_points (B, N, 3),
-    starts) -> (B, M, Cout) fp32: the fused aggregation + contraction,
-    divided by the in-reach count, plus bias (kpconv.py:355-377).
+    starts) -> (B, M, Cout) fp32: the aggregation + contraction, divided
+    by the in-reach count, plus bias (kpconv.py:355-382).
     """
 
     def __init__(self, in_channels, out_channels, kernel_size=15, radius=0.425, sigma=0.2,
@@ -48,13 +52,16 @@ class KPConv(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_channels).uniform_(-bound, bound))
         kp = np.asarray(load_kernel_points(radius, kernel_size, 3), np.float32)
         self.register_buffer("kernel_points", torch.as_tensor(kp))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        self.fused = fused_contraction_fits(kernel_size, in_channels, out_channels, tile, wbytes=itemsize)
 
     def forward(self, s_feats, q_points, s_points, starts=None):
-        fn = banded_kpconv_fused_plain if self.kernel == "xla" else banded_kpconv_fused
-        out, count = fn(
-            s_feats, q_points, s_points, self.weights, self.radius, self.sigma,
-            self.kernel_size, self.tile, self.band_width, self.dtype, starts,
-        )
+        args = (s_feats, q_points, s_points, self.weights, self.radius, self.sigma,
+                self.kernel_size, self.tile, self.band_width, self.dtype, starts)
+        if self.kernel == "xla":
+            out, count = banded_kpconv_fused_plain(*args)
+        else:
+            out, count = banded_kpconv_apply(*args, fused=self.fused)
         return out / count[..., None].to(out.dtype) + self.bias
 
 
@@ -114,13 +121,34 @@ class ResidualBlock(nn.Module):
         x = self.KPConv(x, q_points, s_points, starts)
         x = self.unary2(leaky_relu(self.norm_conv(x)))
         if self.strided:
-            fn = banded_maxpool_plain if self.kernel == "xla" else banded_maxpool_fused
+            fn = banded_maxpool_plain if self.kernel == "xla" else banded_maxpool_apply
             shortcut = fn(s_feats, q_points, s_points, self.r_active, self.tile, self.band_width, starts)
         else:
             shortcut = s_feats
         if self.unary_shortcut is not None:
             shortcut = self.unary_shortcut(shortcut)
         return leaky_relu(x + shortcut)
+
+
+def norm_cancelled_biases(model: nn.Module) -> list:
+    """Names of the biases added right before a group norm with one channel
+    per group (encoder1_2's and encoder2_1's KPConv and unary1 biases): the
+    norm subtracts each again, so their gradient is zero in exact
+    arithmetic and only rounding noise in fp32.  Gradient comparisons judge
+    these against the model's gradient scale instead of their own."""
+    names = []
+    for prefix, mod in model.named_modules():
+        pairs = []
+        if isinstance(mod, UnaryBlock) and mod.norm is not None:
+            pairs.append(("mlp.bias", mod.norm))
+        elif isinstance(mod, ResidualBlock):
+            pairs.append(("KPConv.bias", mod.norm_conv))
+        elif isinstance(mod, ConvBlock):
+            pairs.append(("KPConv.bias", mod.norm))
+        for name, norm in pairs:
+            if norm.norm.num_groups == norm.norm.weight.numel():
+                names.append(f"{prefix}.{name}" if prefix else name)
+    return names
 
 
 class KPConvFPN(nn.Module):

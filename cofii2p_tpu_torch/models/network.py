@@ -1,11 +1,12 @@
-"""CoFiI2P network, test mode (counterpart of cofii2p_tpu/models/network.py).
+"""CoFiI2P network (counterpart of cofii2p_tpu/models/network.py).
 
 Two-stream encoders (ResNet-34 image branch, banded KPConv FPN), sine
 positional encodings, the 8-layer I2P transformer, overlap score heads,
-the /2 fine image map, and the closed-form test-mode selection that
-replaces the reference's threshold-decay loop.  Module names follow the
-reference state dict, so ``utils/convert.py`` and a reference ``.t7``
-load into it by name.
+the /2 fine image map; then, in ``mode='test'``, the closed-form selection
+that replaces the reference's threshold-decay loop, or, in ``'train'`` and
+``'val'``, the supervised fine patches around the batch's keypoints.
+Module names follow the reference state dict, so ``utils/convert.py`` and
+a reference ``.t7`` load into it by name.
 """
 
 from __future__ import annotations
@@ -83,8 +84,9 @@ class ScoreHead(nn.Sequential):
 
 
 class CoFiI2P(nn.Module):
-    """forward(batch, mode='test') on a batch prepared by
-    data/device_pipeline.py::prepare_samples."""
+    """forward(batch, mode='test', train=False) on a batch prepared by
+    data/device_pipeline.py::prepare_samples; ``train`` puts the decoder
+    BatchNorms in training mode (batch statistics, running update)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -115,9 +117,7 @@ class CoFiI2P(nn.Module):
         self.img_upsample_2 = ImageUpSample(128 + 64, 64, dtype)
         self.dtype = dtype
 
-    def forward(self, batch, mode: str = "test"):
-        if mode != "test":
-            raise NotImplementedError("the port serves mode='test'; training comes later")
+    def forward(self, batch, mode: str = "test", train: bool = False):
         cfg, dtype = self.cfg, self.dtype
         img, points = batch["img"], batch["points"]
         b = img.shape[0]
@@ -144,8 +144,8 @@ class CoFiI2P(nn.Module):
         img_feature_norm = l2norm(img_mid_map)
 
         # the reference upsamples the l2-normalised /8 map (network.py:91,129)
-        up4 = self.img_upsample_1(img_s8.to(dtype), img_s4)
-        up2 = l2norm(self.img_upsample_2(up4, img_s2))
+        up4 = self.img_upsample_1(img_s8.to(dtype), img_s4, train)
+        up2 = l2norm(self.img_upsample_2(up4, img_s2, train))
 
         out = {
             "img_feature_norm": img_feature_norm,
@@ -157,7 +157,15 @@ class CoFiI2P(nn.Module):
             "img_mid": img_mid,
             "pc_features": pc_feature_set,
         }
-        out.update(self._test_mode(cfg, points, coarse_pc_score, pc_feature_norm, img_feature_norm, pc_fine, up2))
+        if mode in ("train", "val"):
+            # supervised fine patches around the projected keypoints (network.py:192-202)
+            idx = batch["fine_pc_inline_index"].long()
+            out["fine_pc_feature"] = torch.gather(pc_fine, 1, idx[..., None].expand(-1, -1, pc_fine.shape[-1]))
+            out["fine_img_patch"] = extract_patches(up2, batch["fine_center_kpt_coors"], 4)
+        elif mode == "test":
+            out.update(self._test_mode(cfg, points, coarse_pc_score, pc_feature_norm, img_feature_norm, pc_fine, up2))
+        else:
+            raise KeyError(mode)
         return out
 
     @staticmethod

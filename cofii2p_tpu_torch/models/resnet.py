@@ -37,14 +37,30 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode BatchNorm from running statistics, fp32 math, output in
-    x's dtype."""
+    """BatchNorm with flax's semantics, fp32 math, output in x's dtype.
 
-    def forward(self, x):
-        return F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-            False, 0.0, self.eps,
-        ).to(x.dtype)
+    ``train=False`` normalises with the running statistics.  ``train=True``
+    normalises with the batch's mean and biased variance, taken as
+    E[x^2] - E[x]^2 clipped at 0 (flax's fast variance), and updates the
+    running statistics in place, running = 0.9 running + 0.1 batch with the
+    biased variance (cofii2p_tpu/models/resnet.py:120-123): the port's
+    counterpart of JAX's mutable ``batch_stats``.  ``F.batch_norm`` in
+    training mode would store the unbiased variance instead.
+    """
+
+    def forward(self, x, train: bool = False):
+        x32 = x.float()
+        if not train:
+            return F.batch_norm(
+                x32, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps,
+            ).to(x.dtype)
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
 
 class BasicBlock(nn.Module):
@@ -114,23 +130,26 @@ class ResidualConv(nn.Module):
         self.conv2 = Conv2d(cout, cout, 3, 1, dtype)
         self.bn2 = BatchNorm2d(cout)
 
-    def forward(self, x):
-        identity = self.conv_skip(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+    def forward(self, x, train: bool = False):
+        identity = self.conv_skip[1](self.conv_skip[0](x), train)
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = self.bn2(self.conv2(out), train)
         return F.relu(out + identity)
 
 
 class ImageUpSample(nn.Module):
     """Bilinear x2 upsample (half-pixel centres, edge-clamped: what
     ``jax.image.resize(..., 'bilinear')`` computes when upsampling) + skip
-    concat + 2 residual convs.  NHWC in, NHWC out."""
+    concat + 2 residual convs.  NHWC in, NHWC out; ``train`` puts the
+    BatchNorms in training mode."""
 
     def __init__(self, cin, cout, dtype=torch.float32):
         super().__init__()
         self.conv = nn.Sequential(ResidualConv(cin, cout, dtype), ResidualConv(cout, cout, dtype))
 
-    def forward(self, x_coarse, x_skip):
+    def forward(self, x_coarse, x_skip, train: bool = False):
         up = F.interpolate(nchw(x_coarse), scale_factor=2, mode="bilinear", align_corners=False)
         x = torch.cat([up, nchw(x_skip).to(up.dtype)], dim=1)
-        return nhwc(self.conv(x))
+        for res in self.conv:
+            x = res(x, train)
+        return nhwc(x)

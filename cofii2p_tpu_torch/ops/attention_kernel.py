@@ -7,7 +7,9 @@ attention options, kept as it is).
 
 :func:`fused_attention` takes the plain version for a CPU tensor and
 launches the kernel (csrc/attention.cu) for a CUDA tensor; there is no
-other fallback.
+other fallback.  The JAX package has no backward for this kernel, so on
+the card it refuses inputs that require grad under grad mode (training
+uses ``attention='full'``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from cofii2p_tpu_torch.ops import cuda_lib
+from cofii2p_tpu_torch.ops.kpconv_kernel import check_no_grad
 
 HEAD_DIM = 32  # the head width the kernel takes
 
@@ -40,6 +43,7 @@ def fused_attention(q, k, v):
     dtype."""
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v)
+    check_no_grad("fused_attention (no backward exists; train with attention='full')", q, k, v)
     b, l, h, d = q.shape
     s = k.shape[1]
     if d != HEAD_DIM:

@@ -129,17 +129,19 @@ def _membership_d2(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return d2
 
 
-def _influence(offsets: torch.Tensor, kp: torch.Tensor, sigma: float):
+def _influence(offsets: torch.Tensor, kp: torch.Tensor, sigma: float) -> torch.Tensor:
     """Linear-correlation influence of each kernel point at each offset.
 
-    offsets (..., 3) -> influence (..., K) and squared distance (...,), by
-    the matmul identity (cofii2p_tpu/ops/banded.py:295-308).
+    offsets (..., 3) -> influence (..., K) fp32, by the matmul identity
+    (cofii2p_tpu/ops/banded.py:295-308) taken in float64: in fp32 the
+    identity cancels near a kernel point and the square root magnifies the
+    rounding there, while the CUDA kernels take the difference to the
+    kernel point directly; in float64 the plain version is an accurate
+    reference for them.
     """
-    d2 = torch.sum(offsets * offsets, dim=-1)
-    cross = torch.einsum("...d,kd->...k", offsets, kp)
-    sqk = d2[..., None] - 2.0 * cross + torch.sum(kp * kp, dim=-1)
-    infl = torch.clamp(1.0 - torch.sqrt(torch.clamp(sqk, min=0.0)) / sigma, min=0.0)
-    return infl, d2
+    o, k = offsets.double(), kp.double()
+    sqk = torch.sum(o * o, dim=-1)[..., None] - 2.0 * torch.einsum("...d,kd->...k", o, k) + torch.sum(k * k, dim=-1)
+    return torch.clamp(1.0 - torch.sqrt(torch.clamp(sqk, min=0.0)) / sigma, min=0.0).float()
 
 
 def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -194,7 +196,7 @@ def banded_kpconv_aggregate(
     for t0, t1 in _tile_chunks(num_tiles, b * tile * band * max(k_num, c)):
         q, p, f = qt[:, t0:t1], pb[:, t0:t1], fb[:, t0:t1]
         offs = p[:, :, None, :, :] - q[:, :, :, None, :]  # (B, t, T, band, 3)
-        infl, _ = _influence(offs, kp, sigma)  # (B, t, T, band, K)
+        infl = _influence(offs, kp, sigma)  # (B, t, T, band, K)
         within = _membership_d2(q, p) <= r2  # (B, t, T, band)
         infl = torch.where(within[..., None], infl, 0.0)
         count[:, t0:t1] = torch.clamp(within.sum(-1), min=1).to(torch.int32)
@@ -221,6 +223,143 @@ def banded_maxpool(s_feats, q_points, s_points, r_active, tile=128, band_width=1
         pooled = torch.where(within[..., None], f[:, :, None], neg).amax(dim=3)
         out[:, t0:t1] = torch.where(within.any(-1, keepdim=True), pooled, 0.0)
     return out.reshape(b, m, c)
+
+
+def banded_pair_count(q_points, s_points, r_active, tile=128, band_width=1024, starts=None):
+    """(B, M) int64 number of in-reach band rows of each query: the
+    unclamped in-reach count, i.e. the pairs a banded op must visit."""
+    b, m = q_points.shape[:2]
+    n = s_points.shape[1]
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    qt, pb, _ = _tiles(q_points, s_points, None, tile, num_tiles, band, starts)
+    r2 = float(np.float32(r_active * r_active))
+    out = torch.empty(b, num_tiles, tile, dtype=torch.int64, device=q_points.device)
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * band):
+        out[:, t0:t1] = (_membership_d2(qt[:, t0:t1], pb[:, t0:t1]) <= r2).sum(-1)
+    return out.reshape(b, m)
+
+
+# ---------------------------------------------------------------------------
+# backward passes (plain versions of the transposed kernels)
+# ---------------------------------------------------------------------------
+
+
+def _starts_of(m, n, tile, num_tiles, band, b, device, starts):
+    if starts is None:
+        return static_starts(m, n, tile, band, num_tiles, b, device)
+    return starts
+
+
+def _scatter_add_bands(out: torch.Tensor, contrib: torch.Tensor, starts: torch.Tensor) -> None:
+    """out (B, N, C) += each tile's band rows contrib (B, t, band, C),
+    placed at the tiles' starts (B, t)."""
+    b, nt, band, c = contrib.shape
+    idx = (starts.long()[..., None] + torch.arange(band, device=out.device)).reshape(b, nt * band)
+    out.scatter_add_(1, idx[..., None].expand(-1, -1, c), contrib.reshape(b, nt * band, c))
+
+
+def banded_kpconv_aggregate_transpose(
+    g_weighted, q_points, s_points, radius, sigma, kernel_size=15, tile=128,
+    band_width=1024, dtype=torch.float32, starts=None,
+):
+    """Transposed banded aggregation (plain version): the gradient of
+    :func:`banded_kpconv_aggregate` with respect to ``s_feats``,
+    g_feats[j, c] = sum over queries m whose band holds j and whose reach
+    holds j of sum_k infl_k(q_m, s_j) * g_weighted[m, k, c].
+
+    Membership is the forward's: ``d2 <= r2`` centred on the first query
+    of m's tile, and start(tile(m)) <= j < start(tile(m)) + band.  The
+    influence and g are rounded to ``dtype``, as the TPU backward casts
+    them (cofii2p_tpu/ops/kpconv_kernel.py:264-331, 479-522).
+
+    g_weighted (B, M, K, C) -> (B, N, C) fp32.
+    """
+    b, m, k_num, c = g_weighted.shape
+    n = s_points.shape[1]
+    dev = q_points.device
+    kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+    r2 = kernel_reach(radius, sigma, kernel_size) ** 2
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    starts = _starts_of(m, n, tile, num_tiles, band, b, dev, starts)
+    qt, pb, _ = _tiles(q_points, s_points, None, tile, num_tiles, band, starts)
+    gt = g_weighted.reshape(b, num_tiles, tile, k_num, c)
+    out = torch.zeros(b, n, c, dtype=torch.float32, device=dev)
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * band * max(k_num, c)):
+        q, p = qt[:, t0:t1], pb[:, t0:t1]
+        offs = p[:, :, None, :, :] - q[:, :, :, None, :]  # (B, t, T, band, 3)
+        infl = _influence(offs, kp, sigma)
+        within = _membership_d2(q, p) <= r2
+        infl = torch.where(within[..., None], infl, 0.0)
+        contrib = torch.einsum("xytbk,xytkc->xybc", _round(infl, dtype), _round(gt[:, t0:t1], dtype))
+        _scatter_add_bands(out, contrib, starts[:, t0:t1])
+    return out
+
+
+def _pool_tiles(s_feats, q_points, s_points, out, r_active, tile, band_width, starts):
+    """Shared set-up of the maxpool backward passes: tiles, bands, the
+    forward output per tile and every tile chunk's membership."""
+    b, m = q_points.shape[:2]
+    n, c = s_feats.shape[1:]
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    starts = _starts_of(m, n, tile, num_tiles, band, b, q_points.device, starts)
+    qt, pb, fb = _tiles(q_points, s_points, s_feats, tile, num_tiles, band, starts)
+    ot = out.reshape(b, num_tiles, tile, c)
+    r2 = r_active * r_active
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * band * c):
+        within = _membership_d2(qt[:, t0:t1], pb[:, t0:t1]) <= r2  # (B, t, T, band)
+        # (B, t, T, band, C): in reach and tied with the forward max
+        tied = within[..., None] & (fb[:, t0:t1, None].float() == ot[:, t0:t1, :, None].float())
+        yield t0, t1, starts, tied
+
+
+def banded_maxpool_tie_count(s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024, starts=None):
+    """Per (query, channel) count of in-reach band rows whose feature equals
+    the forward max ``out`` (plain version of the tie-count pass,
+    cofii2p_tpu/ops/maxpool_kernel.py:236-328).  Returns (B, M, C) fp32;
+    0 where the neighbourhood is empty."""
+    b, m, c = out.shape
+    parts = [tied.sum(3).float() for *_, tied in _pool_tiles(
+        s_feats, q_points, s_points, out, r_active, tile, band_width, starts)]
+    return torch.cat(parts, dim=1).reshape(b, m, c)
+
+
+def banded_maxpool_route(g_scaled, s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024, starts=None):
+    """Routing of the maxpool backward (plain version of
+    cofii2p_tpu/ops/maxpool_kernel.py::_maxpool_bwd_kernel): every in-reach
+    band row j whose feature equals the forward max ``out[m, c]`` receives
+    ``g_scaled[m, c]``.  The caller divides the cotangent by
+    max(tie count, 1) first (maxpool_kernel.py:478-483), so ties split it
+    evenly.  g_scaled (B, M, C) -> (B, N, C) fp32."""
+    b, m, c = g_scaled.shape
+    n = s_feats.shape[1]
+    res = torch.zeros(b, n, c, dtype=torch.float32, device=g_scaled.device)
+    g32 = g_scaled.float()
+    for t0, t1, starts_, tied in _pool_tiles(s_feats, q_points, s_points, out, r_active, tile, band_width, starts):
+        gt = g32.reshape(b, -1, tied.shape[2], c)[:, t0:t1, :, None]  # (B, t, T, 1, C)
+        _scatter_add_bands(res, torch.where(tied, gt, 0.0).sum(2), starts_[:, t0:t1])
+    return res
+
+
+def bwd_geometry(m: int, n: int, tile_q: int, band: int, starts: np.ndarray, stile: int = 256):
+    """Static plan of the transposed passes (a numpy copy of
+    cofii2p_tpu/ops/kpconv_kernel.py:458-476): support tile size, tile
+    count, the uniform query-window width (a multiple of tile_q) and each
+    support tile's first query tile of that window.  A support tile's
+    window holds every query tile whose static band touches it."""
+    stile = min(stile, n)
+    while n % stile:
+        stile //= 2
+    ns = n // stile
+    t_lo = np.zeros(ns, np.int64)
+    t_hi = np.zeros(ns, np.int64)
+    for s_i in range(ns):
+        touch = np.nonzero((starts < (s_i + 1) * stile) & (starts + band > s_i * stile))[0]
+        if len(touch):
+            t_lo[s_i], t_hi[s_i] = touch[0], touch[-1]
+    q_win = int(((t_hi - t_lo + 1) * tile_q).max())
+    q_win = min(-(-q_win // tile_q) * tile_q, m)
+    qstart = np.minimum(t_lo * tile_q, m - q_win)
+    return stile, ns, q_win, (qstart // tile_q).astype(np.int32)
 
 
 def banded_nearest_index(q_points, s_points, tile=128, band_width=1024):

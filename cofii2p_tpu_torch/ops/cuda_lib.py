@@ -2,8 +2,9 @@
 
 The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
 shared library with a plain C interface, loaded with ``ctypes``.  Nothing
-includes PyTorch's headers, so a build takes seconds.  The library lands
-in ``build/cofii2p_tpu_torch/`` at the repo root, named by a hash of the
+includes PyTorch's headers, so a build takes seconds: one ``nvcc`` per
+source, all started together, then one link.  The library lands in
+``build/cofii2p_tpu_torch/`` at the repo root, named by a hash of the
 sources and flags, so an edited source is rebuilt on next use and an
 unchanged one is reused.
 
@@ -24,7 +25,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cofii2p_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -34,8 +35,18 @@ SIGNATURES = {
     "kpconv_fused_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P],
+    "kpconv_aggregate_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _P],
+    "kpconv_transpose_launch": [_P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _P],
     "maxpool_launch": [_P, _P, _P, _I, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "maxpool_count_launch": [_P, _P, _P, _I, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "maxpool_bwd_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -73,16 +84,32 @@ def build() -> str:
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    obj_dir = tmp + ".o"
+    os.makedirs(obj_dir, exist_ok=True)
+    nvcc = _nvcc()
     cus = [p for p in _sources() if p.endswith(".cu")]
-    res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-        capture_output=True, text=True,
-    )
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    objs = [os.path.join(obj_dir, os.path.basename(p) + ".o") for p in cus]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for p, o in zip(cus, objs)
+    ]
+    logs, failed = [], []
+    for p, proc in zip(cus, procs):
+        text, _ = proc.communicate()
+        logs.append(f"== {os.path.basename(p)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(os.path.basename(p))
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

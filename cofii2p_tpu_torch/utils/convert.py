@@ -22,6 +22,9 @@ def _get(tree, path):
 
 
 def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
+    """The reference state dict of a flax param tree (or of a gradient tree
+    of the same structure, with ``batch_stats`` empty: then the BatchNorm
+    running statistics are left out)."""
     sd = {}
 
     def put(name, arr, kind="raw"):
@@ -81,9 +84,10 @@ def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
             for fbn, tbn in (("bn1", "bn1"), ("bn2", "bn2"), ("bn_skip", "conv_skip.1")):
                 put(tb + tbn + ".weight", _get(params, fb + (fbn, "scale")))
                 put(tb + tbn + ".bias", _get(params, fb + (fbn, "bias")))
-                put(tb + tbn + ".running_mean", _get(batch_stats, fb + (fbn, "mean")))
-                put(tb + tbn + ".running_var", _get(batch_stats, fb + (fbn, "var")))
-                sd[tb + tbn + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+                if batch_stats:  # empty when mapping a gradient tree
+                    put(tb + tbn + ".running_mean", _get(batch_stats, fb + (fbn, "mean")))
+                    put(tb + tbn + ".running_var", _get(batch_stats, fb + (fbn, "var")))
+                    sd[tb + tbn + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
     # KPConv FPN
     pe, fpe = "pc_encoder.", ("pc_encoder",)

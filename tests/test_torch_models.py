@@ -127,3 +127,53 @@ def test_cofii2p_test_mode(setup):
     # discrete selections: equal (random-weight tiny inputs have no near-ties here)
     for key in ("inlier_mask", "fine_center_xy", "threshold", "coarse_pc_points"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+
+
+def _kpconv_dispatch(monkeypatch, cfg, grad):
+    """Which kernel wrapper each KPConv of one FPN forward calls, by module
+    name; the wrappers are replaced by recorders that call through."""
+    import cofii2p_tpu_torch.ops.kpconv_kernel as kpk
+    from cofii2p_tpu_torch.models.kpconv import KPConv
+
+    calls, current = [], []
+    for name in ("banded_kpconv_fused", "banded_kpconv_aggregate_fused"):
+        orig = getattr(kpk, name)
+
+        def rec(*a, _orig=orig, _name=name, **k):
+            calls.append((current[-1], _name))
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(kpk, name, rec)
+    model = CoFiI2P(cfg)
+    for mname, mod in model.pc_encoder.named_modules():
+        if isinstance(mod, KPConv):
+            mod.register_forward_pre_hook(lambda m, a, _n=mname: current.append(_n))
+    hb = host_batch(cfg, 1)
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+
+    draws = make_draws(cfg, 1, torch.Generator().manual_seed(0), "cpu")
+    batch = prepare_samples(*(to_torch(hb[k]) for k in ("pc", "attrs", "P", "K", "img")), cfg, draws["perms"])
+    with torch.set_grad_enabled(grad):
+        model.pc_encoder(batch["feats"], batch["points"])
+    return calls
+
+
+@pytest.mark.parametrize("dtype,grad", [("float32", False), ("bfloat16", False), ("float32", True)])
+def test_kpconv_dispatch_follows_fused_contraction_fits(monkeypatch, dtype, grad):
+    """As the JAX package chooses (models/kpconv.py:355-382): without grad,
+    the fused kernel where fused_contraction_fits and the aggregate kernel
+    plus a matmul elsewhere, i.e. the two Cin = 512 convs in fp32 and none
+    in bf16; differentiated, every conv takes the aggregate kernel inside
+    BandedKPConvFn."""
+    from cofii2p_tpu_torch.config import TinyConfig
+
+    calls = _kpconv_dispatch(monkeypatch, TinyConfig(compute_dtype=dtype), grad)
+    assert len(calls) == 14
+    unfused = sorted(m for m, name in calls if name == "banded_kpconv_aggregate_fused")
+    if grad:
+        assert len(unfused) == 14
+    elif dtype == "float32":
+        assert unfused == ["encoder5_2.KPConv", "encoder5_3.KPConv"]
+    else:
+        assert unfused == []

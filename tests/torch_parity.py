@@ -87,24 +87,45 @@ def jax_variables(jcfg, hb: dict, seed: int = 0):
     return model, params, stats
 
 
-def replay_draws(jcfg, rng, batch: int) -> dict:
-    """JAX's random draws of one make_eval_body call, replayed from its key
-    splits (pipeline.py:41, device_pipeline.py:56,183-184,
-    pyramid.py:121-123, ransac.py:73): the per-level subsampling
-    permutations (B, N_l) and the RANSAC Gumbel noise (B, H, S)."""
-    prep_rng, ransac_rng = jax.random.split(rng)
+def replay_prep_draws(jcfg, prep_rng, batch: int) -> dict:
+    """JAX's random draws of one prepare_samples call, replayed from its key
+    splits (device_pipeline.py:56,103-116,183-184, pyramid.py:121-123): the
+    per-level subsampling permutations (B, N_l) and the Gumbel noise of the
+    three keypoint draws."""
     sizes = jcfg.pyramid_sizes
     perms = [[] for _ in sizes[1:]]
+    noise = {"kpt": [], "outline": [], "img_outline": []}
     for key in jax.random.split(prep_rng, batch):
-        r_pyr = jax.random.split(key, 4)[0]
+        r_pyr, r_kpt, r_out, r_imgout = jax.random.split(key, 4)
         for lvl in range(1, len(sizes)):
             r_pyr, sub = jax.random.split(r_pyr)
             perms[lvl - 1].append(np.asarray(jax.random.permutation(sub, sizes[lvl - 1])[: sizes[lvl]]))
+        noise["kpt"].append(np.asarray(jax.random.gumbel(r_kpt, (jcfg.num_superpoints,))))
+        noise["outline"].append(np.asarray(jax.random.gumbel(r_out, (jcfg.num_superpoints,))))
+        noise["img_outline"].append(np.asarray(jax.random.gumbel(r_imgout, (jcfg.num_img_tokens,))))
+    return {
+        "perms": [torch.as_tensor(np.stack(p)) for p in perms],
+        "keypoint_noise": {k: torch.as_tensor(np.stack(v)) for k, v in noise.items()},
+    }
+
+
+def replay_draws(jcfg, rng, batch: int) -> dict:
+    """JAX's random draws of one make_eval_body call, replayed from its key
+    splits (pipeline.py:41, ransac.py:73): the sample-prep draws and the
+    RANSAC Gumbel noise (B, H, S)."""
+    prep_rng, ransac_rng = jax.random.split(rng)
     gumbel = np.stack([
         np.asarray(jax.random.gumbel(k, (jcfg.ransac_hypotheses, jcfg.num_superpoints)))
         for k in jax.random.split(ransac_rng, batch)
     ])
-    return {"perms": [torch.as_tensor(np.stack(p)) for p in perms], "gumbel": torch.as_tensor(gumbel)}
+    return {"perms": replay_prep_draws(jcfg, prep_rng, batch)["perms"], "gumbel": torch.as_tensor(gumbel)}
+
+
+def replay_train_draws(jcfg, rng, step: int, batch: int) -> dict:
+    """JAX's draws of train step ``step`` (train_lib.py:122): the sample-prep
+    key is the first half of split(fold_in(rng, step))."""
+    prep_rng, _ = jax.random.split(jax.random.fold_in(rng, step))
+    return replay_prep_draws(jcfg, prep_rng, batch)
 
 
 def lidar_cloud(n, rng, extent=40.0, far=0):
