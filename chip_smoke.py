@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and `.t7` eval paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases device,build,kernels
@@ -15,10 +15,14 @@ the last line):
            kernels at the serving shapes, fp32 and bf16; the training
            kernels (aggregate, transposed aggregate, tie count, maxpool
            backward) at the trainer's fp32 shapes, B=8, on clouds with
-           duplicated points so that maxima tie; the kernel's and the plain
-           version's time (CUDA events) and the least time the card could
-           take for the same work (the larger of bytes over 3.35 TB/s and
-           operations over the peak rate of their type)
+           duplicated points so that maxima tie; the k-NN kernels (tau,
+           tau KPConv fused and aggregate, tau maxpool) at the `.t7`
+           path's fp32 shapes, B=8, on the same clouds, so that k-th and
+           (k+1)-th distances and maxima tie: tau and the maxpool bit-equal,
+           the KPConvs with equal active-row counts; the kernel's and the
+           plain version's time (CUDA events) and the least time the card
+           could take for the same work (the larger of bytes over 3.35 TB/s
+           and operations over the peak rate of their type)
   fp32     the whole forward at B=1 in fp32 through the kernels and through
            the plain versions: FPN and transformer outputs agree
   grad     one fp32 train step at B=1 on a KITTI-scale frame through the
@@ -43,6 +47,17 @@ the last line):
            finite losses and gradient norm, parameters moved, the
            checkpoint restores and one eval_step runs on it; ms/step,
            frames/s and peak memory.
+  t7       a reference-layout state dict from seeded weights, every KPConv
+           with its own rotated and jittered kernel points, written as
+           ref.t7; `python -m cofii2p_tpu_torch.evaluation.eval_all ref.t7
+           kitti --synthetic --synthetic_frames 16 --batch_size 8` through
+           eval_all.main (fp32 k-NN semantics, fused attention): the 16
+           per-frame dumps and both error arrays, launches per forward of
+           each kernel, finite poses wherever RANSAC succeeded, frames/s of
+           the second batch and peak memory; then one B=1 forward of the
+           same model through the kernels and through kpconv_kernel='xla':
+           every pair's tau bit-equal, every KPConv's active-row count
+           equal, FPN outputs within 1e-4.
 The second line before the last is the JSON kernel summary, then the
 nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
 Long logs go to chiprun_out/.
@@ -60,7 +75,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "train")
+PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "train", "t7")
 BATCH = 8
 REQUESTS = 3
 TRAIN_STEPS = 4
@@ -70,6 +85,13 @@ PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16}
 # backward; no fused KPConv and no fused attention while differentiating
 PER_STEP = {"kpconv_aggregate": 14, "kpconv_transpose": 13, "maxpool": 4, "maxpool_count": 4, "maxpool_bwd": 4,
             "kpconv_fused": 0, "attention": 0}
+# launches per fp32 `.t7` forward: one tau per (query level, support level)
+# pair (5 self, 4 cross), 12 KPConvs that fit the fused kernel and the two
+# Cin = 512 ones on the aggregate kernel, 4 strided shortcuts, 16 attention
+# calls; none of the radius kernels
+PER_T7_FORWARD = {"knn_tau": 9, "kpconv_fused_tau": 12, "kpconv_aggregate_tau": 2, "maxpool_tau": 4, "attention": 16,
+                  "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0}
+T7_DUMP_KEYS = {"GT_P", "pred_P", "K", "fine_xy", "corr_mask", "object_points", "superpoints_score"}
 KERNELS = {
     "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
     "maxpool": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:208"),
@@ -78,9 +100,14 @@ KERNELS = {
     "kpconv_transpose": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:516"),
     "maxpool_count": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:315"),
     "maxpool_bwd": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:537"),
+    "knn_tau": ("cofii2p_tpu_torch/csrc/knn_tau.cu", "cofii2p_tpu/ops/tau_kernel.py:110"),
+    "kpconv_aggregate_tau": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:691"),
+    "kpconv_fused_tau": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:1212"),
+    "maxpool_tau": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:657"),
 }
 # the path whose launch counts the summary reports for each kernel
 SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention")
+T7_KERNELS = ("knn_tau", "kpconv_aggregate_tau", "kpconv_fused_tau", "maxpool_tau")
 
 
 def wrappers():
@@ -88,11 +115,14 @@ def wrappers():
     from cofii2p_tpu_torch.ops import attention_kernel as att
     from cofii2p_tpu_torch.ops import kpconv_kernel as kpk
     from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
+    from cofii2p_tpu_torch.ops import tau_kernel as tk
 
     return {"kpconv_fused": kpk.banded_kpconv_fused, "maxpool": mpk.banded_maxpool_fused,
             "attention": att.fused_attention, "kpconv_aggregate": kpk.banded_kpconv_aggregate_fused,
             "kpconv_transpose": kpk.banded_kpconv_transpose_fused,
-            "maxpool_count": mpk.banded_maxpool_tie_count_fused, "maxpool_bwd": mpk.banded_maxpool_backward_fused}
+            "maxpool_count": mpk.banded_maxpool_tie_count_fused, "maxpool_bwd": mpk.banded_maxpool_backward_fused,
+            "knn_tau": tk.banded_knn_tau_kernel, "kpconv_aggregate_tau": kpk.banded_kpconv_aggregate_tau,
+            "kpconv_fused_tau": kpk.banded_kpconv_fused_tau, "maxpool_tau": mpk.banded_maxpool_tau}
 
 
 def reset_launches():
@@ -284,6 +314,7 @@ def check_kernels(device, gen, tally):
         f"bound {bd[0]:.3f} ms ({bd[1]})")
 
     check_training_kernels(device, gen, tally, cfg)
+    check_knn_kernels(device, gen, tally, cfg)
 
 
 def check_training_kernels(device, gen, tally, cfg):
@@ -385,6 +416,124 @@ def check_training_kernels(device, gen, tally, cfg):
         say("kernels", f"maxpool_bwd C={c} B={b} M={m} N={n}: rel {e13:.2e}; "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
         del base, f, out, ref, cnt, gs, got
+
+
+def check_knn_kernels(device, gen, tally, cfg):
+    """The four kernels of the `.t7` path against their plain versions at
+    its fp32 shapes, B=8, on clouds with duplicated points: tau on every
+    (query level, support level) pair of the FPN, bit-equal (its
+    library_ms is torch.topk over the same (tile, band) d2 blocks); the tau
+    KPConvs with per-layer kernel points and features of both signs, equal
+    active-row counts, fp32 rel <= 1e-4 and bf16 rel <= 5e-2 (kernel #1's);
+    the tau maxpool bit-equal in fp32 and bf16."""
+    import torch
+
+    from cofii2p_tpu_torch.ops.banded import _load_kernel_points, _membership_d2, _tiles, band_plan
+    from cofii2p_tpu_torch.ops.kpconv_kernel import (
+        banded_kpconv_aggregate_tau,
+        banded_kpconv_aggregate_tau_plain,
+        banded_kpconv_fused_tau,
+        banded_kpconv_fused_tau_plain,
+    )
+    from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_tau, banded_maxpool_tau_plain
+    from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel, banded_knn_tau_plain
+    from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
+    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, time_ms
+
+    b, r0, s0, plan, k = BATCH, cfg.init_radius, cfg.init_sigma, cfg.kpconv_band_plan, cfg.neighbor_num
+    levels, idents = pyramid_with_duplicates(cfg.pyramid_sizes, b, gen, device)
+
+    # --- #5 tau: the 5 self and 4 cross pairs of one forward ---------------
+    taus = {}
+    for ql, sl in [(lvl, lvl) for lvl in range(5)] + [(lvl, lvl - 1) for lvl in range(1, 5)]:
+        q, s, bw = levels[ql], levels[sl], plan[sl]
+        ref = banded_knn_tau_plain(q, s, k, 128, bw)
+        got = banded_knn_tau_kernel(q, s, k, 128, bw)
+        torch.cuda.synchronize()
+        bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        if bad:
+            raise PhaseError(f"knn_tau lvl{ql}<-lvl{sl}: {bad} of {ref.numel()} thresholds differ in their bits")
+        tile, nt, band = band_plan(q.shape[1], s.shape[1], 128, bw)
+        qt, pb, _ = _tiles(q, s, None, tile, nt, band, None)
+        d2 = _membership_d2(qt, pb)
+        # queries whose k-th and (k+1)-th distances tie: more than k members
+        ties = int(((d2 <= ref.reshape(b, nt, tile, 1)).sum(-1) > min(k, band)).sum())
+        k_ms = time_ms(lambda: banded_knn_tau_kernel(q, s, k, 128, bw))
+        p_ms = time_ms(lambda: banded_knn_tau_plain(q, s, k, 128, bw), 3)
+        l_ms = time_ms(lambda: torch.topk(d2, min(k + 1, band), dim=-1, largest=False))
+        bd = call_bound("banded_knn_tau_kernel", (q, s, k, 128, bw))
+        tally.add("knn_tau", 0.0, k_ms, p_ms, bd, library_ms=l_ms)
+        taus[(ql, sl)] = ref
+        say("kernels", f"knn_tau lvl{ql}<-lvl{sl} B={b} M={q.shape[1]} band {band} k={k}: bit-equal, "
+            f"{ties} queries with tied k-th/(k+1)-th distances; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"torch.topk {l_ms:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+        del d2, qt, pb
+
+    # --- #7 fused and #6 aggregate tau KPConvs -------------------------------
+    kgen = torch.Generator().manual_seed(1)
+    cases = [("enc1_2 lvl0 C32", 0, 0, 32, 32, r0, s0), ("enc3_2 lvl2 C128", 2, 2, 128, 128, r0 * 4, s0 * 4),
+             ("enc5_1 lvl4<-lvl3 C256", 4, 3, 256, 256, r0 * 8, s0 * 8),
+             ("enc5_2 lvl4 C512, aggregate", 4, 4, 512, 0, r0 * 16, s0 * 16)]
+    for name, ql, sl, cin, cout, r, sg in cases:
+        q, s, bw, tau = levels[ql], levels[sl], plan[sl], taus[(ql, sl)]
+        base = torch.randn(b, levels[0].shape[1], cin, generator=gen).to(device)
+        f = torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, cin))  # duplicated points, same rows
+        kp = jittered_kernel_points(torch.tensor(_load_kernel_points(r, 15), dtype=torch.float32), kgen).to(device)
+        sums = f.sum(-1)
+        near0 = int((sums.abs() <= 1e-6 * f.abs().sum(-1)).sum())
+        if cout:
+            w = (torch.randn(15, cin, cout, generator=gen) / cin**0.5).to(device)
+            args = (f, q, s, w, tau, kp, r, sg, 15, 128, bw)
+            kern, plain, kname = banded_kpconv_fused_tau, banded_kpconv_fused_tau_plain, "kpconv_fused_tau"
+        else:
+            args = (f, q, s, tau, kp, r, sg, 15, 128, bw)
+            kern, plain, kname = banded_kpconv_aggregate_tau, banded_kpconv_aggregate_tau_plain, "kpconv_aggregate_tau"
+        ref, ref_cnt = plain(*args)
+        out, cnt = kern(*args)
+        torch.cuda.synchronize()
+        e32 = rel_err(out, ref)
+        if not torch.equal(cnt, ref_cnt) or e32 > 1e-4:
+            raise PhaseError(f"{kname} {name}: counts differ at {(cnt != ref_cnt).sum().item()} queries "
+                             f"({near0} rows sum to within 1e-6 of 0), fp32 rel err {e32:.3e} (<= 1e-4)")
+        fb = f.to(torch.bfloat16)
+        args16 = (fb,) + args[1:] + (torch.bfloat16,)
+        out16, cnt16 = kern(*args16)
+        cnt16_ref = plain(*args16)[1]
+        torch.cuda.synchronize()
+        e16 = rel_err(out16, ref)
+        if not torch.equal(cnt16, cnt16_ref) or e16 > 5e-2:
+            raise PhaseError(f"{kname} {name}: bf16 counts differ at {(cnt16 != cnt16_ref).sum().item()} queries, "
+                             f"bf16 rel err {e16:.3e} (<= 5e-2)")
+        k_ms = time_ms(lambda: kern(*args))
+        p_ms = time_ms(lambda: plain(*args), 3)
+        bd = call_bound(f"banded_{kname}", args)
+        tally.add(kname, (out - ref).abs().max().item(), k_ms, p_ms, bd)
+        active = float((sums > 0).float().mean())
+        say("kernels", f"{kname} {name} B={b} M={q.shape[1]} N={s.shape[1]}: counts equal (active rows "
+            f"{active:.2f}, {near0} sums within 1e-6 of 0), fp32 rel {e32:.2e}, bf16 rel {e16:.2e}; fp32 kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        del base, f, fb, out, ref, out16
+
+    # --- #8 tau maxpool, with tied maxima ------------------------------------
+    for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
+        q, s, bw, tau = levels[ql], levels[sl], plan[sl], taus[(ql, sl)]
+        base = torch.randn(b, levels[0].shape[1], c, generator=gen).to(device)
+        f = torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, c))
+        for dtype in (torch.float32, torch.bfloat16):
+            fd = f.to(dtype)
+            out = banded_maxpool_tau(fd, q, s, tau, 128, bw)
+            ref = banded_maxpool_tau_plain(fd, q, s, tau, 128, bw)
+            torch.cuda.synchronize()
+            bad = (out != ref).sum().item()
+            if bad or out.dtype != dtype:
+                raise PhaseError(f"maxpool_tau C={c} {dtype}: {bad} mismatches")
+        k_ms = time_ms(lambda: banded_maxpool_tau(f, q, s, tau, 128, bw))
+        p_ms = time_ms(lambda: banded_maxpool_tau_plain(f, q, s, tau, 128, bw), 3)
+        bd = call_bound("banded_maxpool_tau", (f, q, s, tau, 128, bw))
+        tally.add("maxpool_tau", 0.0, k_ms, p_ms, bd)
+        say("kernels", f"maxpool_tau C={c} lvl{ql}<-lvl{sl} B={b} M={q.shape[1]} N={s.shape[1]}: 0 mismatches "
+            f"fp32+bf16; fp32 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        del base, f, out, ref
 
 
 def frames(cfg, count, device, start=0):
@@ -780,6 +929,154 @@ def serve(device, seed, smi_line, profile=False):
     return launches, fps, peak
 
 
+def t7(device, seed, smi_line):
+    """The `.t7` eval path through its CLI entry point, then one B=1 forward
+    of the same model through the kernels and through the plain versions."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cofii2p_tpu_torch.config import KITTIConfig
+    from cofii2p_tpu_torch.evaluation import eval_all
+    from cofii2p_tpu_torch.utils.checkpoint import export_t7
+    from cofii2p_tpu_torch.utils.kernel_bench import t7_model
+
+    frames_total = 16
+    root = tempfile.mkdtemp(prefix="t7_", dir=OUT_DIR)
+    try:
+        cfg = eval_all.reference_ckpt_config(KITTIConfig(), [], device)
+        ckpt = os.path.join(root, "ref.t7")
+        export_t7(t7_model(cfg, seed, "cpu"), ckpt)
+
+        batches = []
+        make_body = eval_all.make_eval_body
+
+        def recording_make_eval_body(cfg_, model, has_normals=True):
+            run = make_body(cfg_, model, has_normals)
+
+            def timed(hb, generator=None, draws=None):
+                torch.cuda.synchronize()
+                before = read_launches()
+                t0 = time.perf_counter()
+                out = run(hb, generator, draws)
+                torch.cuda.synchronize()
+                per = {k: v - before[k] for k, v in read_launches().items()}
+                batches.append((time.perf_counter() - t0, per, out, hb["pc"].shape[0]))
+                return out
+
+            return timed
+
+        argv = [ckpt, "kitti", "--synthetic", "--synthetic_frames", str(frames_total), "--batch_size", str(BATCH),
+                "--eval_path", root]
+        cwd = os.getcwd()
+        eval_all.make_eval_body = recording_make_eval_body
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            os.chdir(root)  # the error arrays go to the working directory
+            r_errs, _ = eval_all.main(argv)
+        finally:
+            eval_all.make_eval_body = make_body
+            os.chdir(cwd)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        dumps = sorted(glob.glob(os.path.join(root, "kitti", "*", "*.npy")))
+        if len(dumps) != frames_total:
+            raise PhaseError(f"t7: {len(dumps)} per-frame dumps, expected {frames_total}")
+        for path in dumps:
+            keys = set(np.load(path, allow_pickle=True).item())
+            if keys != T7_DUMP_KEYS:
+                raise PhaseError(f"t7: {os.path.basename(path)} holds {sorted(keys)}, expected {sorted(T7_DUMP_KEYS)}")
+        for arr in ("kitti_t_error.npy", "kitti_r_error.npy"):
+            if not os.path.exists(os.path.join(root, arr)):
+                raise PhaseError(f"t7: {arr} was not written")
+        if len(batches) != frames_total // BATCH:
+            raise PhaseError(f"t7: {len(batches)} batches ran, expected {frames_total // BATCH}")
+        for i, (_, per, out, _) in enumerate(batches):
+            for name, want in PER_T7_FORWARD.items():
+                if per[name] != want:
+                    raise PhaseError(f"t7: batch {i} launched {name} {per[name]} times, expected {want}")
+            finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
+            if not finite[out.success].all():
+                raise PhaseError(f"t7: batch {i} has a non-finite pose where RANSAC succeeded")
+        fps = batches[1][3] / batches[1][0]
+        succ = sum(int(o.success.sum()) for _, _, o, _ in batches)
+        say("t7", "eval_all.main on ref.t7 (seeded weights, per-layer kernel points), "
+            f"{frames_total} frames x B={BATCH}, fp32 {cfg.kpconv_impl}, attention {cfg.attention}: {len(dumps)} "
+            "dumps with the reference's keys and both error arrays; second batch "
+            f"{batches[1][0] * 1e3:.1f} ms ({fps:.2f} frames/s), first {batches[0][0] * 1e3:.1f} ms; "
+            f"peak {peak:.2f} GiB; launches/forward "
+            + ", ".join(f"{k} {batches[1][1][k]}" for k in PER_T7_FORWARD)
+            + f"; RANSAC success {succ}/{frames_total} ({len(r_errs)} errors written); card {smi_line}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)  # ref.t7 is ~200 MB
+    say("t7", check_t7_forward(cfg, device, seed))
+    return launches, fps, peak
+
+
+def check_t7_forward(cfg, device, seed):
+    """One B=1 fp32 forward of the `.t7` model through the kernels and
+    through kpconv_kernel='xla': the 9 pairs' tau bit-equal, each tau
+    KPConv call's active-row count equal to its plain version's on the same
+    inputs, FPN outputs within 1e-4."""
+    import torch
+
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+    from cofii2p_tpu_torch.models import kpconv as kpc
+    from cofii2p_tpu_torch.utils.kernel_bench import kernel_wrappers, recording, t7_model
+
+    hb = frames(cfg, 1, device)
+    draws = make_draws(cfg, 1, torch.Generator(device).manual_seed(seed), device)
+    batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
+    knn_tau = kpc.knn_tau
+    taus, feats, calls = {}, {}, []
+    for name, c in (("kernels", cfg), ("plain", cfg.replace(kpconv_kernel="xla"))):
+        model = t7_model(c, seed, device)
+        got = taus[name] = []
+
+        def rec(*a, _got=got, **kw):
+            _got.append(knn_tau(*a, **kw))
+            return _got[-1]
+
+        kpc.knn_tau = rec
+        try:
+            with torch.no_grad(), recording(calls if name == "kernels" else []):
+                feats[name] = model(batch)["pc_features"]
+        finally:
+            kpc.knn_tau = knn_tau
+        del model
+    torch.cuda.synchronize()
+    if len(taus["kernels"]) != 9 or len(taus["plain"]) != 9:
+        raise PhaseError(f"t7: {len(taus['kernels'])} and {len(taus['plain'])} taus per forward, expected 9")
+    bad = [i for i, (a, b) in enumerate(zip(taus["kernels"], taus["plain"])) if not torch.equal(a.view(torch.int32),
+                                                                                              b.view(torch.int32))]
+    if bad:
+        raise PhaseError(f"t7: tau of pairs {bad} differs between the kernels and the plain versions")
+    wrappers = kernel_wrappers()
+    worst, n_conv = 0.0, 0
+    with torch.no_grad():
+        for name, a, kw in calls:
+            if name not in ("banded_kpconv_fused_tau", "banded_kpconv_aggregate_tau"):
+                continue
+            _, kern, plain = wrappers[name]
+            (out, cnt), (ref, ref_cnt) = kern(*a, **kw), plain(*a, **kw)
+            if not torch.equal(cnt, ref_cnt):
+                raise PhaseError(f"t7: {name} M={a[1].shape[1]}: counts differ at {(cnt != ref_cnt).sum().item()}")
+            worst, n_conv = max(worst, rel_err(out, ref)), n_conv + 1
+    errs = [rel_err(g, r) for g, r in zip(feats["kernels"], feats["plain"])]
+    if n_conv != 14 or max(errs) > 1e-4 or worst > 1e-4:
+        raise PhaseError(f"t7: {n_conv} tau KPConvs (14 expected), worst rel {worst:.2e}; FPN rel errors {errs} "
+                         "(<= 1e-4)")
+    return (f"B=1 fp32 forward, kernels vs kpconv_kernel='xla': 9 pair taus bit-equal; 14 tau KPConvs on their own "
+            f"inputs, counts equal, worst rel {worst:.2e}; FPN outputs rel "
+            + ", ".join(f"{e:.2e}" for e in errs))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES), help="comma-separated subset of " + ",".join(PHASES))
@@ -832,7 +1129,10 @@ def main():
             launches.update({k: served[k] for k in SERVE_KERNELS})
         if "train" in phases:
             trained = train(device, args.seed, smi_line)
-            launches.update({k: v for k, v in trained.items() if k not in SERVE_KERNELS})
+            launches.update({k: v for k, v in trained.items() if k not in SERVE_KERNELS + T7_KERNELS})
+        if "t7" in phases:
+            evaluated, _, _ = t7(device, args.seed, smi_line)
+            launches.update({k: evaluated[k] for k in T7_KERNELS})
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -42,6 +42,18 @@
 // bf16 rounding points follow the TPU kernel: influence and features are
 // rounded to the compute dtype before their product, the fp32 accumulator
 // is rounded before the contraction, W arrives already rounded.
+//
+// TAU (kernels #6 and #7): the k-NN semantics of a reference checkpoint,
+// replacing banded_kpconv_aggregate_tau_pallas (_agg_kernel_tau) and
+// banded_kpconv_fused_tau_pallas (_agg_fused_kernel_tau).  A band row j is
+// in query m's neighbourhood where d2 <= tau[m] (kernel #5's threshold),
+// and is aggregated where also d2 <= r2, the reach padded 10% for the
+// layer's own kernel points kp; the count is the reference's active-row
+// rule, max(#{d2 <= tau[m] and active[j]}, 1), active[j] = (sum_c f_j > 0
+// in fp32), taken once per support row by row_active_kernel (one warp a
+// row, a fixed summation order) before the main pass.  d2 stays centred
+// on the first query of the 128-row band tile, as tau's producer centres
+// it, so membership at exact ties is the producer's.
 
 #include "common.cuh"
 
@@ -60,15 +72,19 @@ constexpr int kAccElems = kThreads * kE;  // TQ * pad(Cin) bound
 // same for the output width.
 // CONTRACT: out (B, M, Cout) = sum_k acc_k @ W_k; otherwise out is the
 // aggregate (B, M, K, Cin) and W is unused.
-template <int A, int AO, bool CONTRACT>
+// TAU: membership d2 <= tau[m] (and d2 <= r2 for the aggregate), count
+// over the rows flagged in ``active``.
+template <int A, int AO, bool CONTRACT, bool TAU = false>
 __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const void* __restrict__ feats, int f_bf16, const float* __restrict__ W,
     const float* __restrict__ kp, const int* __restrict__ starts,
     float* __restrict__ out, int* __restrict__ count, int M, int N, int Cin,
     int Cout, int K, int tile, int num_tiles, int band, int TQ, int cin_shift,
-    int cout_shift, float r2, float sigma, int round) {
+    int cout_shift, float r2, float sigma, int round,
+    const float* __restrict__ tau, const int* __restrict__ active) {
   __shared__ float qc_s[kMaxTQ * 3];
+  __shared__ float thr_s[kMaxTQ];
   __shared__ float qa_s[kMaxTQ * 3];  // uncentred, for the influence
   __shared__ float pc_s[kRB * 3];
   __shared__ float pa_s[kRB * 3];
@@ -93,7 +109,10 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     qa_s[i] = q_pts[((long)b * M + m0) * 3 + i];
     qc_s[i] = __fsub_rn(qa_s[i], ref_p[i % 3]);
   }
-  for (int i = tid; i < TQ; i += kThreads) cnt_s[i] = 0;
+  for (int i = tid; i < TQ; i += kThreads) {
+    cnt_s[i] = 0;
+    if (TAU) thr_s[i] = tau[(long)b * M + m0 + i];
+  }
   __syncthreads();
 
   // thread -> (query, channel) maps of the accumulator and the output
@@ -125,17 +144,28 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
           const int j = r0 + tid;
           const bool valid = j < seg1;
           float px = 0.f, py = 0.f, pz = 0.f;
+          bool act_j = false;
           if (valid) {
             px = __fsub_rn(srow[j * 3], ref0);
             py = __fsub_rn(srow[j * 3 + 1], ref1);
             pz = __fsub_rn(srow[j * 3 + 2], ref2);
+            if (TAU) act_j = active[(long)b * N + start + j] != 0;
           }
           bool any = false;
           for (int q = 0; q < TQ; ++q) {
-            const bool in = valid && cofii2p::membership_d2(qc_s + 3 * q, px, py, pz) <= r2;
+            const float d2 = cofii2p::membership_d2(qc_s + 3 * q, px, py, pz);
+            bool in, counted;
+            if (TAU) {
+              const bool wtau = valid && d2 <= thr_s[q];
+              in = wtau && d2 <= r2;
+              counted = wtau && act_j;
+            } else {
+              in = valid && d2 <= r2;
+              counted = in;
+            }
             any |= in;
             if (k == 0) {
-              const unsigned bits = __ballot_sync(0xffffffffu, in);
+              const unsigned bits = __ballot_sync(0xffffffffu, counted);
               if (lane == 0 && bits) atomicAdd(&cnt_s[q], __popc(bits));
             }
           }
@@ -171,7 +201,8 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
           if (r < nr) {
             const float* qc = qc_s + 3 * q;
             const float* pc = pc_s + 3 * r;
-            if (cofii2p::membership_d2(qc, pc[0], pc[1], pc[2]) <= r2) {
+            const float d2 = cofii2p::membership_d2(qc, pc[0], pc[1], pc[2]);
+            if (d2 <= r2 && (!TAU || d2 <= thr_s[q])) {
               const float* qa = qa_s + 3 * q;
               const float* pa = pa_s + 3 * r;
               const float dx = (pa[0] - qa[0]) - kx;
@@ -297,15 +328,38 @@ int log2_pad(int x) {
   return s;
 }
 
-template <int A, int AO, bool CONTRACT = true>
+// active[r] = (sum_c f[r, c] > 0) in fp32 over R rows of C channels: one
+// warp a row, lane-strided partial sums reduced in a fixed order.
+__global__ void __launch_bounds__(kThreads) row_active_kernel(
+    const void* __restrict__ feats, int f_bf16, long R, int C, int* __restrict__ active) {
+  const long row = (long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;
+  float sum = 0.f;
+  for (int c = lane; c < C; c += 32) sum += cofii2p::load_f(feats, row * C + c, f_bf16);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (lane == 0) active[row] = sum > 0.f;
+}
+
+template <int A, int AO, bool CONTRACT = true, bool TAU = false>
 void launch(dim3 grid, cudaStream_t st, const float* q, const float* s,
             const void* f, int f_bf16, const float* W, const float* kp,
             const int* starts, float* out, int* count, int M, int N, int Cin,
             int Cout, int K, int tile, int num_tiles, int band, int TQ,
-            int cs, int os, float r2, float sigma, int round) {
-  kpconv_fused_kernel<A, AO, CONTRACT><<<grid, kThreads, 0, st>>>(
+            int cs, int os, float r2, float sigma, int round,
+            const float* tau = nullptr, const int* active = nullptr) {
+  kpconv_fused_kernel<A, AO, CONTRACT, TAU><<<grid, kThreads, 0, st>>>(
       q, s, f, f_bf16, W, kp, starts, out, count, M, N, Cin, Cout, K, tile,
-      num_tiles, band, TQ, cs, os, r2, sigma, round);
+      num_tiles, band, TQ, cs, os, r2, sigma, round, tau, active);
+}
+
+// the active flags of every support row, ahead of a TAU pass
+void launch_active(cudaStream_t st, const void* f, int f_bf16, int B, int N, int C, int* active) {
+  const long rows = (long)B * N;
+  const int per_block = kThreads / 32;
+  row_active_kernel<<<static_cast<unsigned>((rows + per_block - 1) / per_block), kThreads, 0, st>>>(
+      f, f_bf16, rows, C, active);
 }
 
 }  // namespace
@@ -377,6 +431,85 @@ extern "C" int kpconv_aggregate_launch(
     launch<a, 0, false>(grid, st, qp, sp, f, f_bf16, nullptr, kpp, stp, wp, cp, \
                         M, N, Cin, 0, K, tile, num_tiles, band, TQ, cs, 0, r2, \
                         sigma, round);
+  COFII2P_LAUNCH(0)
+  COFII2P_LAUNCH(1)
+  COFII2P_LAUNCH(2)
+#undef COFII2P_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The k-NN (tau) variants, kernels #7 (fused) and #6 (aggregate): the
+// arguments of kpconv_fused_launch / kpconv_aggregate_launch plus tau
+// (B, M) fp32 and active (B, N) int32 scratch; kp is the layer's own
+// (K, 3) kernel points and r2 the padded reach.
+extern "C" int kpconv_fused_tau_launch(
+    const void* q, const void* s, const void* f, int f_bf16, const void* W,
+    const void* kp, const void* starts, const void* tau, void* active,
+    void* out, void* count, int B, int M, int N, int Cin, int Cout, int K,
+    int tile, int num_tiles, int band, int TQ, int round, float r2,
+    float sigma, void* stream) {
+  const int cs = log2_pad(Cin), os = log2_pad(Cout);
+  const int A = cs < 8 ? 0 : 1 << (cs - 8);
+  const int AO = os < 8 ? 0 : 1 << (os - 8);
+  if (A > 2 || AO > 2 || TQ < 1 || TQ > kMaxTQ || tile % TQ || M % TQ ||
+      (TQ << cs) > kAccElems || (TQ << os) > kAccElems || band > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(M / TQ, B);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto act = static_cast<int*>(active);
+  launch_active(st, f, f_bf16, B, N, Cin, act);
+  auto qp = static_cast<const float*>(q);
+  auto sp = static_cast<const float*>(s);
+  auto wp = static_cast<const float*>(W);
+  auto kpp = static_cast<const float*>(kp);
+  auto stp = static_cast<const int*>(starts);
+  auto tp = static_cast<const float*>(tau);
+  auto op = static_cast<float*>(out);
+  auto cp = static_cast<int*>(count);
+#define COFII2P_LAUNCH(a, ao)                                                   \
+  if (A == a && AO == ao)                                                       \
+    launch<a, ao, true, true>(grid, st, qp, sp, f, f_bf16, wp, kpp, stp, op,    \
+                              cp, M, N, Cin, Cout, K, tile, num_tiles, band,    \
+                              TQ, cs, os, r2, sigma, round, tp, act);
+  COFII2P_LAUNCH(0, 0)
+  COFII2P_LAUNCH(0, 1)
+  COFII2P_LAUNCH(0, 2)
+  COFII2P_LAUNCH(1, 0)
+  COFII2P_LAUNCH(1, 1)
+  COFII2P_LAUNCH(1, 2)
+  COFII2P_LAUNCH(2, 0)
+  COFII2P_LAUNCH(2, 1)
+  COFII2P_LAUNCH(2, 2)
+#undef COFII2P_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int kpconv_aggregate_tau_launch(
+    const void* q, const void* s, const void* f, int f_bf16, const void* kp,
+    const void* starts, const void* tau, void* active, void* weighted,
+    void* count, int B, int M, int N, int Cin, int K, int tile, int num_tiles,
+    int band, int TQ, int round, float r2, float sigma, void* stream) {
+  const int cs = log2_pad(Cin);
+  const int A = cs < 8 ? 0 : 1 << (cs - 8);
+  if (A > 2 || TQ < 1 || TQ > kMaxTQ || tile % TQ || M % TQ ||
+      (TQ << cs) > kAccElems || band > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(M / TQ, B);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto act = static_cast<int*>(active);
+  launch_active(st, f, f_bf16, B, N, Cin, act);
+  auto qp = static_cast<const float*>(q);
+  auto sp = static_cast<const float*>(s);
+  auto kpp = static_cast<const float*>(kp);
+  auto stp = static_cast<const int*>(starts);
+  auto tp = static_cast<const float*>(tau);
+  auto wp = static_cast<float*>(weighted);
+  auto cp = static_cast<int*>(count);
+#define COFII2P_LAUNCH(a)                                                       \
+  if (A == a)                                                                   \
+    launch<a, 0, false, true>(grid, st, qp, sp, f, f_bf16, nullptr, kpp, stp,   \
+                              wp, cp, M, N, Cin, 0, K, tile, num_tiles, band,   \
+                              TQ, cs, 0, r2, sigma, round, tp, act);
   COFII2P_LAUNCH(0)
   COFII2P_LAUNCH(1)
   COFII2P_LAUNCH(2)

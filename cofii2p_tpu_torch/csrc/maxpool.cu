@@ -20,6 +20,11 @@
 // at a time in one coalesced load.  The count pass has the same shape: it
 // reads out[m, c] once per (query, channel) and compares instead of maxing.
 //
+// With TAU it replaces maxpool_kernel.py::banded_maxpool_tau_pallas (body
+// _maxpool_kernel_tau, kernel #8), the reference's k-NN maxpool: the
+// membership is d2 <= tau[m], each query's threshold from kernel #5, in
+// place of the shared radius, with no radius mask.
+//
 // Exactness: it is a select, so the result is bit-equal to the plain
 // version in fp32 and in bf16.  Membership d2 uses the same centred,
 // FMA-free arithmetic as the KPConv kernel (common.cuh).
@@ -34,15 +39,17 @@ constexpr int kSeg = 1024;     // band rows per mask segment
 constexpr int kWords = kSeg / 32;
 
 // COUNT: read the forward max from ``pooled`` and write the tie count to
-// ``cnt``; otherwise write the max to ``out``.
-template <bool COUNT>
+// ``cnt``; otherwise write the max to ``out``.  TAU: membership d2 <=
+// tau[m] instead of d2 <= r2.
+template <bool COUNT, bool TAU = false>
 __global__ void __launch_bounds__(kThreads) maxpool_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const void* __restrict__ feats, int f_bf16, const int* __restrict__ starts,
     void* __restrict__ out, const void* __restrict__ pooled,
     float* __restrict__ cnt, int M, int N, int C, int tile, int band, int TQ,
-    float r2) {
+    float r2, const float* __restrict__ tau = nullptr) {
   __shared__ float qc_s[kTQ * 3];
+  __shared__ float thr_s[kTQ];
   __shared__ unsigned mask_s[kTQ * kWords];
 
   const int tid = threadIdx.x;
@@ -57,6 +64,7 @@ __global__ void __launch_bounds__(kThreads) maxpool_kernel(
   const long frow0 = ((long)b * N + start) * C;
 
   if (tid < TQ * 3) qc_s[tid] = __fsub_rn(q_pts[((long)b * M + m0) * 3 + tid], ref_p[tid % 3]);
+  if (TAU && tid < TQ) thr_s[tid] = tau[(long)b * M + m0 + tid];
   __syncthreads();
 
   float mx[kTQ];  // running max, or under COUNT the forward max
@@ -83,7 +91,7 @@ __global__ void __launch_bounds__(kThreads) maxpool_kernel(
         pz = __fsub_rn(srow[j * 3 + 2], ref_p[2]);
       }
       for (int q = 0; q < TQ; ++q) {
-        const bool in = valid && cofii2p::membership_d2(qc_s + 3 * q, px, py, pz) <= r2;
+        const bool in = valid && cofii2p::membership_d2(qc_s + 3 * q, px, py, pz) <= (TAU ? thr_s[q] : r2);
         const unsigned bits = __ballot_sync(0xffffffffu, in);
         if (lane == 0) mask_s[q * kWords + (r0 - seg0) / 32 + warp] = bits;
       }
@@ -160,5 +168,22 @@ extern "C" int maxpool_count_launch(const void* q, const void* s,
       static_cast<const float*>(q), static_cast<const float*>(s), f, f_bf16,
       static_cast<const int*>(starts), nullptr, pooled,
       static_cast<float*>(cnt), M, N, C, tile, band, TQ, r2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The k-NN maxpool (kernel #8): q, s, f, starts, out as maxpool_launch,
+// tau (B, M) fp32 the per-query squared thresholds.
+extern "C" int maxpool_tau_launch(const void* q, const void* s, const void* f,
+                                  int f_bf16, const void* starts,
+                                  const void* tau, void* out, int B, int M,
+                                  int N, int C, int tile, int band, int TQ,
+                                  void* stream) {
+  if (TQ < 1 || TQ > kTQ || tile % TQ || M % tile || band > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(M / TQ, (C + kThreads - 1) / kThreads, B);
+  maxpool_kernel<false, true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(s), f, f_bf16,
+      static_cast<const int*>(starts), out, nullptr, nullptr, M, N, C, tile,
+      band, TQ, 0.f, static_cast<const float*>(tau));
   return static_cast<int>(cudaGetLastError());
 }

@@ -110,3 +110,16 @@ def make_eval_body(cfg: Config, model: CoFiI2P, has_normals: bool = True):
         )
 
     return run
+
+
+def pose_errors_np(T_pred, P_gt):
+    """Reference error metric (cofii2p_tpu/evaluation/pipeline.py:98-108):
+    P_diff = inv(T_pred) @ P_gt, RTE = |t_diff|, RRE = sum |euler('xzy')|
+    in degrees.  numpy (4, 4) float64 inputs."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    P_diff = np.linalg.inv(T_pred) @ P_gt
+    t_diff = np.linalg.norm(P_diff[:3, 3])
+    angles = np.sum(np.abs(Rotation.from_matrix(P_diff[:3, :3]).as_euler("xzy", degrees=True)))
+    return t_diff, angles

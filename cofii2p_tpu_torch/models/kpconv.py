@@ -1,5 +1,5 @@
-"""KPConv point branch, banded radius neighborhoods (counterpart of
-cofii2p_tpu/models/kpconv.py with ``impl='banded'``).
+"""KPConv point branch over banded neighborhoods (counterpart of
+cofii2p_tpu/models/kpconv.py with ``impl='banded'`` or ``'banded_knn'``).
 
 Module and parameter names follow the reference layout that
 cofii2p_tpu/utils/checkpoint.py::export_t7 writes (``encoder1_1.KPConv.
@@ -15,6 +15,14 @@ whose backwards are kernels too; otherwise the fused KPConv kernel where
 aggregate kernel and a matmul, as the JAX package chooses.
 ``kernel='xla'`` calls the plain versions directly under plain autograd,
 as the JAX config's 'xla' selects the XLA twins.
+
+``impl='banded_knn'`` is the k-NN semantics a reference checkpoint was
+trained with: per (query level, support level) pair one threshold tau per
+query (ops/tau_kernel.py, kernel #5) decides membership d2 <= tau, every
+KPConv uses its own ``kernel_points`` buffer (kernels #6, #7) and the
+strided shortcuts max over {d2 <= tau} with no radius mask (kernel #8).
+Those kernels are forward only: on the card a differentiated banded_knn
+model raises (its backwards #11 and #15 are not ported).
 """
 
 from __future__ import annotations
@@ -25,28 +33,60 @@ from torch import nn
 
 from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
 from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu
-from cofii2p_tpu_torch.ops.banded import banded_nearest_index, dynamic_band_starts, kernel_reach
-from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_apply, banded_kpconv_fused_plain, fused_contraction_fits
-from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_apply, banded_maxpool_plain
+from cofii2p_tpu_torch.ops.banded import (
+    banded_knn_tau,
+    banded_nearest_index,
+    dynamic_band_starts,
+    dynamic_knn_starts,
+    kernel_reach,
+)
+from cofii2p_tpu_torch.ops.kpconv_kernel import (
+    banded_kpconv_apply,
+    banded_kpconv_fused_plain,
+    banded_kpconv_fused_tau_plain,
+    banded_kpconv_tau_apply,
+    fused_contraction_fits,
+)
+from cofii2p_tpu_torch.ops.maxpool_kernel import (
+    banded_maxpool_apply,
+    banded_maxpool_plain,
+    banded_maxpool_tau,
+    banded_maxpool_tau_plain,
+)
+from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
 
 KERNELS = ("auto", "pallas", "xla")
+IMPLS = ("banded", "banded_knn")
+
+
+def knn_tau(kernel, q_points, s_points, k, tile, band_width, starts=None):
+    """Per-query k-NN thresholds (B, M): kernel #5, or its plain version
+    under ``kernel='xla'``."""
+    fn = banded_knn_tau if kernel == "xla" else banded_knn_tau_kernel
+    return fn(q_points, s_points, k, tile, band_width, starts)
 
 
 class KPConv(nn.Module):
-    """Rigid kernel-point convolution over banded radius neighborhoods.
+    """Rigid kernel-point convolution over banded neighborhoods.
 
     forward(s_feats (B, N, Cin), q_points (B, M, 3), s_points (B, N, 3),
-    starts) -> (B, M, Cout) fp32: the aggregation + contraction, divided
-    by the in-reach count, plus bias (kpconv.py:355-382).
+    starts, tau) -> (B, M, Cout) fp32: the aggregation + contraction,
+    divided by the count, plus bias (kpconv.py:224-299, 355-382).  Under
+    ``impl='banded_knn'`` ``tau`` (B, M) is the pair's k-NN threshold
+    (computed here over the static band when not given) and the layer's
+    own ``kernel_points`` place the influence.
     """
 
     def __init__(self, in_channels, out_channels, kernel_size=15, radius=0.425, sigma=0.2,
-                 dtype=torch.float32, tile=128, band_width=1024, kernel="auto"):
+                 dtype=torch.float32, tile=128, band_width=1024, kernel="auto", impl="banded", knn_k=128):
         super().__init__()
         if kernel not in KERNELS:
             raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
+        if impl not in IMPLS:
+            raise ValueError(f"impl {impl!r} not in {IMPLS}")
         self.kernel_size, self.radius, self.sigma = kernel_size, radius, sigma
         self.dtype, self.tile, self.band_width, self.kernel = dtype, tile, band_width, kernel
+        self.impl, self.knn_k = impl, knn_k
         bound = 1.0 / np.sqrt(in_channels * out_channels)
         self.weights = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.empty(out_channels).uniform_(-bound, bound))
@@ -55,13 +95,18 @@ class KPConv(nn.Module):
         itemsize = torch.empty((), dtype=dtype).element_size()
         self.fused = fused_contraction_fits(kernel_size, in_channels, out_channels, tile, wbytes=itemsize)
 
-    def forward(self, s_feats, q_points, s_points, starts=None):
-        args = (s_feats, q_points, s_points, self.weights, self.radius, self.sigma,
-                self.kernel_size, self.tile, self.band_width, self.dtype, starts)
-        if self.kernel == "xla":
-            out, count = banded_kpconv_fused_plain(*args)
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None):
+        if self.impl == "banded_knn":
+            if tau is None:
+                tau = knn_tau(self.kernel, q_points, s_points, self.knn_k, self.tile, self.band_width)
+            args = (s_feats, q_points, s_points, self.weights, tau, self.kernel_points, self.radius, self.sigma,
+                    self.kernel_size, self.tile, self.band_width, self.dtype, starts)
+            plain, apply = banded_kpconv_fused_tau_plain, banded_kpconv_tau_apply
         else:
-            out, count = banded_kpconv_apply(*args, fused=self.fused)
+            args = (s_feats, q_points, s_points, self.weights, self.radius, self.sigma,
+                    self.kernel_size, self.tile, self.band_width, self.dtype, starts)
+            plain, apply = banded_kpconv_fused_plain, banded_kpconv_apply
+        out, count = plain(*args) if self.kernel == "xla" else apply(*args, fused=self.fused)
         return out / count[..., None].to(out.dtype) + self.bias
 
 
@@ -90,25 +135,28 @@ class ConvBlock(nn.Module):
         self.KPConv = KPConv(in_channels, out_channels, kernel_size, radius, sigma, **kw)
         self.norm = GroupNormWrapper(group_norm, out_channels)
 
-    def forward(self, s_feats, q_points, s_points, starts=None):
-        return leaky_relu(self.norm(self.KPConv(s_feats, q_points, s_points, starts)))
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None):
+        return leaky_relu(self.norm(self.KPConv(s_feats, q_points, s_points, starts, tau)))
 
 
 class ResidualBlock(nn.Module):
     """Bottleneck residual KPConv block; a strided block's shortcut is the
-    banded maxpool of its input (reference modules.py:162-240)."""
+    banded maxpool of its input, over {d2 <= tau} under ``impl=
+    'banded_knn'`` (reference modules.py:162-240; kpconv.py:599-632)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm=32,
-                 strided=False, dtype=torch.float32, tile=128, band_width=1024, kernel="auto"):
+                 strided=False, dtype=torch.float32, tile=128, band_width=1024, kernel="auto",
+                 impl="banded", knn_k=128):
         super().__init__()
         mid = out_channels // 4
         self.strided, self.tile, self.band_width, self.kernel = strided, tile, band_width, kernel
+        self.impl, self.knn_k = impl, knn_k
         self.r_active = kernel_reach(radius, sigma, kernel_size)
         self.unary1 = (
             UnaryBlock(in_channels, mid, group_norm, dtype=dtype) if in_channels != mid else None
         )
         self.KPConv = KPConv(mid, mid, kernel_size, radius, sigma, dtype=dtype, tile=tile,
-                             band_width=band_width, kernel=kernel)
+                             band_width=band_width, kernel=kernel, impl=impl, knn_k=knn_k)
         self.norm_conv = GroupNormWrapper(group_norm, mid)
         self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False, dtype=dtype)
         self.unary_shortcut = (
@@ -116,11 +164,16 @@ class ResidualBlock(nn.Module):
             if in_channels != out_channels else None
         )
 
-    def forward(self, s_feats, q_points, s_points, starts=None):
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None):
         x = s_feats if self.unary1 is None else self.unary1(s_feats)
-        x = self.KPConv(x, q_points, s_points, starts)
+        x = self.KPConv(x, q_points, s_points, starts, tau)
         x = self.unary2(leaky_relu(self.norm_conv(x)))
-        if self.strided:
+        if self.strided and self.impl == "banded_knn":
+            if tau is None:
+                tau = knn_tau(self.kernel, q_points, s_points, self.knn_k, self.tile, self.band_width)
+            fn = banded_maxpool_tau_plain if self.kernel == "xla" else banded_maxpool_tau
+            shortcut = fn(s_feats, q_points, s_points, tau, self.tile, self.band_width, starts)
+        elif self.strided:
             fn = banded_maxpool_plain if self.kernel == "xla" else banded_maxpool_apply
             shortcut = fn(s_feats, q_points, s_points, self.r_active, self.tile, self.band_width, starts)
         else:
@@ -157,18 +210,29 @@ class KPConvFPN(nn.Module):
 
     forward(feats (B, N0, input_dim), points [(B, N_l, 3)]) ->
     [fine (B, N1, output_dim), (B, N2, 512), (B, N3, 1024), latent (B, N4, 2048)].
+
+    Under ``impl='banded_knn'`` each (query level, support level) pair gets
+    one tau, shared by its blocks (``tau_for``, kpconv.py:855-876), over the
+    static band or, with a ``knn_window_plan`` width, over each tile's
+    max-in-tau-mass window (``knn_tau_starts``, kpconv.py:878-906).
+    ``shared_influence`` is kept for the config's sake: it selects a shared
+    influence tensor only in the gather formulation, which the port lacks;
+    the banded paths compute influence per layer from its own kernel points.
     """
 
     def __init__(self, input_dim=4, output_dim=64, init_dim=64, kernel_size=15, init_radius=0.425,
                  init_sigma=0.2, group_norm=32, dtype=torch.float32, tile=128, band_width=1024,
                  band_plan=None, kernel="auto", dynamic_plan=None, dynamic_plan_self=None,
-                 dynamic_center="best"):
+                 dynamic_center="best", impl="banded", knn_k=128, knn_window_plan=None,
+                 shared_influence=True):
         super().__init__()
         d, ks, r, s = init_dim, kernel_size, init_radius, init_sigma
         self.tile, self.band_width, self.band_plan = tile, band_width, band_plan
         self.dynamic_plan, self.dynamic_plan_self = dynamic_plan, dynamic_plan_self
         self.dynamic_center, self.kernel_size, self.r, self.s = dynamic_center, ks, r, s
-        common = dict(group_norm=group_norm, dtype=dtype, tile=tile, kernel=kernel)
+        self.impl, self.knn_k, self.knn_window_plan = impl, knn_k, knn_window_plan
+        self.kernel, self.shared_influence = kernel, shared_influence
+        common = dict(group_norm=group_norm, dtype=dtype, tile=tile, kernel=kernel, impl=impl, knn_k=knn_k)
 
         self.encoder1_1 = ConvBlock(input_dim, d, ks, r, s, band_width=self._bw_for(0, True), **common)
         self.encoder1_2 = ResidualBlock(d, d * 2, ks, r, s, band_width=self._bw_for(0, True), **common)
@@ -195,16 +259,25 @@ class KPConvFPN(nn.Module):
         return self.band_width * 2**support_lvl
 
     def dyn_w(self, support_lvl: int, is_self: bool) -> int:
-        """Dynamic window width of a pair (0 = static band; kpconv.py:771-792)."""
+        """Dynamic window width of a radius pair (0 = static band;
+        kpconv.py:771-792)."""
         plan = self.dynamic_plan
         if is_self and self.dynamic_plan_self is not None:
             plan = self.dynamic_plan_self
-        if plan is None:
+        if plan is None or self.impl != "banded":
+            return 0
+        return int(plan[support_lvl] or 0) if support_lvl < len(plan) else 0
+
+    def knn_w(self, support_lvl: int) -> int:
+        """k-NN window width of a pair under ``impl='banded_knn'`` (0 =
+        static band; kpconv.py:794-801)."""
+        plan = self.knn_window_plan
+        if self.impl != "banded_knn" or plan is None:
             return 0
         return int(plan[support_lvl] or 0) if support_lvl < len(plan) else 0
 
     def _bw_for(self, support_lvl: int, is_self: bool) -> int:
-        return self.dyn_w(support_lvl, is_self) or self.bw(support_lvl)
+        return self.dyn_w(support_lvl, is_self) or self.knn_w(support_lvl) or self.bw(support_lvl)
 
     def starts_for(self, q_pts, s_pts, support_lvl, radius_scale, is_self):
         """One starts tensor per (query level, support level) pair, shared by
@@ -216,19 +289,44 @@ class KPConvFPN(nn.Module):
         stride = max(1, s_pts.shape[-2] // 2560) if self.dynamic_center == "best" else 1
         return dynamic_band_starts(q_pts, s_pts, r_act, self.tile, w, self.dynamic_center, stride)
 
+    def tau_for(self, q_pts, s_pts, support_lvl):
+        """The pair's k-NN thresholds over the static band (kpconv.py:855-876)."""
+        return knn_tau(self.kernel, q_pts, s_pts, self.knn_k, self.tile, self.bw(support_lvl))
+
+    def knn_tau_starts(self, q_pts, s_pts, support_lvl):
+        """(tau, starts) of a k-NN pair (kpconv.py:878-906).  With a window
+        width W: a proxy tau on every stride-th support row places each
+        tile's max-in-tau-mass window, then tau is taken exactly over it."""
+        w = self.knn_w(support_lvl)
+        if w == 0:
+            return self.tau_for(q_pts, s_pts, support_lvl), None
+        k = self.knn_k
+        stride = max(1, s_pts.shape[-2] // 2560)
+        proxy = knn_tau(self.kernel, q_pts, s_pts[:, ::stride].contiguous(), max(k // stride, 1), self.tile,
+                        max(self.bw(support_lvl) // stride, 32))
+        starts = dynamic_knn_starts(q_pts, s_pts, proxy, self.tile, w, stride)
+        return knn_tau(self.kernel, q_pts, s_pts, k, self.tile, w, starts), starts
+
+    def pair_aux(self, q_pts, s_pts, support_lvl, radius_scale, is_self):
+        """(tau, starts) of a (query level, support level) pair under the
+        impl (kpconv.py:840-846)."""
+        if self.impl == "banded_knn":
+            return self.knn_tau_starts(q_pts, s_pts, support_lvl)
+        return None, self.starts_for(q_pts, s_pts, support_lvl, radius_scale, is_self)
+
     def forward(self, feats, points):
         enc = {}
-        st0 = self.starts_for(points[0], points[0], 0, 1, True)
-        x = self.encoder1_1(feats, points[0], points[0], st0)
-        enc[1] = self.encoder1_2(x, points[0], points[0], st0)
+        tau0, st0 = self.pair_aux(points[0], points[0], 0, 1, True)
+        x = self.encoder1_1(feats, points[0], points[0], st0, tau0)
+        enc[1] = self.encoder1_2(x, points[0], points[0], st0, tau0)
         x = enc[1]
         for stage in range(2, 6):
             lvl = stage - 1
-            st_cross = self.starts_for(points[lvl], points[lvl - 1], lvl - 1, 2 ** (stage - 2), False)
-            st_self = self.starts_for(points[lvl], points[lvl], lvl, 2 ** (stage - 1), True)
-            x = getattr(self, f"encoder{stage}_1")(x, points[lvl], points[lvl - 1], st_cross)
-            x = getattr(self, f"encoder{stage}_2")(x, points[lvl], points[lvl], st_self)
-            x = getattr(self, f"encoder{stage}_3")(x, points[lvl], points[lvl], st_self)
+            tau_c, st_c = self.pair_aux(points[lvl], points[lvl - 1], lvl - 1, 2 ** (stage - 2), False)
+            tau_s, st_s = self.pair_aux(points[lvl], points[lvl], lvl, 2 ** (stage - 1), True)
+            x = getattr(self, f"encoder{stage}_1")(x, points[lvl], points[lvl - 1], st_c, tau_c)
+            x = getattr(self, f"encoder{stage}_2")(x, points[lvl], points[lvl], st_s, tau_s)
+            x = getattr(self, f"encoder{stage}_3")(x, points[lvl], points[lvl], st_s, tau_s)
             enc[stage] = x
 
         def upsample(coarse, lvl):

@@ -90,10 +90,20 @@ class CoFiI2P(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.kpconv_impl != "banded":
-            raise NotImplementedError("the port runs kpconv_impl='banded'")
-        if cfg.maxpool_compact_plan or cfg.aggregate_compact_plan or cfg.kpconv_residual_fused:
-            raise NotImplementedError("compacted and fused-residual FPN variants are not ported")
+        if cfg.kpconv_impl not in ("banded", "banded_knn"):
+            raise NotImplementedError(
+                f"kpconv_impl={cfg.kpconv_impl!r}: the port runs 'banded' and 'banded_knn'; the gather "
+                "formulation is ROADMAP queue 1 item 11 (alternate paths)"
+            )
+        # rejecting the compacted plans here also keeps a k-NN window plan
+        # from meeting them (the guard ADVICE r5 asks of knn_w)
+        if cfg.maxpool_compact_plan or cfg.aggregate_compact_plan:
+            raise NotImplementedError(
+                "maxpool_compact_plan / aggregate_compact_plan: the compacted formulations are ROADMAP "
+                "queue 1 item 11 (alternate paths)"
+            )
+        if cfg.kpconv_residual_fused:
+            raise NotImplementedError("kpconv_residual_fused: the fused residual band pass (#16) is not ported")
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.pc_encoder = KPConvFPN(
@@ -103,7 +113,8 @@ class CoFiI2P(nn.Module):
             dtype=dtype, tile=cfg.kpconv_tile, band_width=cfg.kpconv_band_width,
             band_plan=cfg.kpconv_band_plan, kernel=cfg.kpconv_kernel,
             dynamic_plan=cfg.kpconv_dynamic_plan, dynamic_plan_self=cfg.kpconv_dynamic_plan_self,
-            dynamic_center=cfg.kpconv_dynamic_center,
+            dynamic_center=cfg.kpconv_dynamic_center, impl=cfg.kpconv_impl, knn_k=cfg.neighbor_num,
+            knn_window_plan=cfg.kpconv_knn_window_plan, shared_influence=cfg.kpconv_shared_influence,
         )
         stage_sizes = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}[cfg.img_backbone]
         self.img_encoder = ResNetEncoder(stage_sizes, dtype=dtype)

@@ -170,9 +170,17 @@ def _tiles(q_points, s_points, s_feats, tile, num_tiles, band, starts):
     return qt, pb, fb
 
 
+def tau_reach2(radius: float, sigma: float, kernel_size: int = 15) -> float:
+    """Squared reach mask of the k-NN (tau) aggregation with explicit
+    per-layer kernel points: the canonical reach padded 10%, since a
+    rotation keeps kernel-point norms and the reference's jitter is small
+    (cofii2p_tpu/ops/banded.py:363-368)."""
+    return (1.1 * kernel_reach(radius, sigma, kernel_size)) ** 2
+
+
 def banded_kpconv_aggregate(
     s_feats, q_points, s_points, radius, sigma, kernel_size=15, tile=128,
-    band_width=1024, dtype=torch.float32, starts=None,
+    band_width=1024, dtype=torch.float32, starts=None, tau=None, kp=None,
 ):
     """Influence-weighted banded neighbor aggregation (plain version).
 
@@ -181,61 +189,119 @@ def banded_kpconv_aggregate(
     ``starts`` (B, nt): dynamic window starts; ``band_width`` is then the
     full window width.  (cofii2p_tpu/ops/banded.py:314-423)
 
+    ``tau`` (B, M): the k-NN semantics of a reference checkpoint.  Rows
+    with d2 <= tau[m] are the neighbourhood; they are aggregated where they
+    also lie within the reach mask, and the count is the reference's
+    active-row rule, max(#{d2 <= tau[m] and sum_c s_feats[j, c] > 0}, 1)
+    (banded.py:381-385).  ``kp`` (K, 3): the layer's own kernel points; the
+    reach mask is then :func:`tau_reach2`.
+
     Returns weighted (B, M, K, C) fp32 and count (B, M) int32.
     """
     b, m = q_points.shape[:2]
     n, c = s_feats.shape[1:]
     dev = q_points.device
-    kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+    if kp is None:
+        kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+        r2 = kernel_reach(radius, sigma, kernel_size) ** 2
+    else:
+        kp = kp.to(device=dev, dtype=torch.float32)
+        r2 = tau_reach2(radius, sigma, kernel_size)
     k_num = kp.shape[0]
-    r2 = kernel_reach(radius, sigma, kernel_size) ** 2
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     qt, pb, fb = _tiles(q_points, s_points, s_feats, tile, num_tiles, band, starts)
+    if tau is not None:
+        tt = tau.reshape(b, num_tiles, tile)
+        active = _slice_bands_dyn((s_feats.float().sum(-1) > 0.0)[..., None], _starts_of(
+            m, n, tile, num_tiles, band, b, dev, starts), band)[..., 0]  # (B, nt, band)
     weighted = torch.empty(b, num_tiles, tile, k_num, c, dtype=torch.float32, device=dev)
     count = torch.empty(b, num_tiles, tile, dtype=torch.int32, device=dev)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * band * max(k_num, c)):
         q, p, f = qt[:, t0:t1], pb[:, t0:t1], fb[:, t0:t1]
         offs = p[:, :, None, :, :] - q[:, :, :, None, :]  # (B, t, T, band, 3)
         infl = _influence(offs, kp, sigma)  # (B, t, T, band, K)
-        within = _membership_d2(q, p) <= r2  # (B, t, T, band)
+        d2 = _membership_d2(q, p)  # (B, t, T, band)
+        if tau is None:
+            within = d2 <= r2
+            cnt = within.sum(-1)
+        else:
+            within_tau = d2 <= tt[:, t0:t1, :, None]
+            within = within_tau & (d2 <= r2)
+            cnt = (within_tau & active[:, t0:t1, None, :]).sum(-1)
         infl = torch.where(within[..., None], infl, 0.0)
-        count[:, t0:t1] = torch.clamp(within.sum(-1), min=1).to(torch.int32)
+        count[:, t0:t1] = torch.clamp(cnt, min=1).to(torch.int32)
         weighted[:, t0:t1] = torch.einsum(
             "xytbk,xybc->xytkc", _round(infl, dtype), _round(f, dtype)
         )
     return weighted.reshape(b, m, k_num, c), count.reshape(b, m)
 
 
-def banded_maxpool(s_feats, q_points, s_points, r_active, tile=128, band_width=1024, starts=None):
+def banded_maxpool(s_feats, q_points, s_points, r_active, tile=128, band_width=1024, starts=None, tau=None):
     """Max over in-reach band features (plain version); empty neighborhoods
-    give 0.  Returns (B, M, C) in the dtype of ``s_feats``.
+    give 0.  Returns (B, M, C) in the dtype of ``s_feats``.  With ``tau``
+    (B, M) the neighbourhood is {d2 <= tau[m]}, the reference's k-NN
+    maxpool, with no radius mask; ``r_active`` is then unused.
     (cofii2p_tpu/ops/banded.py:429-499)"""
     b, m = q_points.shape[:2]
     n, c = s_feats.shape[1:]
     r2 = r_active * r_active
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     qt, pb, fb = _tiles(q_points, s_points, s_feats, tile, num_tiles, band, starts)
+    tt = None if tau is None else tau.reshape(b, num_tiles, tile, 1)
     out = torch.empty(b, num_tiles, tile, c, dtype=s_feats.dtype, device=s_feats.device)
     neg = torch.tensor(float("-inf"), dtype=s_feats.dtype, device=s_feats.device)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * band * c):
         q, p, f = qt[:, t0:t1], pb[:, t0:t1], fb[:, t0:t1]
-        within = _membership_d2(q, p) <= r2  # (B, t, T, band)
+        within = _membership_d2(q, p) <= (r2 if tt is None else tt[:, t0:t1])  # (B, t, T, band)
         pooled = torch.where(within[..., None], f[:, :, None], neg).amax(dim=3)
         out[:, t0:t1] = torch.where(within.any(-1, keepdim=True), pooled, 0.0)
     return out.reshape(b, m, c)
 
 
-def banded_pair_count(q_points, s_points, r_active, tile=128, band_width=1024, starts=None):
+def banded_knn_tau(q_points, s_points, k=128, tile=128, band_width=1024, starts=None):
+    """Per query, the k-NN threshold over its band (plain version of
+    cofii2p_tpu/ops/banded.py:771-854): with kk = min(k, band), kth and nxt
+    the kk-th and (kk+1)-th smallest band d2 (:func:`_membership_d2`),
+
+        tau = max(0.5 * (kth + nxt), kth * (1 + 1e-5) + 1e-12),
+
+    and nxt = kth * (1 + 2e-6) + 2e-12 where the band has no (kk+1)-th row.
+    The order statistics are exact data values (``torch.topk``), so tau is
+    bit-equal to the JAX package's and to kernel #5's.  ``starts``
+    (B, nt): each tile's window, of width ``band_width``.  Returns (B, M)
+    fp32.
+    """
+    b, m = q_points.shape[:2]
+    n = s_points.shape[1]
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    kk = min(k, band)
+    qt, pb, _ = _tiles(q_points, s_points, None, tile, num_tiles, band, starts)
+    out = torch.empty(b, num_tiles, tile, dtype=torch.float32, device=q_points.device)
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * band):
+        d2 = _membership_d2(qt[:, t0:t1], pb[:, t0:t1])
+        top = torch.topk(d2, min(kk + 1, band), dim=-1, largest=False, sorted=True).values
+        kth = top[..., kk - 1]
+        nxt = top[..., kk] if kk < band else kth * (1.0 + 2e-6) + 2e-12
+        out[:, t0:t1] = torch.maximum(0.5 * (kth + nxt), kth * (1.0 + 1e-5) + 1e-12)
+    return out.reshape(b, m)
+
+
+def banded_pair_count(q_points, s_points, r_active, tile=128, band_width=1024, starts=None, tau=None):
     """(B, M) int64 number of in-reach band rows of each query: the
-    unclamped in-reach count, i.e. the pairs a banded op must visit."""
+    unclamped in-reach count, i.e. the pairs a banded op must visit.  With
+    ``tau`` (B, M) a row must also have d2 <= tau[m]; ``r_active`` None
+    drops the reach test."""
     b, m = q_points.shape[:2]
     n = s_points.shape[1]
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     qt, pb, _ = _tiles(q_points, s_points, None, tile, num_tiles, band, starts)
-    r2 = float(np.float32(r_active * r_active))
+    r2 = float("inf") if r_active is None else float(np.float32(r_active * r_active))
+    tt = None if tau is None else tau.reshape(b, num_tiles, tile, 1)
     out = torch.empty(b, num_tiles, tile, dtype=torch.int64, device=q_points.device)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * band):
-        out[:, t0:t1] = (_membership_d2(qt[:, t0:t1], pb[:, t0:t1]) <= r2).sum(-1)
+        d2 = _membership_d2(qt[:, t0:t1], pb[:, t0:t1])
+        within = d2 <= r2 if tt is None else (d2 <= r2) & (d2 <= tt[:, t0:t1])
+        out[:, t0:t1] = within.sum(-1)
     return out.reshape(b, m)
 
 
@@ -387,18 +453,36 @@ def dynamic_band_starts(q_points, s_points, r_active, tile=128, width=256, cente
     """
     if center != "best":
         raise NotImplementedError("the port implements center='best' (the config default)")
+    r2 = np.float32(np.float32(r_active * r_active) * np.float32(1.0001))
+    return _best_windows(q_points, s_points, lambda t0, t1: float(r2), tile, width, stride)
+
+
+def dynamic_knn_starts(q_points, s_points, tau, tile=128, width=256, stride=1):
+    """Per-tile window starts under k-NN semantics (cofii2p_tpu/ops/
+    banded.py:193-244): as :func:`dynamic_band_starts`, with membership
+    ``d2 <= tau[m]`` per query.  tau (B, M) -> (B, num_tiles) int32."""
+    b, m = q_points.shape[:2]
+    tt = tau.reshape(b, -1, _dyn_tile(m, tile)[0], 1)
+    return _best_windows(q_points, s_points, lambda t0, t1: tt[:, t0:t1], tile, width, stride)
+
+
+def _best_windows(q_points, s_points, threshold, tile, width, stride):
+    """Each query tile's width-W window of support rows holding the most
+    (query, row) pairs with d2 <= ``threshold(t0, t1)`` (a scalar, or the
+    (B, t, T, 1) thresholds of tiles t0..t1), counted on every
+    ``stride``-th row; the static proportional start where no sampled row
+    is a member.  Returns (B, num_tiles) int32 starts in [0, N - width]."""
     b, m = q_points.shape[:2]
     n = s_points.shape[1]
     tile, num_tiles = _dyn_tile(m, tile)
     width = min(width, n)
-    r2 = np.float32(np.float32(r_active * r_active) * np.float32(1.0001))
     s_sub = s_points[:, ::stride] if stride > 1 else s_points
     n_sub = s_sub.shape[1]
     w_sub = max(width // stride, 1)
     qt = q_points.reshape(b, num_tiles, tile, 3)
     out = torch.empty(b, num_tiles, dtype=torch.int64, device=q_points.device)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * n_sub):
-        within = _membership_d2(qt[:, t0:t1], s_sub[:, None]) <= float(r2)  # (B, t, T, n_sub)
+        within = _membership_d2(qt[:, t0:t1], s_sub[:, None]) <= threshold(t0, t1)  # (B, t, T, n_sub)
         wcnt = within.sum(dim=2)  # (B, t, n_sub)
         has = wcnt.sum(-1) > 0
         cs = torch.nn.functional.pad(torch.cumsum(wcnt, dim=-1), (1, 0))

@@ -1,7 +1,7 @@
 """Banded KPConv: the CUDA kernels' wrappers, their plain versions and the
 autograd Function that differentiates through them.
 
-Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Three kernels:
+Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Five kernels:
  - :func:`banded_kpconv_fused` (csrc/kpconv_fused.cu; replaces
    banded_kpconv_fused_pallas) aggregates the in-reach band rows of each
    query and contracts with the (K, Cin, Cout) weights in one pass; the
@@ -11,7 +11,13 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Three kernels:
    the residual the weight gradient needs;
  - :func:`banded_kpconv_transpose_fused` (csrc/kpconv_transpose.cu;
    replaces _transpose_agg) is the aggregate's feature gradient on static
-   bands.
+   bands;
+ - :func:`banded_kpconv_fused_tau` and :func:`banded_kpconv_aggregate_tau`
+   (csrc/kpconv_fused.cu in tau mode; replace banded_kpconv_fused_tau_pallas
+   and banded_kpconv_aggregate_tau_pallas) are the two under the k-NN
+   semantics of a reference checkpoint: membership d2 <= tau[m], the
+   layer's own kernel points, the active-row count.  Forward only: their
+   backward (#11) is not ported.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor; there is no other fallback.  A wrapper returns
@@ -40,6 +46,7 @@ from cofii2p_tpu_torch.ops.banded import (
     bwd_geometry,
     kernel_reach,
     static_starts,
+    tau_reach2,
 )
 
 MAX_CHANNELS = 512  # Cin and Cout the kernels take
@@ -91,14 +98,14 @@ def _check_cuda(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def check_no_grad(what: str, *tensors) -> None:
+def check_no_grad(what: str, *tensors, backward: str | None = None) -> None:
     """A kernel's output carries no autograd history: refuse inputs that
-    would need one instead of silently cutting the gradient."""
+    would need one instead of silently cutting the gradient.  ``backward``
+    names the kernel a forward-only wrapper's gradient still waits for."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel returns no autograd history; differentiate through "
-            "its autograd Function (ops/kpconv_kernel.py, ops/maxpool_kernel.py)"
-        )
+        how = (f"its backward, {backward}, is not ported yet" if backward else
+               "differentiate through its autograd Function (ops/kpconv_kernel.py, ops/maxpool_kernel.py)")
+        raise RuntimeError(f"{what}: the CUDA kernel returns no autograd history; {how}")
 
 
 def fused_contraction_fits(kernel_size: int, cin: int, cout: int, tile: int = 128, wbytes: int = 4) -> bool:
@@ -350,5 +357,147 @@ def banded_kpconv_apply(
         )
     weighted, count = banded_kpconv_aggregate_fused(
         s_feats, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, starts,
+    )
+    return torch.einsum("bmkc,kcd->bmd", _round(weighted, dtype), _round(weights, dtype)), count
+
+
+# ---------------------------------------------------------------------------
+# k-NN (tau) semantics: kernels #6 and #7
+# ---------------------------------------------------------------------------
+
+
+def banded_kpconv_aggregate_tau_plain(
+    s_feats, q_points, s_points, tau, kp, radius, sigma, kernel_size=15,
+    tile=128, band_width=1024, dtype=torch.float32, starts=None,
+):
+    """Plain version of :func:`banded_kpconv_aggregate_tau`."""
+    return banded_kpconv_aggregate(
+        s_feats, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, starts, tau=tau, kp=kp,
+    )
+
+
+def banded_kpconv_fused_tau_plain(
+    s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size=15,
+    tile=128, band_width=1024, dtype=torch.float32, starts=None,
+):
+    """Plain version of :func:`banded_kpconv_fused_tau`: the tau
+    aggregation, then the contraction in ``dtype`` with fp32 accumulation."""
+    weighted, count = banded_kpconv_aggregate_tau_plain(
+        s_feats, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype, starts,
+    )
+    return torch.einsum("bmkc,kcd->bmd", _round(weighted, dtype), _round(weights, dtype)), count
+
+
+def _tau_launch_args(s_feats, q_points, s_points, tau, kp, kernel_size, tile, band_width, dtype, starts):
+    """Checks shared by the two tau wrappers; returns the plan, the starts,
+    the kernel points and the active-row scratch."""
+    b, m = q_points.shape[:2]
+    n, cin = s_feats.shape[1:]
+    _check_feats(s_feats, q_points, s_points, cin)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype} not supported")
+    if tau.dtype != torch.float32 or tau.shape != (b, m):
+        raise ValueError(f"tau must be float32 of shape {(b, m)}")
+    if kp.shape != (kernel_size, 3):
+        raise ValueError(f"kernel points of shape {tuple(kp.shape)} != {(kernel_size, 3)}")
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    st = _starts_arg(m, n, tile, band, num_tiles, b, s_feats.device, starts)
+    kp32 = kp.float().contiguous()
+    _check_cuda(s_feats=s_feats, q_points=q_points, s_points=s_points, tau=tau, kernel_points=kp32, starts=st)
+    active = torch.empty(b, n, dtype=torch.int32, device=s_feats.device)
+    return b, m, n, cin, tile, num_tiles, band, st, kp32, active
+
+
+def banded_kpconv_fused_tau(
+    s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size=15,
+    tile=128, band_width=1024, dtype=torch.float32, starts=None,
+):
+    """Banded KPConv under k-NN semantics with the contraction fused in
+    (kernel #7): band rows with d2 <= tau[m] (tau (B, M) from
+    ops/tau_kernel.py) aggregated within the padded reach of the layer's
+    kernel points ``kp`` (K, 3).  Returns (out (B, M, Cout) fp32
+    unnormalised, count (B, M) int32, the active-row count)."""
+    if s_feats.device.type == "cpu":
+        return banded_kpconv_fused_tau_plain(
+            s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size,
+            tile, band_width, dtype, starts,
+        )
+    check_no_grad("banded_kpconv_fused_tau", s_feats, weights, backward="kernel #11 (_transpose_agg_tau)")
+    b, m, n, cin, tile, num_tiles, band, st, kp32, active = _tau_launch_args(
+        s_feats, q_points, s_points, tau, kp, kernel_size, tile, band_width, dtype, starts,
+    )
+    k_num, w_cin, cout = weights.shape
+    if w_cin != cin or k_num != kernel_size:
+        raise ValueError("shape mismatch between features and weights")
+    if cout > MAX_CHANNELS:
+        raise ValueError(f"Cout <= {MAX_CHANNELS} supported, got {cout}")
+    w = weights.to(dtype).float().contiguous()
+    _check_cuda(weights=w)
+    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cin), _ACC_ELEMS >> _pad_shift(cout)))
+    out = torch.empty(b, m, cout, dtype=torch.float32, device=s_feats.device)
+    count = torch.empty(b, m, dtype=torch.int32, device=s_feats.device)
+    err = cuda_lib.lib().kpconv_fused_tau_launch(
+        q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
+        int(s_feats.dtype == torch.bfloat16), w.data_ptr(), kp32.data_ptr(), st.data_ptr(),
+        tau.data_ptr(), active.data_ptr(), out.data_ptr(), count.data_ptr(),
+        b, m, n, cin, cout, k_num, tile, num_tiles, band, tq, int(dtype == torch.bfloat16),
+        float(np.float32(tau_reach2(radius, sigma, kernel_size))), float(sigma), cuda_lib.stream_of(s_feats),
+    )
+    cuda_lib.check(err, "kpconv_fused_tau")
+    banded_kpconv_fused_tau.launches += 1
+    return out, count
+
+
+banded_kpconv_fused_tau.launches = 0
+
+
+def banded_kpconv_aggregate_tau(
+    s_feats, q_points, s_points, tau, kp, radius, sigma, kernel_size=15,
+    tile=128, band_width=1024, dtype=torch.float32, starts=None,
+):
+    """Banded aggregation under k-NN semantics (kernel #6): weighted
+    (B, M, K, Cin) fp32 and the active-row count (B, M) int32; arguments
+    as :func:`banded_kpconv_fused_tau`."""
+    if s_feats.device.type == "cpu":
+        return banded_kpconv_aggregate_tau_plain(
+            s_feats, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype, starts,
+        )
+    check_no_grad("banded_kpconv_aggregate_tau", s_feats, backward="kernel #11 (_transpose_agg_tau)")
+    b, m, n, cin, tile, num_tiles, band, st, kp32, active = _tau_launch_args(
+        s_feats, q_points, s_points, tau, kp, kernel_size, tile, band_width, dtype, starts,
+    )
+    k_num = kernel_size
+    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cin)))
+    weighted = torch.empty(b, m, k_num, cin, dtype=torch.float32, device=s_feats.device)
+    count = torch.empty(b, m, dtype=torch.int32, device=s_feats.device)
+    err = cuda_lib.lib().kpconv_aggregate_tau_launch(
+        q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
+        int(s_feats.dtype == torch.bfloat16), kp32.data_ptr(), st.data_ptr(), tau.data_ptr(),
+        active.data_ptr(), weighted.data_ptr(), count.data_ptr(), b, m, n, cin, k_num, tile,
+        num_tiles, band, tq, int(dtype == torch.bfloat16),
+        float(np.float32(tau_reach2(radius, sigma, kernel_size))), float(sigma), cuda_lib.stream_of(s_feats),
+    )
+    cuda_lib.check(err, "kpconv_aggregate_tau")
+    banded_kpconv_aggregate_tau.launches += 1
+    return weighted, count
+
+
+banded_kpconv_aggregate_tau.launches = 0
+
+
+def banded_kpconv_tau_apply(
+    s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size=15,
+    tile=128, band_width=1024, dtype=torch.float32, starts=None, fused=True,
+):
+    """The model's KPConv under k-NN semantics: the fused kernel where
+    ``fused`` (:func:`fused_contraction_fits`), else the aggregate kernel
+    and a matmul, as cofii2p_tpu/models/kpconv.py:231-299 chooses.  Returns
+    (out (B, M, Cout) fp32 unnormalised, count (B, M) int32)."""
+    if fused:
+        return banded_kpconv_fused_tau(
+            s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype, starts,
+        )
+    weighted, count = banded_kpconv_aggregate_tau(
+        s_feats, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype, starts,
     )
     return torch.einsum("bmkc,kcd->bmd", _round(weighted, dtype), _round(weights, dtype)), count

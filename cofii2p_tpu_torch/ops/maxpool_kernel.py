@@ -1,7 +1,7 @@
 """Banded maxpool: the CUDA kernels' wrappers, their plain versions and the
 autograd Function that differentiates through them.
 
-Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Three kernels:
+Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Four kernels:
  - :func:`banded_maxpool_fused` (csrc/maxpool.cu; replaces
    banded_maxpool_pallas) keeps per-query membership as a bitmask in
    shared memory and reads a feature row only where it is in reach;
@@ -9,7 +9,11 @@ Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Three kernels:
    replaces _match_count) counts the in-reach rows tied at the max;
  - :func:`banded_maxpool_backward_fused` (csrc/maxpool_bwd.cu; replaces
    _bwd) routes the tie-divided cotangent to those rows, transposed over
-   support tiles, on static bands.
+   support tiles, on static bands;
+ - :func:`banded_maxpool_tau` (csrc/maxpool.cu in tau mode; replaces
+   banded_maxpool_tau_pallas) is the reference's k-NN maxpool: membership
+   d2 <= tau[m], no radius mask.  Forward only: its backward (#15) is not
+   ported.
 
 Each wrapper takes its plain version (ops/banded.py) for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no other fallback.
@@ -42,6 +46,11 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
 _MAX_TS = 32  # support rows per block of the backward (csrc/maxpool_bwd.cu)
 
 banded_maxpool_plain = banded_maxpool
+
+
+def banded_maxpool_tau_plain(s_feats, q_points, s_points, tau, tile=128, band_width=1024, starts=None):
+    """Plain version of :func:`banded_maxpool_tau`."""
+    return banded_maxpool(s_feats, q_points, s_points, 0.0, tile, band_width, starts, tau=tau)
 banded_maxpool_tie_count_plain = banded_maxpool_tie_count
 banded_maxpool_route_plain = banded_maxpool_route
 
@@ -80,6 +89,39 @@ def banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile=128, band_w
 
 
 banded_maxpool_fused.launches = 0
+
+
+def banded_maxpool_tau(s_feats, q_points, s_points, tau, tile=128, band_width=1024, starts=None):
+    """The k-NN maxpool (kernel #8): the max of s_feats over the band rows
+    with d2 <= tau[m], 0 where there is none.  tau (B, M) fp32 from
+    ops/tau_kernel.py; other arguments as :func:`banded_maxpool_fused`.
+    Returns (B, M, C) in the dtype of ``s_feats``."""
+    if s_feats.device.type == "cpu":
+        return banded_maxpool_tau_plain(s_feats, q_points, s_points, tau, tile, band_width, starts)
+    check_no_grad("banded_maxpool_tau", s_feats, backward="kernel #15 (_tau_bwd)")
+    b, m = q_points.shape[:2]
+    n, c = s_feats.shape[1:]
+    if s_feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feature dtype {s_feats.dtype} not supported")
+    if q_points.dtype != torch.float32 or s_points.dtype != torch.float32 or tau.dtype != torch.float32:
+        raise ValueError("points and tau must be float32")
+    if s_points.shape[:2] != (b, n) or tau.shape != (b, m):
+        raise ValueError("shape mismatch between features, points and tau")
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    st = _starts_arg(m, n, tile, band, num_tiles, b, s_feats.device, starts)
+    _check_cuda(s_feats=s_feats, q_points=q_points, s_points=s_points, tau=tau, starts=st)
+    out = torch.empty(b, m, c, dtype=s_feats.dtype, device=s_feats.device)
+    err = cuda_lib.lib().maxpool_tau_launch(
+        q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
+        int(s_feats.dtype == torch.bfloat16), st.data_ptr(), tau.data_ptr(), out.data_ptr(),
+        b, m, n, c, tile, band, pick_tq(tile, 16), cuda_lib.stream_of(s_feats),
+    )
+    cuda_lib.check(err, "maxpool_tau")
+    banded_maxpool_tau.launches += 1
+    return out
+
+
+banded_maxpool_tau.launches = 0
 
 
 def _check_pool(s_feats, q_points, s_points, out):

@@ -153,3 +153,27 @@ def randomize(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Mo
             elif name.endswith("running_var"):
                 buf.fill_(1.0)
     return model
+
+
+def jittered_kernel_points(kp: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``kp`` (K, 3) rotated about a random axis and jittered by 1% of its
+    radius, as the reference disposes each KPConv's kernel points."""
+    axis = torch.randn(3, generator=generator, dtype=torch.float64)
+    axis = axis / axis.norm()
+    th = float(torch.rand((), generator=generator, dtype=torch.float64)) * 2 * np.pi
+    k = torch.tensor([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]], [-axis[1], axis[0], 0.0]],
+                     dtype=torch.float64)
+    rot = torch.eye(3, dtype=torch.float64) + np.sin(th) * k + (1 - np.cos(th)) * (k @ k)
+    kp64 = kp.detach().cpu().double()
+    noise = torch.randn(kp.shape, generator=generator, dtype=torch.float64) * 0.01 * kp64.norm(dim=-1).max()
+    return (kp64 @ rot.T + noise).to(kp.dtype).to(kp.device)
+
+
+def jitter_kernel_points(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Give every KPConv of ``model`` its own :func:`jittered_kernel_points`,
+    as a reference checkpoint carries them."""
+    with torch.no_grad():
+        for name, kp in model.named_buffers():
+            if name.endswith("kernel_points"):
+                kp.copy_(jittered_kernel_points(kp, generator))
+    return model

@@ -1,10 +1,14 @@
-"""Per-call times of the port's CUDA kernels on the serving or training path.
+"""Per-call times of the port's CUDA kernels on the serving, training or
+`.t7` eval path.
 
-    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|train] [--batch 8] [--reps 10]
+    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|train|t7] [--batch 8] [--reps 10]
 
 ``serve`` runs one forward of bench.py's serving config (bf16 w192,
 fused attention); ``train`` one fp32 training step of the default
-KITTIConfig (static bands), forward and backward.  Both use seeded random
+KITTIConfig (static bands), forward and backward; ``t7`` one fp32 forward
+of the configuration a reference checkpoint is evaluated with
+(evaluation/eval_all.py::reference_ckpt_config: k-NN semantics, static
+bands, per-layer kernel points, fused attention).  All use seeded random
 weights and synthetic KITTI-shaped frames.  Every call of a kernel wrapper
 is recorded with its arguments, then replayed on its own: the kernel and
 its plain PyTorch version are timed with CUDA events, and the call's bound
@@ -50,22 +54,29 @@ def bound_ms(nbytes, ops32=0.0, ops16=0.0):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _pairs(q, s, r_active, tile, width, starts=None) -> float:
-    """In-reach (query, band row) pairs of these inputs."""
+def _pairs(q, s, r_active, tile, width, starts=None, tau=None) -> float:
+    """In-reach (query, band row) pairs of these inputs (and within tau
+    where it is given)."""
     from cofii2p_tpu_torch.ops.banded import banded_pair_count
 
-    return float(banded_pair_count(q, s, r_active, tile, width, starts).sum())
+    return float(banded_pair_count(q, s, r_active, tile, width, starts, tau).sum())
 
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper by name, with its plain version and the module
     attribute the model's path looks it up through."""
+    from cofii2p_tpu_torch.models import kpconv as kpc
     from cofii2p_tpu_torch.models import transformer as tf
     from cofii2p_tpu_torch.ops import attention_kernel as att
     from cofii2p_tpu_torch.ops import kpconv_kernel as kpk
     from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
+    from cofii2p_tpu_torch.ops import tau_kernel as tk
 
     return {
+        "banded_knn_tau_kernel": (kpc, tk.banded_knn_tau_kernel, tk.banded_knn_tau_plain),
+        "banded_kpconv_fused_tau": (kpk, kpk.banded_kpconv_fused_tau, kpk.banded_kpconv_fused_tau_plain),
+        "banded_kpconv_aggregate_tau": (kpk, kpk.banded_kpconv_aggregate_tau, kpk.banded_kpconv_aggregate_tau_plain),
+        "banded_maxpool_tau": (kpc, mpk.banded_maxpool_tau, mpk.banded_maxpool_tau_plain),
         "banded_kpconv_fused": (kpk, kpk.banded_kpconv_fused, kpk.banded_kpconv_fused_plain),
         "banded_kpconv_aggregate_fused": (kpk, kpk.banded_kpconv_aggregate_fused, kpk.banded_kpconv_aggregate_plain),
         "banded_kpconv_transpose_fused": (kpk, kpk.banded_kpconv_transpose_fused, kpk.banded_kpconv_transpose_plain),
@@ -79,7 +90,7 @@ def kernel_wrappers() -> dict:
 
 def call_bound(name: str, args, kwargs=None):
     """Bound of one call of the wrapper ``name`` on these arguments."""
-    from cofii2p_tpu_torch.ops.banded import kernel_reach
+    from cofii2p_tpu_torch.ops.banded import kernel_reach, tau_reach2
 
     fn = kernel_wrappers()[name][1]
     a = inspect.signature(fn).bind(*args, **(kwargs or {}))
@@ -98,9 +109,20 @@ def call_bound(name: str, args, kwargs=None):
     n = s.shape[1]
     pts = b * (m + n) * 3 * 4
     starts = a.get("starts")
+    tau = a.get("tau")
+    if name == "banded_knn_tau_kernel":
+        # one d2 (3 subtractions, 3 products, 2 sums) and one comparison
+        # per (query, band row): the least a selection over the band does
+        from cofii2p_tpu_torch.ops.banded import band_plan
+
+        band = band_plan(m, n, a["tile"], a["band_width"], starts)[2]
+        return bound_ms(pts + b * m * 4, ops32=9.0 * b * m * band)
     if name.startswith("banded_kpconv"):
         ks, tile, bw = a["kernel_size"], a["tile"], a["band_width"]
-        pairs = _pairs(q, s, kernel_reach(a["radius"], a["sigma"], ks), tile, bw, starts)
+        if tau is None:
+            pairs = _pairs(q, s, kernel_reach(a["radius"], a["sigma"], ks), tile, bw, starts)
+        else:  # the aggregated pairs: within tau and the padded reach
+            pairs = _pairs(q, s, tau_reach2(a["radius"], a["sigma"], ks) ** 0.5, tile, bw, starts, tau)
         mma16 = a["dtype"] == torch.bfloat16
         if name == "banded_kpconv_transpose_fused":
             g = a["g_weighted"]
@@ -110,7 +132,9 @@ def call_bound(name: str, args, kwargs=None):
         cin = f.shape[-1]
         infl = pairs * ks * INFL_OPS
         agg = 2.0 * pairs * ks * cin
-        if name == "banded_kpconv_aggregate_fused":
+        if tau is not None:
+            pts += tau.numel() * 4 + ks * 3 * 4
+        if name in ("banded_kpconv_aggregate_fused", "banded_kpconv_aggregate_tau"):
             io = pts + f.numel() * f.element_size() + b * m * (ks * cin + 1) * 4
             return bound_ms(io, ops32=infl + (0 if mma16 else agg), ops16=agg if mma16 else 0.0)
         w = a["weights"]
@@ -120,8 +144,11 @@ def call_bound(name: str, args, kwargs=None):
         return bound_ms(io, ops32=infl + (0 if mma16 else mma), ops16=mma if mma16 else 0.0)
     f = a["s_feats"]
     c = f.shape[-1]
-    pairs = _pairs(q, s, a["r_active"], a["tile"], a["band_width"], starts)
     fbytes = f.numel() * f.element_size()
+    if name == "banded_maxpool_tau":
+        pairs = _pairs(q, s, None, a["tile"], a["band_width"], starts, tau)
+        return bound_ms(pts + tau.numel() * 4 + fbytes + b * m * c * f.element_size(), ops32=pairs * c)
+    pairs = _pairs(q, s, a["r_active"], a["tile"], a["band_width"], starts)
     if name == "banded_maxpool_fused":
         return bound_ms(pts + fbytes + b * m * c * f.element_size(), ops32=pairs * c)
     out_bytes = a["out"].numel() * a["out"].element_size()
@@ -159,6 +186,8 @@ def _describe(name, args, kwargs):
     a = a.arguments
     if name == "fused_attention":
         return f"q {tuple(a['q'].shape)} kv {a['k'].shape[1]} {a['q'].dtype}"
+    if name == "banded_knn_tau_kernel":
+        return f"M {a['q_points'].shape[1]} N {a['s_points'].shape[1]} k {a['k']} bw{a['band_width']}"
     lead = a.get("s_feats", a.get("g_weighted"))
     band = ("w%d" if a.get("starts") is not None else "bw%d") % a["band_width"]
     extra = f" Cout {a['weights'].shape[-1]}" if "weights" in a else ""
@@ -175,6 +204,34 @@ def record_serve(batch, seed, dev):
     cfg = KITTIConfig(compute_dtype="bfloat16", kpconv_dynamic_plan=SERVE_DYNAMIC_PLAN,
                       kpconv_dynamic_plan_self=SERVE_DYNAMIC_PLAN_SELF, attention="pallas")
     model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(dev).eval()
+    hb = _frames(cfg, batch, dev)
+    draws = make_draws(cfg, batch, torch.Generator(dev).manual_seed(seed), dev)
+    calls = []
+    with torch.no_grad():
+        b = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
+        with recording(calls):
+            model(b)
+    return calls
+
+
+def t7_model(cfg, seed, dev):
+    """The model a reference checkpoint gives, from seeded weights: random
+    weights and each KPConv's own rotated and jittered kernel points."""
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.utils.convert import jitter_kernel_points, randomize
+
+    gen = torch.Generator().manual_seed(seed)
+    return jitter_kernel_points(randomize(CoFiI2P(cfg), gen), gen).to(dev).eval()
+
+
+def record_t7(batch, seed, dev):
+    from cofii2p_tpu_torch.config import KITTIConfig
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.eval_all import reference_ckpt_config
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+
+    cfg = reference_ckpt_config(KITTIConfig(), [], dev)
+    model = t7_model(cfg, seed, dev)
     hb = _frames(cfg, batch, dev)
     draws = make_draws(cfg, batch, torch.Generator(dev).manual_seed(seed), dev)
     calls = []
@@ -214,7 +271,7 @@ def _frames(cfg, batch, dev):
 
 def main():
     ap = argparse.ArgumentParser(description="time the port's kernels on the serving or training path")
-    ap.add_argument("--path", choices=("serve", "train"), default="serve")
+    ap.add_argument("--path", choices=("serve", "train", "t7"), default="serve")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -224,7 +281,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    calls = (record_serve if args.path == "serve" else record_train)(args.batch, args.seed, dev)
+    calls = {"serve": record_serve, "train": record_train, "t7": record_t7}[args.path](args.batch, args.seed, dev)
     torch.cuda.synchronize()
 
     wrappers = kernel_wrappers()

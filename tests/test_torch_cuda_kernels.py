@@ -12,7 +12,9 @@ bf16 <= 2e-2 abs with the output in q's dtype.  Training kernels, fp32:
 the aggregate rel <= 1e-3 with equal counts, the transposed aggregate
 rel <= 1e-4, tie counts bit-equal, the maxpool backward rel <= 1e-5, and
 the autograd Functions' gradients against autograd of the plain versions
-rel <= 1e-4 (KPConv) and 1e-5 (maxpool).
+rel <= 1e-4 (KPConv) and 1e-5 (maxpool).  The k-NN (tau) kernels: tau and
+the k-NN maxpool bit-equal (exact order statistics; a select), the tau
+KPConvs with equal active-row counts and fp32 rel <= 1e-4, bf16 <= 5e-2.
 """
 
 import numpy as np
@@ -20,13 +22,17 @@ import pytest
 import torch
 
 from cofii2p_tpu_torch.ops.attention_kernel import fused_attention, fused_attention_plain
-from cofii2p_tpu_torch.ops.banded import dynamic_band_starts, kernel_reach
+from cofii2p_tpu_torch.ops.banded import _load_kernel_points, dynamic_band_starts, dynamic_knn_starts, kernel_reach
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
     banded_kpconv_aggregate_fused,
     banded_kpconv_aggregate_plain,
+    banded_kpconv_aggregate_tau,
+    banded_kpconv_aggregate_tau_plain,
     banded_kpconv_apply,
     banded_kpconv_fused,
     banded_kpconv_fused_plain,
+    banded_kpconv_fused_tau,
+    banded_kpconv_fused_tau_plain,
     banded_kpconv_transpose_fused,
     banded_kpconv_transpose_plain,
 )
@@ -36,10 +42,14 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_fused,
     banded_maxpool_plain,
     banded_maxpool_route_plain,
+    banded_maxpool_tau,
+    banded_maxpool_tau_plain,
     banded_maxpool_tie_count_fused,
     banded_maxpool_tie_count_plain,
 )
 from cofii2p_tpu_torch.ops.pyramid import morton_order
+from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel, banded_knn_tau_plain
+from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
 
 R, S = 1.7, 0.8  # the level-2 radius and sigma of the KITTI FPN
 R_ACT = kernel_reach(R, S)
@@ -185,3 +195,62 @@ def test_autograd_functions_match_plain_autograd(cuda_device):
     assert rel_err(grads[0][0], grads[1][0]) <= 1e-4
     assert rel_err(grads[0][1], grads[1][1]) <= 1e-4
     assert rel_err(grads[0][2], grads[1][2]) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,width,windowed", [
+    (1024, 2048, 128, 256, False), (1024, 2048, 16, 256, True), (2048, 2048, 128, 2304, False),
+    (128, 128, 128, 256, False),
+])
+def test_knn_tau_kernel_bitequal_to_plain(cuda_device, m, n, k, width, windowed):
+    """Static bands, windows, a band of the whole level with k = band, and
+    duplicated points whose k-th and (k+1)-th distances tie."""
+    q, s = clouds(m, n, cuda_device)
+    s, _ = tied_features(s, 1, cuda_device)
+    if m == n:
+        q = s
+    starts = None
+    if windowed:
+        starts = dynamic_knn_starts(q, s, banded_knn_tau_plain(q, s, k, 128, 2 * width), 128, width, 1)
+    ref = banded_knn_tau_plain(q, s, k, 128, width, starts)
+    got = banded_knn_tau_kernel(q, s, k, 128, width, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_maxpool_tau_kernel_bitequal_to_plain(cuda_device):
+    q, s = clouds(1024, 2048, cuda_device, lone=8)
+    s, f32 = tied_features(s, 256, cuda_device)
+    tau = banded_knn_tau_plain(q, s, 16, 128, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        f = f32.to(dtype)
+        out = banded_maxpool_tau(f, q, s, tau, 128, 256)
+        assert out.dtype == dtype
+        assert torch.equal(out, banded_maxpool_tau_plain(f, q, s, tau, 128, 256))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(4, 64), (64, 64), (512, 512)])
+def test_kpconv_tau_kernels_match_plain(cuda_device, cin, cout):
+    """Per-layer kernel points; features of both signs, so the active-row
+    count differs from the in-tau count."""
+    q, s = clouds(1024, 2048, cuda_device, lone=4)
+    g = torch.Generator().manual_seed(5)
+    f = torch.randn(2, 2048, cin, generator=g).to(cuda_device)
+    w = (torch.randn(15, cin, cout, generator=g) / cin**0.5).to(cuda_device)
+    kp = jittered_kernel_points(torch.tensor(_load_kernel_points(R, 15), dtype=torch.float32), g).to(cuda_device)
+    tau = banded_knn_tau_plain(q, s, 32, 128, 256)
+    ref, ref_cnt = banded_kpconv_fused_tau_plain(f, q, s, w, tau, kp, R, S, 15, 128, 256)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        fd = f.to(dtype)
+        out, cnt = banded_kpconv_fused_tau(fd, q, s, w, tau, kp, R, S, 15, 128, 256, dtype)
+        torch.cuda.synchronize()
+        # the active rows are those of the features as given, rounded or not
+        assert torch.equal(cnt, banded_kpconv_fused_tau_plain(fd, q, s, w, tau, kp, R, S, 15, 128, 256, dtype)[1])
+        assert rel_err(out, ref) <= tol
+    ref_w, _ = banded_kpconv_aggregate_tau_plain(f, q, s, tau, kp, R, S, 15, 128, 256)
+    got_w, cnt = banded_kpconv_aggregate_tau(f, q, s, tau, kp, R, S, 15, 128, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, ref_cnt)
+    assert rel_err(got_w, ref_w) <= 1e-4

@@ -1,0 +1,237 @@
+"""The `.t7` reference-checkpoint eval slice: the port's import_t7 /
+export_t7, reference_ckpt_config, make_eval_body under k-NN semantics and
+eval_all.main against the JAX package's, plus the calc_result and ir_rmse
+copies.
+
+The checkpoint is the JAX package's export_t7 of seeded TinyConfig weights
+in which every KPConv carries its own rotated and jittered kernel points,
+as a reference checkpoint does.  Both packages import it; weights must be
+equal exactly.  The pipelines then run it with the port fed JAX's own
+random draws: EvalOutput within the tolerances of test_torch_pipeline.py
+(tests/torch_parity.py::assert_eval_outputs_match), the FPN outputs within
+1e-3 (relative, rms-floored).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cofii2p_tpu.evaluation import calc_result as j_calc_result
+from cofii2p_tpu.evaluation import eval_all as j_eval_all
+from cofii2p_tpu.evaluation import ir_rmse as j_ir_rmse
+from cofii2p_tpu.evaluation.pipeline import make_eval_body as j_make_eval_body
+from cofii2p_tpu.evaluation.pipeline import pose_errors_np as j_pose_errors_np
+from cofii2p_tpu.models.kpconv import KPConvFPN as JFPN
+from cofii2p_tpu.utils.checkpoint import export_t7 as j_export_t7
+from cofii2p_tpu.utils.checkpoint import import_t7 as j_import_t7
+from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+from cofii2p_tpu_torch.evaluation import calc_result, eval_all, ir_rmse
+from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body, pose_errors_np
+from cofii2p_tpu_torch.models.network import CoFiI2P
+from cofii2p_tpu_torch.utils.checkpoint import REFERENCE_UNUSED, export_t7, import_t7
+from cofii2p_tpu_torch.utils.convert import jax_to_state_dict, jittered_kernel_points
+from tests.torch_parity import (
+    assert_eval_outputs_match,
+    cfg_pair,
+    config_fields,
+    host_batch,
+    jax_test_mode,
+    jax_variables,
+    rel_err,
+    replay_draws,
+    to_torch,
+)
+
+B = 2
+
+
+def per_layer_kernel_points(params, seed=0):
+    """Each KPConv's kernel points rotated and jittered independently
+    (utils/convert.py::jittered_kernel_points), in a JAX parameter tree."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def perturb(path, x):
+        if "kernel_points" not in jax.tree_util.keystr(path):
+            return np.asarray(x)
+        return jittered_kernel_points(torch.tensor(np.asarray(x)), gen).numpy()
+
+    return jax.tree_util.tree_map_with_path(perturb, params)
+
+
+@pytest.fixture(scope="module")
+def t7(tmp_path_factory):
+    jcfg, tcfg = cfg_pair("TinyConfig")
+    jcfg = j_eval_all.reference_ckpt_config(jcfg, [])
+    tcfg = eval_all.reference_ckpt_config(tcfg, [], "cpu")
+    hb = host_batch(jcfg, B, start=4)
+    # the weight seed of test_torch_pipeline.py: random weights find no
+    # RANSAC inliers, and at some seeds (2 of 4 tried) the pose RANSAC
+    # returns for such a failed frame is ill-conditioned junk whose last
+    # digits follow each package's arithmetic
+    jmodel, params, stats = jax_variables(jcfg, hb, seed=1)
+    params = per_layer_kernel_points(params)
+    path = str(tmp_path_factory.mktemp("t7") / "ref.t7")
+    j_export_t7(params, stats, path)
+    jp, js = j_import_t7(path, params, stats)
+    tmodel = import_t7(path, CoFiI2P(tcfg)).eval()
+    return dict(jcfg=jcfg, tcfg=tcfg, hb=hb, jmodel=jmodel, jp=jp, js=js, tmodel=tmodel, path=path)
+
+
+def test_t7_loads_equal_in_both_packages(t7):
+    want = jax_to_state_dict(t7["jp"], t7["js"])
+    got = t7["tmodel"].state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got[k], v), k
+    kps = [v for k, v in got.items() if k.endswith("kernel_points")]
+    assert len(kps) == 14 and len({tuple(v.flatten().tolist()) for v in kps}) == 14  # one disposition per layer
+
+
+@pytest.mark.parametrize("fault", ["missing", "unexpected", "non_tensor"])
+def test_import_t7_is_strict(t7, tmp_path, fault):
+    sd = torch.load(t7["path"], weights_only=True)
+    key = {"missing": "pc_encoder.encoder2_1.KPConv.kernel_points", "unexpected": "pc_encoder.extra.weight",
+           "non_tensor": "transformer.layers.0.norm1.weight"}[fault]
+    if fault == "missing":
+        del sd[key]
+    elif fault == "unexpected":
+        sd[key] = torch.zeros(3)
+    else:
+        sd[key] = [1.0, 2.0]
+    path = str(tmp_path / "bad.t7")
+    torch.save(sd, path)
+    with pytest.raises((KeyError, TypeError), match=key.replace(".", r"\.")):
+        import_t7(path, CoFiI2P(t7["tcfg"]))
+
+
+def test_import_t7_accepts_the_reference_unused_entries(t7, tmp_path):
+    sd = torch.load(t7["path"], weights_only=True)
+    for tag in REFERENCE_UNUSED:
+        sd[tag.rstrip(".") + ".0.weight"] = torch.ones(2)
+    path = str(tmp_path / "extra.t7")
+    torch.save(sd, path)
+    model = import_t7(path, CoFiI2P(t7["tcfg"]))
+    assert all(torch.equal(v, t7["tmodel"].state_dict()[k]) for k, v in model.state_dict().items())
+
+
+def test_export_t7_round_trips_through_jax(t7, tmp_path):
+    path = str(tmp_path / "port.t7")
+    export_t7(t7["tmodel"], path)
+    zeros = jax.tree_util.tree_map(np.zeros_like, t7["jp"])
+    zstats = jax.tree_util.tree_map(np.zeros_like, t7["js"])
+    jp, js = j_import_t7(path, zeros, zstats)
+    for a, b in zip(jax.tree_util.tree_leaves((jp, js)), jax.tree_util.tree_leaves((t7["jp"], t7["js"]))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("overrides", [[], ["fine_decode=label", "kpconv_impl=banded"], ["attention=full"]])
+def test_reference_ckpt_config_matches_jax(overrides):
+    """Field by field as the JAX package selects it on the CPU; on the card
+    the port also selects the fused attention unless overridden."""
+    jcfg, tcfg = cfg_pair("KITTIConfig")
+    want = j_eval_all.reference_ckpt_config(j_eval_all.apply_overrides(jcfg, overrides), overrides)
+    got = eval_all.reference_ckpt_config(eval_all.apply_overrides(tcfg, overrides), overrides, "cpu")
+    assert config_fields(got) == config_fields(want)
+    on_card = eval_all.reference_ckpt_config(eval_all.apply_overrides(tcfg, overrides), overrides, "cuda")
+    assert on_card.attention == ("full" if "attention=full" in overrides else "pallas")
+    assert on_card.replace(attention=got.attention) == got
+
+
+def test_eval_body_on_t7_matches_jax(t7):
+    jcfg, tcfg, hb = t7["jcfg"], t7["tcfg"], t7["hb"]
+    rng = jax.random.PRNGKey(7)
+    jhb = {k: jnp.asarray(v) for k, v in hb.items()}
+    want = jax.jit(j_make_eval_body(jcfg, t7["jmodel"]))(t7["jp"], t7["js"], jhb, rng)
+    fpn = JFPN(
+        input_dim=jcfg.kpconv_input_dim, output_dim=jcfg.kpconv_output_dim, init_dim=jcfg.kpconv_init_dim,
+        kernel_size=jcfg.kernel_size, init_radius=jcfg.init_radius, init_sigma=jcfg.init_sigma, norm=jcfg.norm,
+        group_norm=jcfg.group_norm, impl=jcfg.kpconv_impl, tile=jcfg.kpconv_tile, band_width=jcfg.kpconv_band_width,
+        band_plan=jcfg.kpconv_band_plan, kernel=jcfg.kpconv_kernel, knn_k=jcfg.neighbor_num,
+        knn_window_plan=jcfg.kpconv_knn_window_plan, shared_influence=jcfg.kpconv_shared_influence,
+    )
+    jout = jax_test_mode(jcfg, t7["jmodel"], t7["jp"], t7["js"], jhb, rng, fpn=fpn)
+
+    draws = replay_draws(jcfg, rng, B)
+    thb = to_torch(hb)
+    got = make_eval_body(tcfg, t7["tmodel"])(thb, draws=draws)
+    assert_eval_outputs_match(jcfg, jout, want, got, B)
+    batch = prepare_samples(thb["pc"], thb["attrs"], thb["P"], thb["K"], thb["img"], tcfg, draws["perms"])
+    with torch.no_grad():
+        feats = t7["tmodel"].pc_encoder(batch["feats"], batch["points"])
+    for g, w in zip(feats, jout["fpn"]):
+        assert g.shape == w.shape
+        assert rel_err(g, w) <= 1e-3
+
+
+def dump_tree(root):
+    """{relative path: keys and shapes of the .npy's content}."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".npy"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), root)
+            rel = os.sep.join(p if i != 2 else "<run>" for i, p in enumerate(rel.split(os.sep)))
+            x = np.load(os.path.join(dirpath, f), allow_pickle=True)
+            x = x.item() if x.dtype == object else x
+            out[rel] = {k: np.shape(v) for k, v in x.items()} if isinstance(x, dict) else x.ndim
+    return out
+
+
+def test_eval_all_main_writes_what_jax_writes(t7, tmp_path, monkeypatch):
+    """The CLI of each package on the same .t7, each from its own working
+    directory (the error arrays go to the CWD): the same files, the same
+    dict keys and shapes in every per-frame dump."""
+    # one batch: each batch size is one more compile on the JAX side
+    argv = [t7["path"], "tiny", "--synthetic", "--synthetic_frames", "2", "--batch_size", "2", "--eval_path", "res"]
+    trees = {}
+    for name, main, extra in (("jax", j_eval_all.main, []), ("port", eval_all.main, ["--device", "cpu"])):
+        cwd = tmp_path / name
+        cwd.mkdir()
+        monkeypatch.chdir(cwd)
+        r, t = main(argv + extra)
+        assert r.shape == t.shape and r.ndim == 1
+        trees[name] = dump_tree(str(cwd))
+    assert trees["port"] == trees["jax"]
+    assert len([k for k in trees["port"] if k.startswith("res")]) == 2
+    assert {"tiny_t_error.npy", "tiny_r_error.npy"} <= set(trees["port"])
+
+
+def test_calc_result_ir_rmse_and_pose_errors_match_jax(tmp_path, monkeypatch, capsys):
+    rng = np.random.default_rng(0)
+    r, t = rng.uniform(0, 60, 32), rng.uniform(0, 20, 32)
+    for thr in ((1e5, 1e5), (45.0, 10.0), (10.0, 5.0)):
+        assert calc_result.report(r, t, *thr) == j_calc_result.report(r, t, *thr)
+    monkeypatch.chdir(tmp_path)
+    np.save("kitti_r_error.npy", r)
+    np.save("kitti_t_error.npy", t)
+    capsys.readouterr()
+    j_calc_result.main(["kitti"])
+    want = capsys.readouterr().out
+    calc_result.main(["kitti"])
+    assert capsys.readouterr().out == want
+
+    run = tmp_path / "eval_results" / "kitti" / "run0"
+    run.mkdir(parents=True)
+    K = np.array([[100.0, 0, 64], [0, 100.0, 32], [0, 0, 1]])
+    for i in range(3):
+        T = np.eye(4)
+        T[:3, 3] = rng.normal(size=3)
+        np.save(run / f"{i:06d}.npy", {"GT_P": T, "K": K, "object_points": rng.uniform(-2, 2, (16, 3)) + [0, 0, 8],
+                                       "fine_xy": rng.uniform(0, 64, (2, 16)), "corr_mask": rng.uniform(size=16) > 0.3})
+    want = j_ir_rmse.main(["kitti"])
+    got = ir_rmse.main(["kitti"])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+    q = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    T = np.eye(4)
+    T[:3, :3] = q * np.sign(np.linalg.det(q))  # a proper rotation
+    P = np.eye(4)
+    P[:3, 3] = [1.0, 2.0, 3.0]
+    np.testing.assert_array_equal(pose_errors_np(T, P), j_pose_errors_np(T, P))

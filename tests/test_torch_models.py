@@ -129,21 +129,22 @@ def test_cofii2p_test_mode(setup):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
 
 
-def _kpconv_dispatch(monkeypatch, cfg, grad):
+def _kpconv_dispatch(monkeypatch, cfg, grad, wrappers=None):
     """Which kernel wrapper each KPConv of one FPN forward calls, by module
-    name; the wrappers are replaced by recorders that call through."""
+    name; the wrappers (module, name) are replaced by recorders that call
+    through; a call made before any KPConv runs is recorded under None."""
     import cofii2p_tpu_torch.ops.kpconv_kernel as kpk
     from cofii2p_tpu_torch.models.kpconv import KPConv
 
-    calls, current = [], []
-    for name in ("banded_kpconv_fused", "banded_kpconv_aggregate_fused"):
-        orig = getattr(kpk, name)
+    calls, current = [], [None]
+    for mod, name in wrappers or ((kpk, "banded_kpconv_fused"), (kpk, "banded_kpconv_aggregate_fused")):
+        orig = getattr(mod, name)
 
         def rec(*a, _orig=orig, _name=name, **k):
             calls.append((current[-1], _name))
             return _orig(*a, **k)
 
-        monkeypatch.setattr(kpk, name, rec)
+        monkeypatch.setattr(mod, name, rec)
     model = CoFiI2P(cfg)
     for mname, mod in model.pc_encoder.named_modules():
         if isinstance(mod, KPConv):
@@ -177,3 +178,40 @@ def test_kpconv_dispatch_follows_fused_contraction_fits(monkeypatch, dtype, grad
         assert unfused == ["encoder5_2.KPConv", "encoder5_3.KPConv"]
     else:
         assert unfused == []
+
+
+def test_knn_dispatch_follows_the_jax_package(monkeypatch):
+    """Under impl='banded_knn' (fp32, no grad): one tau per (query level,
+    support level) pair, 9 a forward, through kernel #5's wrapper; the
+    fused tau KPConv where fused_contraction_fits and the aggregate one
+    for the two Cin = 512 convs (models/kpconv.py:231-299); the 4 strided
+    shortcuts through the tau maxpool."""
+    import cofii2p_tpu_torch.models.kpconv as kpc
+    import cofii2p_tpu_torch.ops.kpconv_kernel as kpk
+    from cofii2p_tpu_torch.config import TinyConfig
+
+    wrappers = ((kpk, "banded_kpconv_fused_tau"), (kpk, "banded_kpconv_aggregate_tau"),
+                (kpc, "banded_knn_tau_kernel"), (kpc, "banded_maxpool_tau"))
+    calls = _kpconv_dispatch(monkeypatch, TinyConfig(kpconv_impl="banded_knn"), False, wrappers)
+    by_name = {n: [m for m, name in calls if name == n] for _, n in wrappers}
+    assert len(by_name["banded_knn_tau_kernel"]) == 9
+    assert len(by_name["banded_kpconv_fused_tau"]) == 12
+    assert sorted(by_name["banded_kpconv_aggregate_tau"]) == ["encoder5_2.KPConv", "encoder5_3.KPConv"]
+    assert len(by_name["banded_maxpool_tau"]) == 4
+
+
+@pytest.mark.parametrize("override,match", [
+    (dict(kpconv_impl="gather"), "queue 1 item 11"),
+    (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 11"),
+    (dict(kpconv_impl="banded_knn", kpconv_knn_window_plan=(0, 128, 0, 0, 0), aggregate_compact_plan=(0, 16, 0, 0, 0)),
+     "queue 1 item 11"),
+    (dict(kpconv_residual_fused=True), "#16"),
+])
+def test_network_refuses_unported_variants(override, match):
+    """The gather and compacted formulations and the fused residual pass
+    raise at construction, naming where they stand; so a k-NN window plan
+    can never meet a compacted plan (the guard ADVICE r5 asks of knn_w)."""
+    from cofii2p_tpu_torch.config import TinyConfig
+
+    with pytest.raises(NotImplementedError, match=match):
+        CoFiI2P(TinyConfig(**override))

@@ -3,7 +3,8 @@ package; each kernel wrapper takes its plain version for a CPU tensor
 (launch counter untouched) and raises, never falls back, for a tensor it
 cannot launch on; off the CPU a wrapper refuses inputs that require grad
 under grad mode (its output would carry no autograd history), so
-gradients reach the kernels only through the autograd Functions;
+gradients reach the kernels only through the autograd Functions, and the
+forward-only k-NN (tau) wrappers name the backward kernel still missing;
 chip_smoke.py fails without a card."""
 
 import ast
@@ -19,14 +20,18 @@ import cofii2p_tpu_torch
 from cofii2p_tpu_torch.ops.attention_kernel import fused_attention
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
     banded_kpconv_aggregate_fused,
+    banded_kpconv_aggregate_tau,
     banded_kpconv_fused,
+    banded_kpconv_fused_tau,
     banded_kpconv_transpose_fused,
 )
 from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_backward_fused,
     banded_maxpool_fused,
+    banded_maxpool_tau,
     banded_maxpool_tie_count_fused,
 )
+from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(cofii2p_tpu_torch.__file__))
@@ -116,6 +121,34 @@ def _maxpool_bwd(device, dtype=torch.float32, grad=False):
     return lambda: banded_maxpool_backward_fused(gs, f, pts, pts, out, 1.0, 128, 64)
 
 
+def _tau_args(device, dtype, grad):
+    g, pts, f = _inputs(device, dtype, grad)
+    tau = torch.rand(1, 256, generator=g).to(device)
+    kp = torch.randn(15, 3, generator=g).to(device)
+    return g, pts, f, tau, kp
+
+
+def _knn_tau(device, dtype=torch.float32, grad=False):
+    _, pts, _ = _inputs(device, dtype, False)
+    return lambda: banded_knn_tau_kernel(pts, pts, 16, 128, 64)
+
+
+def _kpconv_tau(device, dtype=torch.float32, grad=False):
+    g, pts, f, tau, kp = _tau_args(device, dtype, grad)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_kpconv_fused_tau(f, pts, pts, w, tau, kp, 0.85, 0.4, 15, 128, 64)
+
+
+def _aggregate_tau(device, dtype=torch.float32, grad=False):
+    _, pts, f, tau, kp = _tau_args(device, dtype, grad)
+    return lambda: banded_kpconv_aggregate_tau(f, pts, pts, tau, kp, 0.85, 0.4, 15, 128, 64)
+
+
+def _maxpool_tau(device, dtype=torch.float32, grad=False):
+    _, pts, f, tau, _ = _tau_args(device, dtype, grad)
+    return lambda: banded_maxpool_tau(f, pts, pts, tau, 128, 64)
+
+
 def _attention(device, dtype=torch.float32, grad=False):
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 32, generator=g).to(device, dtype).requires_grad_(grad)
@@ -127,7 +160,14 @@ WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool
             "kpconv_aggregate": (banded_kpconv_aggregate_fused, _aggregate),
             "kpconv_transpose": (banded_kpconv_transpose_fused, _transpose),
             "maxpool_count": (banded_maxpool_tie_count_fused, _tie_count),
-            "maxpool_bwd": (banded_maxpool_backward_fused, _maxpool_bwd)}
+            "maxpool_bwd": (banded_maxpool_backward_fused, _maxpool_bwd),
+            "knn_tau": (banded_knn_tau_kernel, _knn_tau), "kpconv_tau": (banded_kpconv_fused_tau, _kpconv_tau),
+            "kpconv_aggregate_tau": (banded_kpconv_aggregate_tau, _aggregate_tau),
+            "maxpool_tau": (banded_maxpool_tau, _maxpool_tau)}
+# tau is a function of coordinates only: it has no input to refuse
+GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau"})
+# the forward-only wrappers and the backward kernel each still waits for
+TAU_BACKWARDS = {"kpconv_tau": "#11", "kpconv_aggregate_tau": "#11", "maxpool_tau": "#15"}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
@@ -151,7 +191,7 @@ def test_non_cpu_tensor_never_falls_back(name):
     assert wrapper.launches == 0
 
 
-@pytest.mark.parametrize("name", sorted(WRAPPERS))
+@pytest.mark.parametrize("name", GRAD_WRAPPERS)
 def test_non_cpu_tensor_requiring_grad_is_refused(name):
     """Off the CPU a wrapper's output carries no autograd history, so an
     input that requires grad under grad mode raises before any launch;
@@ -162,6 +202,14 @@ def test_non_cpu_tensor_requiring_grad_is_refused(name):
     with pytest.raises(RuntimeError, match="no autograd history"):
         make("meta", grad=True)()
     with torch.no_grad(), pytest.raises(ValueError):
+        make("meta", grad=True)()
+    assert wrapper.launches == 0
+
+
+@pytest.mark.parametrize("name", sorted(TAU_BACKWARDS))
+def test_tau_wrappers_name_their_missing_backward(name):
+    wrapper, make = WRAPPERS[name]
+    with pytest.raises(RuntimeError, match=TAU_BACKWARDS[name]):
         make("meta", grad=True)()
     assert wrapper.launches == 0
 

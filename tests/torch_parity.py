@@ -145,3 +145,69 @@ def ordered(pts):
 
 def config_fields(cfg) -> dict:
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+MARGIN = 1e-5  # decision margin below which discrete eval outputs may differ
+
+
+def top2_gap(x, axis):
+    """Gap between the maximum and the largest value below it.  Exact
+    duplicates (border-clamped patch cells repeat a pixel) tie on both
+    sides and resolve to the first index alike, so they are no margin."""
+    x = np.asarray(x, np.float64)
+    top = x.max(axis=axis, keepdims=True)
+    below = np.where(x < top, x, -np.inf).max(axis=axis, keepdims=True)
+    return np.squeeze(top - below, axis=axis)
+
+
+def jax_test_mode(jcfg, jmodel, params, stats, jhb, rng, fpn=None):
+    """The JAX model's test-mode outputs inside one make_eval_body call
+    with key ``rng`` (its sample-prep key), and with ``fpn`` (a JAX
+    KPConvFPN) also that FPN's outputs on the same batch, under "fpn"."""
+    from cofii2p_tpu.data.device_pipeline import prepare_samples as j_prepare
+
+    @jax.jit
+    def run(params, stats, hb, rng):
+        batch = j_prepare(hb["pc"], hb["attrs"], hb["P"], hb["K"], jax.random.split(rng)[0], hb["img"], jcfg)
+        out = jmodel.apply({"params": params, "batch_stats": stats}, batch, mode="test", train=False)
+        if fpn is not None:
+            out["fpn"] = fpn.apply({"params": params["pc_encoder"]}, batch["feats"], batch["points"])
+        return out
+
+    return run(params, stats, jhb, rng)
+
+
+def assert_eval_outputs_match(jcfg, jout, want, got, b):
+    """The port's EvalOutput ``got`` against JAX's ``want``: continuous
+    fields to 1e-3 (relative, rms-floored); discrete fields wherever the
+    JAX side's decision has a margin above MARGIN (coarse and fine top-2
+    gaps, score-to-threshold gaps, from its test-mode outputs ``jout``), and
+    whole-frame results wherever no superpoint of the frame sits inside
+    such a margin."""
+    from cofii2p_tpu.models.network import l2norm as j_l2norm
+
+    img_flat = np.asarray(jout["img_feature_norm"]).reshape(b, jcfg.num_img_tokens, -1)
+    sim = np.einsum("blc,bsc->bls", img_flat, np.asarray(jout["pc_feature_norm"]))
+    cells = np.asarray(j_l2norm(jout["fine_img_patch"].reshape(b, jcfg.num_superpoints, 16, -1)))
+    cos = np.einsum("bspc,bsc->bsp", cells, np.asarray(j_l2norm(jout["fine_pc_feature"])))
+    thrs = jcfg.test_score_thresholds_start - jcfg.test_score_thresholds_step * np.arange(
+        jcfg.test_score_thresholds_num, dtype=np.float32)
+    score_gap = np.abs(np.asarray(want.pc_score)[..., None] - thrs).min(-1)
+    clear = (top2_gap(sim, 1) > MARGIN) & (top2_gap(cos, -1) > MARGIN) & (score_gap > MARGIN)  # (B, S)
+    frames = clear.all(-1)
+    print(f"superpoints inside a {MARGIN} decision margin: {int((~clear).sum())} of {clear.size}; "
+          f"frames compared whole: {int(frames.sum())} of {b}")
+    assert frames.sum() >= 1
+
+    np.testing.assert_allclose(got.P_gt.numpy(), np.asarray(want.P_gt), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.object_points.numpy(), np.asarray(want.object_points))
+    assert rel_err(got.pc_score, want.pc_score) <= 1e-3
+    np.testing.assert_array_equal(got.corr_mask.numpy()[clear], np.asarray(want.corr_mask)[clear])
+    np.testing.assert_array_equal(got.fine_xy.numpy()[clear], np.asarray(want.fine_xy)[clear])
+    for f in np.flatnonzero(frames):
+        np.testing.assert_array_equal(got.success[f].numpy(), np.asarray(want.success)[f])
+        np.testing.assert_array_equal(got.num_inliers[f].numpy(), np.asarray(want.num_inliers)[f])
+        np.testing.assert_allclose(got.R[f].numpy(), np.asarray(want.R)[f], rtol=0, atol=1e-3, equal_nan=True)
+        wt, gt = np.asarray(want.t)[f], got.t[f].numpy()
+        np.testing.assert_allclose(gt, wt, rtol=1e-3, atol=1e-3 * max(1.0, float(np.nan_to_num(np.abs(wt)).max())),
+                                   equal_nan=True)
