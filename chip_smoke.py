@@ -19,7 +19,13 @@ the last line):
            tau KPConv fused and aggregate, tau maxpool) at the `.t7`
            path's fp32 shapes, B=8, on the same clouds, so that k-th and
            (k+1)-th distances and maxima tie: tau and the maxpool bit-equal,
-           the KPConvs with equal active-row counts; the kernel's and the
+           the KPConvs with equal active-row counts; the backward kernels of
+           `train --fast` (window transpose, window maxpool backward, the
+           tie count on windows) on the w256 windows and of `banded_knn`
+           training (tau transpose, tau maxpool backward, the tie count by
+           tau) on the k-NN pairs' static bands: tie counts bit-equal,
+           transposes rel <= 1e-4, maxpool backwards rel <= 1e-5, the window
+           scatter bit-equal on the kernel's own stack; the kernel's and the
            plain version's time (CUDA events) and the least time the card
            could take for the same work (the larger of bytes over 3.35 TB/s
            and operations over the peak rate of their type)
@@ -58,6 +64,14 @@ the last line):
            same model through the kernels and through kpconv_kernel='xla':
            every pair's tau bit-equal, every KPConv's active-row count
            equal, FPN outputs within 1e-4.
+  train_fast  as train with --fast (w256 dynamic windows on support levels
+           1-3): launches per step, finite losses, parameters moved, the
+           checkpoint restores; then one B=1 step's 7 window KPConvs and 3
+           window maxpools replayed on their own inputs through the
+           autograd Functions and through autograd of the plain versions.
+  train_knn  as train with kpconv_impl=banded_knn: the same checks, and
+           every tau KPConv and tau maxpool of a B=1 step with per-layer
+           rotated and jittered kernel points replayed likewise.
 The second line before the last is the JSON kernel summary, then the
 nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
 Long logs go to chiprun_out/.
@@ -75,7 +89,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "train", "t7")
+PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "train", "t7", "train_fast", "train_knn")
 BATCH = 8
 REQUESTS = 3
 TRAIN_STEPS = 4
@@ -83,8 +97,23 @@ PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16}
 # launches per train step: 14 KPConvs forward, 13 feature gradients (not
 # encoder1_1's, whose input needs none), 4 strided shortcuts forward and
 # backward; no fused KPConv and no fused attention while differentiating
+NOT_TRAINED = {"kpconv_fused": 0, "attention": 0, "kpconv_fused_tau": 0}
 PER_STEP = {"kpconv_aggregate": 14, "kpconv_transpose": 13, "maxpool": 4, "maxpool_count": 4, "maxpool_bwd": 4,
-            "kpconv_fused": 0, "attention": 0}
+            "kpconv_transpose_dyn": 0, "maxpool_bwd_dyn": 0, "knn_tau": 0, "kpconv_aggregate_tau": 0,
+            **NOT_TRAINED}
+# --fast: w256 windows on the cross pairs of support levels 1-3 and the self
+# pairs of levels 2-3, i.e. encoder3_1..5_1's 7 KPConvs (#10 in their
+# backward) and the 3 shortcuts of encoder3_1, 4_1, 5_1 (#14); the other 7
+# convs and encoder2_1's shortcut on static bands
+PER_FAST_STEP = {"kpconv_aggregate": 14, "kpconv_transpose": 6, "kpconv_transpose_dyn": 7, "maxpool": 4,
+                 "maxpool_count": 4, "maxpool_bwd": 1, "maxpool_bwd_dyn": 3, "knn_tau": 0, **NOT_TRAINED}
+# banded_knn: one tau per (query level, support level) pair, the 14 convs
+# on the aggregate tau kernel (as JAX's _tau_fwd when differentiated), 13
+# tau transposes, 4 tau maxpools with their tau tie counts and backwards;
+# none of the radius kernels
+PER_KNN_STEP = {"knn_tau": 9, "kpconv_aggregate_tau": 14, "kpconv_transpose_tau": 13, "maxpool_tau": 4,
+                "maxpool_count": 4, "maxpool_bwd_tau": 4, "kpconv_aggregate": 0, "kpconv_transpose": 0,
+                "maxpool": 0, "maxpool_bwd": 0, **NOT_TRAINED}
 # launches per fp32 `.t7` forward: one tau per (query level, support level)
 # pair (5 self, 4 cross), 12 KPConvs that fit the fused kernel and the two
 # Cin = 512 ones on the aggregate kernel, 4 strided shortcuts, 16 attention
@@ -104,10 +133,17 @@ KERNELS = {
     "kpconv_aggregate_tau": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:691"),
     "kpconv_fused_tau": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:1212"),
     "maxpool_tau": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:657"),
+    "kpconv_transpose_dyn": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:442"),
+    "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:826"),
+    "maxpool_bwd_dyn": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:452"),
+    "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
 }
 # the path whose launch counts the summary reports for each kernel
 SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention")
+TRAIN_KERNELS = ("kpconv_aggregate", "kpconv_transpose", "maxpool_count", "maxpool_bwd")
 T7_KERNELS = ("knn_tau", "kpconv_aggregate_tau", "kpconv_fused_tau", "maxpool_tau")
+FAST_KERNELS = ("kpconv_transpose_dyn", "maxpool_bwd_dyn")
+KNN_TRAIN_KERNELS = ("kpconv_transpose_tau", "maxpool_bwd_tau")
 
 
 def wrappers():
@@ -122,7 +158,11 @@ def wrappers():
             "kpconv_transpose": kpk.banded_kpconv_transpose_fused,
             "maxpool_count": mpk.banded_maxpool_tie_count_fused, "maxpool_bwd": mpk.banded_maxpool_backward_fused,
             "knn_tau": tk.banded_knn_tau_kernel, "kpconv_aggregate_tau": kpk.banded_kpconv_aggregate_tau,
-            "kpconv_fused_tau": kpk.banded_kpconv_fused_tau, "maxpool_tau": mpk.banded_maxpool_tau}
+            "kpconv_fused_tau": kpk.banded_kpconv_fused_tau, "maxpool_tau": mpk.banded_maxpool_tau,
+            "kpconv_transpose_dyn": kpk.banded_kpconv_transpose_dyn_fused,
+            "kpconv_transpose_tau": kpk.banded_kpconv_transpose_tau_fused,
+            "maxpool_bwd_dyn": mpk.banded_maxpool_backward_dyn_fused,
+            "maxpool_bwd_tau": mpk.banded_maxpool_backward_tau_fused}
 
 
 def reset_launches():
@@ -315,6 +355,7 @@ def check_kernels(device, gen, tally):
 
     check_training_kernels(device, gen, tally, cfg)
     check_knn_kernels(device, gen, tally, cfg)
+    check_window_and_tau_backward_kernels(device, gen, tally, cfg)
 
 
 def check_training_kernels(device, gen, tally, cfg):
@@ -536,6 +577,171 @@ def check_knn_kernels(device, gen, tally, cfg):
         del base, f, out, ref
 
 
+def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
+    """The backward kernels of `train --fast` and of `banded_knn` training
+    against their plain versions, fp32, B=8, on clouds with duplicated
+    points: #10 (window transpose) and #14 (window maxpool backward) on the
+    w256 windows the trainer places, with #12 on the same windows; #11
+    (tau transpose) and #15 (tau maxpool backward) on the k-NN pairs'
+    static bands (up to 2304 rows), with #12 by tau and per-layer kernel
+    points.  Tie counts bit-equal, #10/#11 rel <= 1e-4, #14/#15 rel <=
+    1e-5, and #10's and #14's scatter bit-equal to its plain version on the
+    kernel's own stack."""
+    import torch
+
+    from cofii2p_tpu_torch.ops.banded import _load_kernel_points, dynamic_band_starts, kernel_reach
+    from cofii2p_tpu_torch.ops.kpconv_kernel import (
+        band_scatter_plain,
+        banded_kpconv_transpose_dyn_fused,
+        banded_kpconv_transpose_dyn_plain,
+        banded_kpconv_transpose_tau_fused,
+        banded_kpconv_transpose_tau_plain,
+        transpose_dyn_with_stack,
+    )
+    from cofii2p_tpu_torch.ops.maxpool_kernel import (
+        banded_maxpool_backward_dyn_fused,
+        banded_maxpool_backward_tau_fused,
+        banded_maxpool_fused,
+        banded_maxpool_route_dyn_plain,
+        banded_maxpool_route_tau_plain,
+        banded_maxpool_tau,
+        banded_maxpool_tie_count_fused,
+        banded_maxpool_tie_count_plain,
+        route_dyn_with_stack,
+    )
+    from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_plain
+    from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
+    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, time_ms
+
+    b, r0, s0, plan, k = BATCH, cfg.init_radius, cfg.init_sigma, cfg.kpconv_band_plan, cfg.neighbor_num
+    w = 256  # config.FAST_DYNAMIC_PLAN
+    levels, idents = pyramid_with_duplicates(cfg.pyramid_sizes, b, gen, device)
+
+    def window_starts(q, s, r, sg):
+        # as KPConvFPN.starts_for places them
+        return dynamic_band_starts(q, s, kernel_reach(r, sg), 128, w, "best", max(1, s.shape[1] // 2560))
+
+    def tied(c, sl):
+        base = torch.randn(b, levels[0].shape[1], c, generator=gen).to(device)
+        return torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, c))
+
+    def timed(name, kern, plain, args, err, what):
+        k_ms = time_ms(lambda: kern(*args))
+        p_ms = time_ms(lambda: plain(*args), 3)
+        bd = call_bound(kern.__name__, args)
+        tally.add(name, err, k_ms, p_ms, bd)
+        say("kernels", f"{what}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+
+    # --- #10 window transpose: encoder3_1, 3_2 and 5_1 of --fast ------------
+    for name, ql, sl, c, scale in (("enc3_1 lvl2<-lvl1 C64", 2, 1, 64, 2), ("enc3_2 lvl2 C128", 2, 2, 128, 4),
+                                   ("enc5_1 lvl4<-lvl3 C256", 4, 3, 256, 8)):
+        q, s = levels[ql], levels[sl]
+        r, sg = r0 * scale, s0 * scale
+        st = window_starts(q, s, r, sg)
+        g = torch.randn(b, q.shape[1], 15, c, generator=gen).to(device)
+        args = (g, q, s, st, r, sg, 15, 128, w)
+        ref = banded_kpconv_transpose_dyn_plain(*args)
+        out = banded_kpconv_transpose_dyn_fused(*args)
+        out2, stack = transpose_dyn_with_stack(*args)
+        scat = band_scatter_plain(stack, st, s.shape[1])
+        torch.cuda.synchronize()
+        e10 = rel_err(out, ref)
+        if e10 > 1e-4 or not torch.equal(out2, scat) or not torch.equal(out, out2):
+            raise PhaseError(f"kpconv_transpose_dyn {name}: rel err {e10:.3e} (<= 1e-4), scatter bit-equal "
+                             f"{torch.equal(out2, scat)}, repeatable {torch.equal(out, out2)}")
+        mb = stack.numel() * 4 / 2**20
+        timed("kpconv_transpose_dyn", banded_kpconv_transpose_dyn_fused, banded_kpconv_transpose_dyn_plain, args,
+              (out - ref).abs().max().item(),
+              f"kpconv_transpose_dyn {name} w{w} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e10:.2e}, scatter "
+              f"bit-equal on the kernel's {mb:.1f} MiB stack")
+        del g, ref, out, out2, stack, scat
+
+    # --- #12 on windows and #14: the shortcuts of encoder3_1 and 5_1 ----------
+    for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
+        q, s = levels[ql], levels[sl]
+        r, sg = r0 * 2 ** sl, s0 * 2 ** sl
+        ra = kernel_reach(r, sg)
+        st = window_starts(q, s, r, sg)
+        f = tied(c, sl)
+        out = banded_maxpool_fused(f, q, s, ra, 128, w, st)
+        cargs = (f, q, s, out, ra, 128, w, st)
+        ref = banded_maxpool_tie_count_plain(*cargs)
+        cnt = banded_maxpool_tie_count_fused(*cargs)
+        torch.cuda.synchronize()
+        ties = int((cnt > 1).sum())
+        if not torch.equal(cnt, ref) or ties == 0:
+            raise PhaseError(f"maxpool_count w{w} C={c}: {(cnt != ref).sum().item()} counts differ, {ties} ties")
+        timed("maxpool_count", banded_maxpool_tie_count_fused, banded_maxpool_tie_count_plain, cargs, 0.0,
+              f"maxpool_count on windows C={c} w{w} B={b} M={q.shape[1]}: counts equal, {ties} tied maxima")
+        gs = torch.randn(b, q.shape[1], c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
+        args = (gs, f, q, s, out, st, ra, 128, w)
+        ref = banded_maxpool_route_dyn_plain(*args)
+        got = banded_maxpool_backward_dyn_fused(*args)
+        got2, stack = route_dyn_with_stack(*args)
+        scat = band_scatter_plain(stack, st, s.shape[1])
+        torch.cuda.synchronize()
+        e14 = rel_err(got, ref)
+        if e14 > 1e-5 or not torch.equal(got2, scat) or not torch.equal(got, got2):
+            raise PhaseError(f"maxpool_bwd_dyn C={c}: rel err {e14:.3e} (<= 1e-5), scatter bit-equal "
+                             f"{torch.equal(got2, scat)}, repeatable {torch.equal(got, got2)}")
+        mb = stack.numel() * 4 / 2**20
+        timed("maxpool_bwd_dyn", banded_maxpool_backward_dyn_fused, banded_maxpool_route_dyn_plain, args,
+              (got - ref).abs().max().item(),
+              f"maxpool_bwd_dyn C={c} w{w} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e14:.2e}, scatter bit-equal "
+              f"on the kernel's {mb:.1f} MiB stack")
+        del f, out, ref, cnt, gs, got, got2, stack, scat
+
+    # --- #11 tau transpose: encoder1_2, 4_2 (band 2176) and 5_1 (band 2304) ---
+    kgen = torch.Generator().manual_seed(2)
+    for name, ql, sl, c, scale in (("enc1_2 lvl0 C32", 0, 0, 32, 1), ("enc4_2 lvl3 C256", 3, 3, 256, 8),
+                                   ("enc5_1 lvl4<-lvl3 C256", 4, 3, 256, 8)):
+        q, s, bw = levels[ql], levels[sl], plan[sl]
+        r, sg = r0 * scale, s0 * scale
+        tau = banded_knn_tau_plain(q, s, k, 128, bw)
+        kp = jittered_kernel_points(torch.tensor(_load_kernel_points(r, 15), dtype=torch.float32), kgen).to(device)
+        g = torch.randn(b, q.shape[1], 15, c, generator=gen).to(device)
+        args = (g, q, s, tau, kp, r, sg, 15, 128, bw)
+        ref = banded_kpconv_transpose_tau_plain(*args)
+        out = banded_kpconv_transpose_tau_fused(*args)
+        torch.cuda.synchronize()
+        e11 = rel_err(out, ref)
+        if e11 > 1e-4:
+            raise PhaseError(f"kpconv_transpose_tau {name}: rel err {e11:.3e} > 1e-4")
+        band = min(128 * s.shape[1] // q.shape[1] + 2 * bw, s.shape[1])
+        timed("kpconv_transpose_tau", banded_kpconv_transpose_tau_fused, banded_kpconv_transpose_tau_plain, args,
+              (out - ref).abs().max().item(),
+              f"kpconv_transpose_tau {name} band {band} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e11:.2e}")
+        del g, ref, out
+
+    # --- #12 by tau and #15: the tau shortcuts of encoder3_1 and 5_1 ----------
+    for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
+        q, s, bw = levels[ql], levels[sl], plan[sl]
+        tau = banded_knn_tau_plain(q, s, k, 128, bw)
+        f = tied(c, sl)
+        out = banded_maxpool_tau(f, q, s, tau, 128, bw)
+        cargs = (f, q, s, out, 0.0, 128, bw, None, tau)
+        ref = banded_maxpool_tie_count_plain(*cargs)
+        cnt = banded_maxpool_tie_count_fused(*cargs)
+        torch.cuda.synchronize()
+        ties = int((cnt > 1).sum())
+        if not torch.equal(cnt, ref) or ties == 0:
+            raise PhaseError(f"maxpool_count tau C={c}: {(cnt != ref).sum().item()} counts differ, {ties} ties")
+        timed("maxpool_count", banded_maxpool_tie_count_fused, banded_maxpool_tie_count_plain, cargs, 0.0,
+              f"maxpool_count by tau C={c} B={b} M={q.shape[1]}: counts equal, {ties} tied maxima")
+        gs = torch.randn(b, q.shape[1], c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
+        args = (gs, f, q, s, out, tau, 128, bw)
+        ref = banded_maxpool_route_tau_plain(*args)
+        got = banded_maxpool_backward_tau_fused(*args)
+        torch.cuda.synchronize()
+        e15 = rel_err(got, ref)
+        if e15 > 1e-5:
+            raise PhaseError(f"maxpool_bwd_tau C={c}: rel err {e15:.3e} > 1e-5")
+        timed("maxpool_bwd_tau", banded_maxpool_backward_tau_fused, banded_maxpool_route_tau_plain, args,
+              (got - ref).abs().max().item(),
+              f"maxpool_bwd_tau C={c} lvl{ql}<-lvl{sl} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e15:.2e}")
+        del f, out, ref, cnt, gs, got
+
+
 def frames(cfg, count, device, start=0):
     import torch
 
@@ -656,7 +862,10 @@ def check_grad(device, seed):
         bad = sorted(rms_err.items(), key=lambda kv: -kv[1])[:5]
         raise PhaseError(f"grad: losses {loss_err} (<= 1e-4), worst gradients {bad} (<= 1e-3)")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    local = check_layer_grads(calls, device)
+    try:
+        local = check_layer_grads(calls, device)
+    except PhaseError as e:
+        raise PhaseError(f"grad: {e}") from None
     say("grad", f"B=1 fp32 train step (peak {peak:.1f} GiB), kernels vs plain versions under autograd: losses "
         + ", ".join(f"{k} {float(lk[k]):.4f} (rel {v:.1e})" for k, v in loss_err.items())
         + f"; {len(rms_err)} parameter gradients, worst rms-relative {rms_err[worst]:.2e} ({worst}); "
@@ -679,26 +888,44 @@ def grad_rms_errors(grads, ref, cancelled):
     return errs
 
 
-def check_layer_grads(calls, device):
-    """Each recorded KPConv and strided-maxpool call of the kernel step,
+def check_layer_grads(calls, device, expect=(14, 4)):
+    """Each recorded KPConv and strided-maxpool call of a kernel step,
     replayed through its autograd Function and through autograd of its
-    plain version on the same inputs with one random cotangent."""
+    plain version on the same inputs (its dynamic starts or its tau and the
+    layer's kernel points included) with one random cotangent; ``expect``
+    is the number of (KPConv, maxpool) calls."""
     import torch
 
     from cofii2p_tpu_torch.models.kpconv import KPConv
-    from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_apply, banded_kpconv_fused_plain
-    from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_apply, banded_maxpool_plain
+    from cofii2p_tpu_torch.ops.kpconv_kernel import (
+        banded_kpconv_apply,
+        banded_kpconv_fused_plain,
+        banded_kpconv_fused_tau_plain,
+        banded_kpconv_tau_apply,
+    )
+    from cofii2p_tpu_torch.ops.maxpool_kernel import (
+        banded_maxpool_apply,
+        banded_maxpool_plain,
+        banded_maxpool_tau_apply,
+        banded_maxpool_tau_plain,
+    )
 
     gen = torch.Generator(device).manual_seed(0)
     worst_kp, worst_mp, n_kp, n_mp = 0.0, 0.0, 0, 0
     while calls:
-        mod, (s_feats, q, s, *_) = calls.pop(0)
+        mod, (s_feats, q, s, starts, tau) = calls.pop(0)
         grads, g = [], None
         if isinstance(mod, KPConv):
-            for fn in (banded_kpconv_apply, banded_kpconv_fused_plain):
+            fns = ((banded_kpconv_apply, banded_kpconv_fused_plain) if tau is None else
+                   (banded_kpconv_tau_apply, banded_kpconv_fused_tau_plain))
+            for fn in fns:
                 f = s_feats.clone().requires_grad_()
                 w = mod.weights.detach().clone().requires_grad_()
-                out, _ = fn(f, q, s, w, mod.radius, mod.sigma, mod.kernel_size, mod.tile, mod.band_width, mod.dtype)
+                geo = (mod.radius, mod.sigma, mod.kernel_size, mod.tile, mod.band_width, mod.dtype)
+                if tau is None:
+                    out, _ = fn(f, q, s, w, *geo, starts)
+                else:
+                    out, _ = fn(f, q, s, w, tau, mod.kernel_points, *geo)
                 g = torch.randn(out.shape, generator=gen, device=device) if g is None else g
                 out.backward(g)
                 grads.append((f.grad, w.grad))
@@ -706,12 +933,17 @@ def check_layer_grads(calls, device):
             e = max(rel_err(grads[0][0], grads[1][0]), rel_err(grads[0][1], grads[1][1]))
             worst_kp, n_kp = max(worst_kp, e), n_kp + 1
             if e > 1e-4:
-                raise PhaseError(f"grad: KPConv M={q.shape[1]} N={s.shape[1]} C={s_feats.shape[-1]}: "
+                raise PhaseError(f"KPConv M={q.shape[1]} N={s.shape[1]} C={s_feats.shape[-1]}: "
                                  f"feature/weight gradient rel {e:.2e} > 1e-4 against the plain version")
         else:
-            for fn in (banded_maxpool_apply, banded_maxpool_plain):
+            fns = ((banded_maxpool_apply, banded_maxpool_plain) if tau is None else
+                   (banded_maxpool_tau_apply, banded_maxpool_tau_plain))
+            for fn in fns:
                 f = s_feats.clone().requires_grad_()
-                out = fn(f, q, s, mod.r_active, mod.tile, mod.band_width)
+                if tau is None:
+                    out = fn(f, q, s, mod.r_active, mod.tile, mod.band_width, starts)
+                else:
+                    out = fn(f, q, s, tau, mod.tile, mod.band_width)
                 g = torch.randn(out.shape, generator=gen, device=device) if g is None else g
                 out.backward(g)
                 grads.append(f.grad)
@@ -719,18 +951,61 @@ def check_layer_grads(calls, device):
             e = rel_err(grads[0], grads[1])
             worst_mp, n_mp = max(worst_mp, e), n_mp + 1
             if e > 1e-5:
-                raise PhaseError(f"grad: maxpool M={q.shape[1]} C={s_feats.shape[-1]}: gradient rel {e:.2e} > 1e-5")
+                raise PhaseError(f"maxpool M={q.shape[1]} C={s_feats.shape[-1]}: gradient rel {e:.2e} > 1e-5")
         del grads, g, s_feats
         torch.cuda.empty_cache()
-    if (n_kp, n_mp) != (14, 4):
-        raise PhaseError(f"grad: replayed {n_kp} KPConv and {n_mp} maxpool calls, expected 14 and 4")
+    if (n_kp, n_mp) != expect:
+        raise PhaseError(f"replayed {n_kp} KPConv and {n_mp} maxpool calls, expected {expect[0]} and {expect[1]}")
     return (f"layer by layer on the step's own inputs: {n_kp} KPConvs worst rel {worst_kp:.2e} (<= 1e-4), "
             f"{n_mp} maxpools worst rel {worst_mp:.2e} (<= 1e-5)")
 
 
-def train(device, seed, smi_line):
+def replay_step_layers(cfg, device, seed, windows_only):
+    """One B=1 fp32 step of ``cfg`` through the kernels (kernel_bench's
+    seeded model: per-layer kernel points under banded_knn); its KPConv and
+    strided-maxpool calls, those on dynamic windows only where
+    ``windows_only``, replayed by :func:`check_layer_grads`."""
+    import torch
+
+    from cofii2p_tpu_torch import train_lib
+    from cofii2p_tpu_torch.models.kpconv import KPConv, ResidualBlock
+    from cofii2p_tpu_torch.utils.kernel_bench import train_model
+
+    model = train_model(cfg, seed, device)
+    hb = frames(cfg, 1, device)
+    draws = train_lib.make_train_draws(cfg, 1, torch.Generator(device).manual_seed(seed), device)
+    calls = []
+
+    def record(mod, args):
+        if not windows_only or args[3] is not None:
+            calls.append((mod, tuple(a.detach() if torch.is_tensor(a) else a for a in args)))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, KPConv) or (isinstance(m, ResidualBlock) and m.strided)]
+    with torch.no_grad():
+        batch = train_lib.prepare_batch(cfg, hb, draws)
+    train_lib.loss_fn(cfg, model, batch)["loss"].backward()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    del model, batch
+    torch.cuda.empty_cache()
+    expect = (7, 3) if windows_only else (14, 4)
+    return check_layer_grads(calls, device, expect)
+
+
+TRAIN_PHASES = {
+    # phase: (extra train.main arguments, launches per step, kernel_bench path, what it runs)
+    "train": ([], PER_STEP, "train", "fp32 static bands"),
+    "train_fast": (["--fast"], PER_FAST_STEP, "fast", "fp32 --fast (w256 windows)"),
+    "train_knn": (["kpconv_impl=banded_knn"], PER_KNN_STEP, "knn_train", "fp32 banded_knn (k = 128)"),
+}
+
+
+def train(device, seed, smi_line, phase="train"):
     """The trainer's main path through its CLI entry point, then a restore
-    of its checkpoint and one eval_step on it."""
+    of its checkpoint and one eval_step on it; train_fast and train_knn
+    then replay one B=1 step's window or tau layers (replay_step_layers)."""
     import shutil
     import tempfile
 
@@ -738,16 +1013,17 @@ def train(device, seed, smi_line):
 
     from cofii2p_tpu_torch import train as train_cli
     from cofii2p_tpu_torch import train_lib
-    from cofii2p_tpu_torch.config import KITTIConfig
     from cofii2p_tpu_torch.models.network import CoFiI2P
     from cofii2p_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint
+    from cofii2p_tpu_torch.utils.kernel_bench import train_config
 
+    extra, per_step_want, bench_path, what = TRAIN_PHASES[phase]
     steps, frames_total = [], 40
     captured = {}
     make_step = train_lib.make_train_step
 
     def recording_make_train_step(cfg, model, optimizer, has_normals=True):
-        captured["model"] = model
+        captured["model"], captured["cfg"] = model, cfg
         captured["before"] = {n: p.detach().clone() for n, p in model.named_parameters()}
         step = make_step(cfg, model, optimizer, has_normals)
 
@@ -763,9 +1039,9 @@ def train(device, seed, smi_line):
 
         return timed_step
 
-    root = tempfile.mkdtemp(prefix="train_", dir=OUT_DIR)
+    root = tempfile.mkdtemp(prefix=f"{phase}_", dir=OUT_DIR)
     argv = ["kitti", f"root_path={root}", f"val_freq={TRAIN_STEPS}", "--synthetic", "--steps", str(TRAIN_STEPS),
-            "--batch_size", str(BATCH), "--synthetic_frames", str(frames_total)]
+            "--batch_size", str(BATCH), "--synthetic_frames", str(frames_total), *extra]
     train_lib.make_train_step = recording_make_train_step
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -779,45 +1055,54 @@ def train(device, seed, smi_line):
     launches = read_launches()  # every step and the validation at the last one
     peak = torch.cuda.max_memory_allocated() / 2**30
 
+    cfg = train_config(bench_path).replace(root_path=root, val_freq=TRAIN_STEPS)
+    if captured["cfg"] != cfg:
+        raise PhaseError(f"{phase}: train.main ran {captured['cfg']}, expected {cfg}")
     if len(steps) != TRAIN_STEPS:
-        raise PhaseError(f"train: {len(steps)} steps ran, expected {TRAIN_STEPS}")
+        raise PhaseError(f"{phase}: {len(steps)} steps ran, expected {TRAIN_STEPS}")
     for i, (_, per_step, metrics) in enumerate(steps):
-        for name, want in PER_STEP.items():
+        for name, want in per_step_want.items():
             if per_step[name] != want:
-                raise PhaseError(f"train: step {i} launched {name} {per_step[name]} times, expected {want}")
+                raise PhaseError(f"{phase}: step {i} launched {name} {per_step[name]} times, expected {want}")
         if not all(math.isfinite(v) for v in metrics.values()):
-            raise PhaseError(f"train: step {i} metrics not finite: {metrics}")
+            raise PhaseError(f"{phase}: step {i} metrics not finite: {metrics}")
     model = captured["model"]
     moved = sum(int(not torch.equal(p.detach(), captured["before"][n])) for n, p in model.named_parameters())
     if moved == 0:
-        raise PhaseError("train: no parameter changed in 4 steps")
+        raise PhaseError(f"{phase}: no parameter changed in 4 steps")
     path = latest_checkpoint(save_dir)
     if path is None:
-        raise PhaseError(f"train: no checkpoint under {save_dir}")
-    cfg = KITTIConfig()
+        raise PhaseError(f"{phase}: no checkpoint under {save_dir}")
     restored = CoFiI2P(cfg).to(device)
     step_no = restore_checkpoint(path, restored)
     mismatched = [k for k, v in model.state_dict().items() if not torch.equal(v, restored.state_dict()[k])]
     if step_no != TRAIN_STEPS or mismatched:
-        raise PhaseError(f"train: checkpoint step {step_no}, {len(mismatched)} tensors differ after restore")
+        raise PhaseError(f"{phase}: checkpoint step {step_no}, {len(mismatched)} tensors differ after restore")
     hb = frames(cfg, BATCH, device, start=frames_total)
     recalls = train_lib.make_eval_step(cfg, restored)(
         hb, train_lib.make_train_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device))
     recalls = {k: float(v) for k, v in recalls.items()}
     if not all(math.isfinite(v) for v in recalls.values()):
-        raise PhaseError(f"train: eval_step on the restored checkpoint not finite: {recalls}")
+        raise PhaseError(f"{phase}: eval_step on the restored checkpoint not finite: {recalls}")
     shutil.rmtree(root, ignore_errors=True)
+    del model, restored, captured
+    torch.cuda.empty_cache()
 
     ms = [dt * 1e3 for dt, _, _ in steps]
     steady = sum(ms[1:]) / max(len(ms) - 1, 1)
-    say("train", f"{TRAIN_STEPS} steps x {BATCH} frames ({cfg.img_H}x{cfg.img_W}, {cfg.num_pc} pts), fp32 static bands, "
+    say(phase, f"{TRAIN_STEPS} steps x {BATCH} frames ({cfg.img_H}x{cfg.img_W}, {cfg.num_pc} pts), {what}, "
         "through train.main "
         f"in {wall:.1f} s: losses " + " -> ".join(f"{m['loss']:.4f}" for _, _, m in steps)
         + f", grad norm {steps[-1][2]['grad_norm']:.3f}; ms/step " + ", ".join(f"{x:.1f}" for x in ms)
         + f" (steady {steady:.1f} ms, {BATCH * 1e3 / steady:.2f} frames/s); peak {peak:.2f} GiB; "
-        + "launches/step " + ", ".join(f"{k} {v}" for k, v in steps[-1][1].items())
+        + "launches/step " + ", ".join(f"{k} {v}" for k, v in steps[-1][1].items() if v)
         + f"; {moved} parameter tensors moved; restored {os.path.basename(path)}, eval_step "
         + ", ".join(f"{k} {v:.3f}" for k, v in recalls.items()) + f"; card {smi_line}")
+    if phase != "train":
+        try:
+            say(phase, "B=1 step, " + replay_step_layers(cfg, device, seed, windows_only=phase == "train_fast"))
+        except PhaseError as e:
+            raise PhaseError(f"{phase}: {e}") from None
     return launches
 
 
@@ -1114,28 +1399,40 @@ def main():
 
     tally = Tally()
     gen = torch.Generator().manual_seed(args.seed)
-    launches = {}
+    launches, seconds = {}, {}
+
+    def run(phase, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        seconds[phase] = time.perf_counter() - t0
+        return res
+
     try:
         if "kernels" in phases:
-            check_kernels(device, gen, tally)
+            run("kernels", check_kernels, device, gen, tally)
         if "fp32" in phases:
-            check_fp32_path(device, args.seed)
+            run("fp32", check_fp32_path, device, args.seed)
         if "grad" in phases:
-            check_grad(device, args.seed)
+            run("grad", check_grad, device, args.seed)
         if "pose" in phases:
-            check_pose(device, gen)
+            run("pose", check_pose, device, gen)
         if "serve" in phases:
-            served, _, _ = serve(device, args.seed, smi_line, args.profile)
+            served, _, _ = run("serve", serve, device, args.seed, smi_line, args.profile)
             launches.update({k: served[k] for k in SERVE_KERNELS})
         if "train" in phases:
-            trained = train(device, args.seed, smi_line)
-            launches.update({k: v for k, v in trained.items() if k not in SERVE_KERNELS + T7_KERNELS})
+            trained = run("train", train, device, args.seed, smi_line)
+            launches.update({k: trained[k] for k in TRAIN_KERNELS})
         if "t7" in phases:
-            evaluated, _, _ = t7(device, args.seed, smi_line)
+            evaluated, _, _ = run("t7", t7, device, args.seed, smi_line)
             launches.update({k: evaluated[k] for k in T7_KERNELS})
+        for phase, names in (("train_fast", FAST_KERNELS), ("train_knn", KNN_TRAIN_KERNELS)):
+            if phase in phases:
+                trained = run(phase, train, device, args.seed, smi_line, phase)
+                launches.update({k: trained[k] for k in names})
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    say("time", ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     if set(phases) != set(PHASES):
         say("done", f"phases {','.join(phases)} passed; the result lines need every phase")
         return 0

@@ -1,5 +1,6 @@
 // Transposed banded KPConv aggregation for Hopper: the feature gradient of
-// the banded aggregation on static bands.
+// the banded aggregation, on static bands, on dynamic windows and under
+// the k-NN (tau) semantics.
 //
 // Replaces: cofii2p_tpu/ops/kpconv_kernel.py::_transpose_agg (body
 // _agg_bwd_kernel).  Same function: for each support row j,
@@ -22,11 +23,24 @@
 // of the block's (row, channel) pairs held in registers.  The sum runs in
 // a fixed order, so the result is the same from run to run.
 //
+// With DYN it replaces kpconv_kernel.py::_transpose_agg_dyn (body
+// _agg_bwd_dyn_kernel, kernel #10): under per-tile data-dependent window
+// starts there is no static plan from support rows to query tiles, so a
+// block owns TS rows of ONE query tile's window instead and writes their
+// sums to that tile's slice of a (B, num_tiles, band, C) gradient stack,
+// every element once; band_scatter.cu then adds the overlapping windows
+// in tile order, as the TPU's _scatter_band_stacks does.  No atomics.
+//
+// With TAU it replaces kpconv_kernel.py::_transpose_agg_tau (body
+// _agg_bwd_kernel_tau, kernel #11): membership is (d2 <= r2) & (d2 <=
+// tau[m]) with r2 the padded reach of ops/banded.py::tau_reach2, and kp
+// is the layer's own kernel points.
+//
 // Exactness: membership is bit-identical to the forward's (same centring,
-// the round-to-nearest intrinsics of common.cuh, the same band mask), so
-// no pair is dropped or added; the influence takes its offset from the
-// uncentred coordinates, as the forward kernel does; sums are fp32 in
-// another order than the plain version's.
+// the round-to-nearest intrinsics of common.cuh, the same band mask, the
+// same per-query tau), so no pair is dropped or added; the influence takes
+// its offset from the uncentred coordinates, as the forward kernel does;
+// sums are fp32 in another order than the plain version's.
 
 #include "common.cuh"
 
@@ -42,26 +56,36 @@ constexpr int kAccElems = kThreads * kE;
 // A = 0: C padded to a power of two below 256, a thread owns one channel
 // and the rows r0 + R * i.  A >= 1: C padded to 256 * A, a thread owns
 // channels tid + 256 * a of rows i / A (the forward kernel's layout).
-template <int A>
+//
+// DYN: blockIdx.x = t * (band / TS) + chunk, the block owns rows chunk * TS
+// .. of tile t's window and writes them to the stack ``out``.  TAU: a
+// query's members also need d2 <= tau[m].
+template <int A, bool DYN, bool TAU>
 __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const float* __restrict__ g, const float* __restrict__ kp,
     const int* __restrict__ starts, const int* __restrict__ qstart_blk,
-    float* __restrict__ out, int M, int N, int C, int K, int tile,
-    int num_tiles, int band, int TS, int n_qtiles, int c_shift, float r2,
-    float sigma, int round) {
+    const float* __restrict__ tau, float* __restrict__ out, int M, int N,
+    int C, int K, int tile, int num_tiles, int band, int TS, int n_qtiles,
+    int c_shift, float r2, float sigma, int round) {
   __shared__ float sp_s[kMaxTS * 3];   // the block's support rows
   __shared__ float pc_s[kMaxTS * 3];   // ... centred on the tile's first query
   __shared__ float qa_s[kMaxTile * 3]; // listed queries, centred
   __shared__ float qr_s[kMaxTile * 3]; // ... uncentred, for the influence
   __shared__ int act[kMaxTile];        // listed queries, absolute index
+  __shared__ float tau_s[kMaxTile];    // ... their thresholds (TAU)
   __shared__ int warp_tot[kThreads / 32];
   __shared__ float work[kMaxTS * kRB]; // influence of a chunk on the rows
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const int s0 = blockIdx.x * TS;
+  // DYN: the block's window (tile t_first) and its first row there
+  const int per_tile = DYN ? band / TS : 1;
+  const int t_first = DYN ? blockIdx.x / per_tile : qstart_blk[blockIdx.x];
+  const int row0 = DYN ? (blockIdx.x % per_tile) * TS : 0;
+  const int s0 = DYN ? starts[b * num_tiles + t_first] + row0 : blockIdx.x * TS;
+  if (DYN) n_qtiles = 1;
 
   for (int i = tid; i < TS * 3; i += kThreads) sp_s[i] = s_pts[((long)b * N + s0) * 3 + i];
 
@@ -72,7 +96,6 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
 #pragma unroll
   for (int i = 0; i < kE; ++i) acc[i] = 0.f;
 
-  const int t_first = qstart_blk[blockIdx.x];
   for (int tt = 0; tt < n_qtiles; ++tt) {
     const int t = t_first + tt;
     if (t >= num_tiles) break;
@@ -88,14 +111,18 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
     // ordered list of the tile's queries with an in-reach row in lo..hi
     bool any = false;
     float qc[3] = {0.f, 0.f, 0.f}, qr[3] = {0.f, 0.f, 0.f};
+    float thr = r2;
     const int m = t * tile + tid;
     if (tid < tile) {
       for (int d = 0; d < 3; ++d) {
         qr[d] = q_pts[((long)b * M + m) * 3 + d];
         qc[d] = __fsub_rn(qr[d], ref_p[d]);
       }
-      for (int r = lo; r < hi && !any; ++r)
-        any = cofii2p::membership_d2(qc, pc_s[3 * r], pc_s[3 * r + 1], pc_s[3 * r + 2]) <= r2;
+      if (TAU) thr = tau[(long)b * M + m];
+      for (int r = lo; r < hi && !any; ++r) {
+        const float d2 = cofii2p::membership_d2(qc, pc_s[3 * r], pc_s[3 * r + 1], pc_s[3 * r + 2]);
+        any = d2 <= r2 && (!TAU || d2 <= thr);
+      }
     }
     const unsigned flags = __ballot_sync(0xffffffffu, any);
     if (lane == 0) warp_tot[warp] = __popc(flags);
@@ -108,6 +135,7 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
     if (any) {
       const int idx = off + __popc(flags & ((1u << lane) - 1u));
       act[idx] = m;
+      tau_s[idx] = thr;
       for (int d = 0; d < 3; ++d) {
         qa_s[3 * idx + d] = qc[d];
         qr_s[3 * idx + d] = qr[d];
@@ -125,7 +153,8 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
           if (r < na && s >= lo && s < hi) {
             const float* q = qa_s + 3 * (a0 + r);
             const float* p = pc_s + 3 * s;
-            if (cofii2p::membership_d2(q, p[0], p[1], p[2]) <= r2) {
+            const float d2 = cofii2p::membership_d2(q, p[0], p[1], p[2]);
+            if (d2 <= r2 && (!TAU || d2 <= tau_s[a0 + r])) {
               const float* qa = qr_s + 3 * (a0 + r);
               const float* pa = sp_s + 3 * s;
               const float dx = (pa[0] - qa[0]) - kx;
@@ -179,7 +208,10 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
       s = i / (A > 0 ? A : 1);
       c = tid + kThreads * (i % (A > 0 ? A : 1));
     }
-    if (s < TS && c < C) out[((long)b * N + s0 + s) * C + c] = acc[i];
+    if (s < TS && c < C) {
+      const long row = DYN ? ((long)b * num_tiles + t_first) * band + row0 + s : (long)b * N + s0 + s;
+      out[row * C + c] = acc[i];
+    }
   }
 }
 
@@ -187,6 +219,36 @@ int log2_pad(int x) {
   int s = 0;
   while ((1 << s) < x) ++s;
   return s;
+}
+
+// The three modes' checks and launch; DYN ignores qstart_blk and n_qtiles.
+template <bool DYN, bool TAU>
+int launch(const void* q, const void* s, const void* g, const void* kp,
+           const void* starts, const void* qstart_blk, const void* tau,
+           void* out, int B, int M, int N, int C, int K, int tile,
+           int num_tiles, int band, int TS, int n_qtiles, int round, float r2,
+           float sigma, void* stream) {
+  const int cs = log2_pad(C);
+  const int A = cs < 8 ? 0 : 1 << (cs - 8);
+  const int rows = DYN ? band : N;
+  if (A > 2 || TS < 1 || TS > kMaxTS || rows % TS || (TS << cs) > kAccElems ||
+      tile < 1 || tile > kMaxTile || M % tile || M / tile != num_tiles || band > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(DYN ? num_tiles * (band / TS) : N / TS, B);
+  auto st = static_cast<cudaStream_t>(stream);
+#define COFII2P_LAUNCH(a)                                                       \
+  if (A == a)                                                                   \
+    kpconv_transpose_kernel<a, DYN, TAU><<<grid, kThreads, 0, st>>>(            \
+        static_cast<const float*>(q), static_cast<const float*>(s),             \
+        static_cast<const float*>(g), static_cast<const float*>(kp),            \
+        static_cast<const int*>(starts), static_cast<const int*>(qstart_blk),   \
+        static_cast<const float*>(tau), static_cast<float*>(out), M, N, C, K,   \
+        tile, num_tiles, band, TS, n_qtiles, cs, r2, sigma, round);
+  COFII2P_LAUNCH(0)
+  COFII2P_LAUNCH(1)
+  COFII2P_LAUNCH(2)
+#undef COFII2P_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -200,24 +262,31 @@ extern "C" int kpconv_transpose_launch(
     const void* starts, const void* qstart_blk, void* out, int B, int M,
     int N, int C, int K, int tile, int num_tiles, int band, int TS,
     int n_qtiles, int round, float r2, float sigma, void* stream) {
-  const int cs = log2_pad(C);
-  const int A = cs < 8 ? 0 : 1 << (cs - 8);
-  if (A > 2 || TS < 1 || TS > kMaxTS || N % TS || (TS << cs) > kAccElems ||
-      tile < 1 || tile > kMaxTile || M % tile || band > N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(N / TS, B);
-  auto st = static_cast<cudaStream_t>(stream);
-#define COFII2P_LAUNCH(a)                                                       \
-  if (A == a)                                                                   \
-    kpconv_transpose_kernel<a><<<grid, kThreads, 0, st>>>(                      \
-        static_cast<const float*>(q), static_cast<const float*>(s),             \
-        static_cast<const float*>(g), static_cast<const float*>(kp),            \
-        static_cast<const int*>(starts), static_cast<const int*>(qstart_blk),   \
-        static_cast<float*>(out), M, N, C, K, tile, num_tiles, band, TS,        \
-        n_qtiles, cs, r2, sigma, round);
-  COFII2P_LAUNCH(0)
-  COFII2P_LAUNCH(1)
-  COFII2P_LAUNCH(2)
-#undef COFII2P_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return launch<false, false>(q, s, g, kp, starts, qstart_blk, nullptr, out, B, M, N, C, K, tile,
+                              num_tiles, band, TS, n_qtiles, round, r2, sigma, stream);
+}
+
+// Kernel #10's stack: q, s, g, kp as above, starts (B, num_tiles) int32
+// dynamic window starts of width band; stack (B, num_tiles, band, C) fp32,
+// each tile's window rows' gradient (band_scatter.cu adds them up).
+// TS divides band.
+extern "C" int kpconv_transpose_dyn_launch(
+    const void* q, const void* s, const void* g, const void* kp,
+    const void* starts, void* stack, int B, int M, int N, int C, int K,
+    int tile, int num_tiles, int band, int TS, int round, float r2,
+    float sigma, void* stream) {
+  return launch<true, false>(q, s, g, kp, starts, nullptr, nullptr, stack, B, M, N, C, K, tile,
+                             num_tiles, band, TS, 1, round, r2, sigma, stream);
+}
+
+// Kernel #11: as kpconv_transpose_launch with tau (B, M) fp32 the
+// per-query squared k-NN thresholds, kp the layer's own kernel points and
+// r2 the padded reach.
+extern "C" int kpconv_transpose_tau_launch(
+    const void* q, const void* s, const void* g, const void* kp,
+    const void* starts, const void* qstart_blk, const void* tau, void* out,
+    int B, int M, int N, int C, int K, int tile, int num_tiles, int band,
+    int TS, int n_qtiles, int round, float r2, float sigma, void* stream) {
+  return launch<false, true>(q, s, g, kp, starts, qstart_blk, tau, out, B, M, N, C, K, tile,
+                             num_tiles, band, TS, n_qtiles, round, r2, sigma, stream);
 }

@@ -23,7 +23,9 @@
 // With TAU it replaces maxpool_kernel.py::banded_maxpool_tau_pallas (body
 // _maxpool_kernel_tau, kernel #8), the reference's k-NN maxpool: the
 // membership is d2 <= tau[m], each query's threshold from kernel #5, in
-// place of the shared radius, with no radius mask.
+// place of the shared radius, with no radius mask.  COUNT with TAU is
+// _match_count with thr = tau, the tie count of _tau_bwd; either count
+// takes the forward's dynamic window starts where it had them.
 //
 // Exactness: it is a select, so the result is bit-equal to the plain
 // version in fp32 and in bf16.  Membership d2 uses the same centred,
@@ -185,5 +187,24 @@ extern "C" int maxpool_tau_launch(const void* q, const void* s, const void* f,
       static_cast<const float*>(q), static_cast<const float*>(s), f, f_bf16,
       static_cast<const int*>(starts), out, nullptr, nullptr, M, N, C, tile,
       band, TQ, 0.f, static_cast<const float*>(tau));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tie count under k-NN semantics: q, s, f, starts, pooled, cnt as
+// maxpool_count_launch, tau (B, M) fp32 the per-query squared thresholds.
+extern "C" int maxpool_count_tau_launch(const void* q, const void* s,
+                                        const void* f, int f_bf16,
+                                        const void* starts, const void* tau,
+                                        const void* pooled, void* cnt, int B,
+                                        int M, int N, int C, int tile,
+                                        int band, int TQ, void* stream) {
+  if (TQ < 1 || TQ > kTQ || tile % TQ || M % tile || band > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(M / TQ, (C + kThreads - 1) / kThreads, B);
+  maxpool_kernel<true, true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(s), f, f_bf16,
+      static_cast<const int*>(starts), nullptr, pooled,
+      static_cast<float*>(cnt), M, N, C, tile, band, TQ, 0.f,
+      static_cast<const float*>(tau));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Backward of the banded maxpool for Hopper: routes the cotangent to the
-// arg-max rows, transposed over support tiles (static bands).
+// arg-max rows, transposed over support tiles (static bands), per window
+// (dynamic windows) and under the k-NN (tau) semantics.
 //
 // Replaces: cofii2p_tpu/ops/maxpool_kernel.py::_bwd (body
 // _maxpool_bwd_kernel).  Same function: for each support row j and
@@ -21,9 +22,20 @@
 // registers; out and gs are read 128 channels at a time, coalesced.  No
 // atomics: the sum is in a fixed order.
 //
+// With DYN it replaces maxpool_kernel.py::_bwd_dyn (body _mp_bwd_dyn_kernel,
+// kernel #14): a block owns TS rows of one query tile's dynamic window, so
+// its tile walk is that one tile, and writes their sums to the tile's
+// slice of a (B, num_tiles, band, C) stack, each element once;
+// band_scatter.cu adds the overlapping windows in tile order.
+//
+// With TAU it replaces maxpool_kernel.py::_tau_bwd (body
+// _maxpool_bwd_kernel_tau, kernel #15): the neighbourhood is d2 <= tau[m],
+// each query's k-NN threshold, with no radius mask.
+//
 // Exactness: membership is bit-identical to the forward's (centring on the
-// forward tile's first query, not on a chunk's, and the round-to-nearest
-// intrinsics of common.cuh), so no maximum loses its gradient.
+// forward tile's first query, not on a chunk's, the round-to-nearest
+// intrinsics of common.cuh and the same threshold), so no maximum loses its
+// gradient and no tied row gets a share it did not earn.
 
 #include "common.cuh"
 
@@ -33,13 +45,16 @@ constexpr int kThreads = 128;            // channels per block; queries per tile
 constexpr int kMaxTS = 32;               // support rows per block at most
 constexpr int kQW = kThreads / 32;       // mask words per support row
 
+// DYN: blockIdx.x = t * (band / TS) + chunk, rows chunk * TS .. of tile
+// t's window, written to the stack ``g_feats``.  TAU: d2 <= tau[m].
+template <bool DYN, bool TAU>
 __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const void* __restrict__ feats, int f_bf16, const void* __restrict__ pooled,
     const float* __restrict__ gs, const int* __restrict__ starts,
-    const int* __restrict__ qstart_blk, float* __restrict__ g_feats, int M,
-    int N, int C, int tile, int num_tiles, int band, int TS, int n_qtiles,
-    float r2) {
+    const int* __restrict__ qstart_blk, const float* __restrict__ tau,
+    float* __restrict__ g_feats, int M, int N, int C, int tile, int num_tiles,
+    int band, int TS, int n_qtiles, float r2) {
   __shared__ float sp_s[kMaxTS * 3];
   __shared__ float pc_s[kMaxTS * 3];
   __shared__ unsigned mask_s[kMaxTS * kQW];
@@ -48,7 +63,12 @@ __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.z;
   const int c = blockIdx.y * kThreads + tid;
-  const int s0 = blockIdx.x * TS;
+  // DYN: the block's window (tile t_first) and its first row there
+  const int per_tile = DYN ? band / TS : 1;
+  const int t_first = DYN ? blockIdx.x / per_tile : qstart_blk[blockIdx.x];
+  const int row0 = DYN ? (blockIdx.x % per_tile) * TS : 0;
+  const int s0 = DYN ? starts[b * num_tiles + t_first] + row0 : blockIdx.x * TS;
+  if (DYN) n_qtiles = 1;
 
   if (tid < TS * 3) sp_s[tid] = s_pts[((long)b * N + s0) * 3 + tid];
 
@@ -59,7 +79,6 @@ __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
     fv[s] = (s < TS && c < C) ? cofii2p::load_f(feats, ((long)b * N + s0 + s) * C + c, f_bf16) : 0.f;
   }
 
-  const int t_first = qstart_blk[blockIdx.x];
   for (int tt = 0; tt < n_qtiles; ++tt) {
     const int t = t_first + tt;
     if (t >= num_tiles) break;
@@ -74,12 +93,15 @@ __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
     // bit q of row s: query t * tile + q has row s0 + s in its neighbourhood
     float qc[3] = {0.f, 0.f, 0.f};
     const bool valid = tid < tile;
-    if (valid)
+    float thr = r2;
+    if (valid) {
       for (int d = 0; d < 3; ++d)
         qc[d] = __fsub_rn(q_pts[((long)b * M + (long)t * tile + tid) * 3 + d], ref_p[d]);
+      if (TAU) thr = tau[(long)b * M + (long)t * tile + tid];
+    }
     for (int s = 0; s < TS; ++s) {
       const bool in = valid && s >= lo && s < hi &&
-                      cofii2p::membership_d2(qc, pc_s[3 * s], pc_s[3 * s + 1], pc_s[3 * s + 2]) <= r2;
+                      cofii2p::membership_d2(qc, pc_s[3 * s], pc_s[3 * s + 1], pc_s[3 * s + 2]) <= thr;
       const unsigned bits = __ballot_sync(0xffffffffu, in);
       if (lane == 0) mask_s[s * kQW + warp] = bits;
     }
@@ -105,8 +127,28 @@ __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
 #pragma unroll
   for (int s = 0; s < kMaxTS; ++s) {
     if (s >= TS) break;
-    g_feats[((long)b * N + s0 + s) * C + c] = acc[s];
+    const long row = DYN ? ((long)b * num_tiles + t_first) * band + row0 + s : (long)b * N + s0 + s;
+    g_feats[row * C + c] = acc[s];
   }
+}
+
+// The three modes' checks and launch; DYN ignores qstart_blk and n_qtiles.
+template <bool DYN, bool TAU>
+int launch(const void* q, const void* s, const void* f, int f_bf16,
+           const void* pooled, const void* gs, const void* starts,
+           const void* qstart_blk, const void* tau, void* g_feats, int B,
+           int M, int N, int C, int tile, int num_tiles, int band, int TS,
+           int n_qtiles, float r2, void* stream) {
+  if (TS < 1 || TS > kMaxTS || (DYN ? band : N) % TS || tile < 1 ||
+      tile > kThreads || M % tile || M / tile != num_tiles || band > N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(DYN ? num_tiles * (band / TS) : N / TS, (C + kThreads - 1) / kThreads, B);
+  maxpool_bwd_kernel<DYN, TAU><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(s), f, f_bf16,
+      pooled, static_cast<const float*>(gs), static_cast<const int*>(starts),
+      static_cast<const int*>(qstart_blk), static_cast<const float*>(tau),
+      static_cast<float*>(g_feats), M, N, C, tile, num_tiles, band, TS, n_qtiles, r2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -124,14 +166,34 @@ extern "C" int maxpool_bwd_launch(const void* q, const void* s, const void* f,
                                   int M, int N, int C, int tile, int num_tiles,
                                   int band, int TS, int n_qtiles, float r2,
                                   void* stream) {
-  if (TS < 1 || TS > kMaxTS || N % TS || tile < 1 || tile > kThreads ||
-      M % tile || band > N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(N / TS, (C + kThreads - 1) / kThreads, B);
-  maxpool_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(s), f, f_bf16,
-      pooled, static_cast<const float*>(gs), static_cast<const int*>(starts),
-      static_cast<const int*>(qstart_blk), static_cast<float*>(g_feats), M, N,
-      C, tile, num_tiles, band, TS, n_qtiles, r2);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false, false>(q, s, f, f_bf16, pooled, gs, starts, qstart_blk, nullptr, g_feats, B, M,
+                              N, C, tile, num_tiles, band, TS, n_qtiles, r2, stream);
+}
+
+// Kernel #14's stack: q, s, f, pooled, gs as above, starts (B, num_tiles)
+// int32 dynamic window starts of width band; stack (B, num_tiles, band, C)
+// fp32 (band_scatter.cu adds it up).  TS divides band, TS <= 32.
+extern "C" int maxpool_bwd_dyn_launch(const void* q, const void* s,
+                                      const void* f, int f_bf16,
+                                      const void* pooled, const void* gs,
+                                      const void* starts, void* stack, int B,
+                                      int M, int N, int C, int tile,
+                                      int num_tiles, int band, int TS,
+                                      float r2, void* stream) {
+  return launch<true, false>(q, s, f, f_bf16, pooled, gs, starts, nullptr, nullptr, stack, B, M, N, C,
+                             tile, num_tiles, band, TS, 1, r2, stream);
+}
+
+// Kernel #15: as maxpool_bwd_launch with tau (B, M) fp32 the per-query
+// squared k-NN thresholds in place of r2.
+extern "C" int maxpool_bwd_tau_launch(const void* q, const void* s,
+                                      const void* f, int f_bf16,
+                                      const void* pooled, const void* gs,
+                                      const void* starts,
+                                      const void* qstart_blk, const void* tau,
+                                      void* g_feats, int B, int M, int N, int C,
+                                      int tile, int num_tiles, int band, int TS,
+                                      int n_qtiles, void* stream) {
+  return launch<false, true>(q, s, f, f_bf16, pooled, gs, starts, qstart_blk, tau, g_feats, B, M, N,
+                             C, tile, num_tiles, band, TS, n_qtiles, 0.f, stream);
 }

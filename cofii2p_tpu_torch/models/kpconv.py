@@ -21,8 +21,11 @@ trained with: per (query level, support level) pair one threshold tau per
 query (ops/tau_kernel.py, kernel #5) decides membership d2 <= tau, every
 KPConv uses its own ``kernel_points`` buffer (kernels #6, #7) and the
 strided shortcuts max over {d2 <= tau} with no radius mask (kernel #8).
-Those kernels are forward only: on the card a differentiated banded_knn
-model raises (its backwards #11 and #15 are not ported).
+Differentiated, they go through ``BandedKPConvTauFn`` and
+``BandedMaxpoolTauFn``, whose backwards are kernels #11, #12 (tau mode)
+and #15; the kernel points stay frozen buffers.  A k-NN window plan
+(``knn_window_plan``) is forward-only and raises when differentiated, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
 from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_apply,
     banded_maxpool_plain,
-    banded_maxpool_tau,
+    banded_maxpool_tau_apply,
     banded_maxpool_tau_plain,
 )
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
@@ -171,7 +174,7 @@ class ResidualBlock(nn.Module):
         if self.strided and self.impl == "banded_knn":
             if tau is None:
                 tau = knn_tau(self.kernel, q_points, s_points, self.knn_k, self.tile, self.band_width)
-            fn = banded_maxpool_tau_plain if self.kernel == "xla" else banded_maxpool_tau
+            fn = banded_maxpool_tau_plain if self.kernel == "xla" else banded_maxpool_tau_apply
             shortcut = fn(s_feats, q_points, s_points, tau, self.tile, self.band_width, starts)
         elif self.strided:
             fn = banded_maxpool_plain if self.kernel == "xla" else banded_maxpool_apply

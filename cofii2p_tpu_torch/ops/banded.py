@@ -318,15 +318,29 @@ def _starts_of(m, n, tile, num_tiles, band, b, device, starts):
 
 def _scatter_add_bands(out: torch.Tensor, contrib: torch.Tensor, starts: torch.Tensor) -> None:
     """out (B, N, C) += each tile's band rows contrib (B, t, band, C),
-    placed at the tiles' starts (B, t)."""
+    placed at the tiles' starts (B, t), one tile after the other: a row's
+    sum runs in tile order, as cofii2p_tpu/ops/kpconv_kernel.py::
+    _scatter_band_stacks adds overlapping windows, on the card as well."""
     b, nt, band, c = contrib.shape
-    idx = (starts.long()[..., None] + torch.arange(band, device=out.device)).reshape(b, nt * band)
-    out.scatter_add_(1, idx[..., None].expand(-1, -1, c), contrib.reshape(b, nt * band, c))
+    rows = torch.arange(band, device=out.device)
+    for t in range(nt):
+        idx = (starts[:, t].long()[:, None] + rows)[..., None].expand(-1, -1, c)
+        out.scatter_add_(1, idx, contrib[:, t])
+
+
+def scatter_band_stacks(stack: torch.Tensor, starts: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-tile window gradients stack (B, nt, band, C) fp32 and their
+    starts (B, nt) -> (B, N, C) fp32, the windows added in tile order
+    (plain version of the scatter of kernels #10 and #14)."""
+    b, _, _, c = stack.shape
+    out = torch.zeros(b, n, c, dtype=torch.float32, device=stack.device)
+    _scatter_add_bands(out, stack.float(), starts)
+    return out
 
 
 def banded_kpconv_aggregate_transpose(
     g_weighted, q_points, s_points, radius, sigma, kernel_size=15, tile=128,
-    band_width=1024, dtype=torch.float32, starts=None,
+    band_width=1024, dtype=torch.float32, starts=None, tau=None, kp=None,
 ):
     """Transposed banded aggregation (plain version): the gradient of
     :func:`banded_kpconv_aggregate` with respect to ``s_feats``,
@@ -336,71 +350,88 @@ def banded_kpconv_aggregate_transpose(
     Membership is the forward's: ``d2 <= r2`` centred on the first query
     of m's tile, and start(tile(m)) <= j < start(tile(m)) + band.  The
     influence and g are rounded to ``dtype``, as the TPU backward casts
-    them (cofii2p_tpu/ops/kpconv_kernel.py:264-331, 479-522).
+    them (cofii2p_tpu/ops/kpconv_kernel.py:264-331, 479-522).  ``starts``
+    (B, nt): the forward's dynamic windows, whose overlaps add in tile
+    order (kpconv_kernel.py:334-456).  ``tau`` (B, M) and ``kp`` (K, 3):
+    the k-NN semantics, membership (d2 <= :func:`tau_reach2`) & (d2 <=
+    tau[m]) and the layer's own kernel points (kpconv_kernel.py:731-846).
 
     g_weighted (B, M, K, C) -> (B, N, C) fp32.
     """
     b, m, k_num, c = g_weighted.shape
     n = s_points.shape[1]
     dev = q_points.device
-    kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
-    r2 = kernel_reach(radius, sigma, kernel_size) ** 2
+    if kp is None:
+        kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+        r2 = kernel_reach(radius, sigma, kernel_size) ** 2
+    else:
+        kp = kp.to(device=dev, dtype=torch.float32)
+        r2 = tau_reach2(radius, sigma, kernel_size)
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     starts = _starts_of(m, n, tile, num_tiles, band, b, dev, starts)
     qt, pb, _ = _tiles(q_points, s_points, None, tile, num_tiles, band, starts)
     gt = g_weighted.reshape(b, num_tiles, tile, k_num, c)
+    tt = None if tau is None else tau.reshape(b, num_tiles, tile, 1)
     out = torch.zeros(b, n, c, dtype=torch.float32, device=dev)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * band * max(k_num, c)):
         q, p = qt[:, t0:t1], pb[:, t0:t1]
         offs = p[:, :, None, :, :] - q[:, :, :, None, :]  # (B, t, T, band, 3)
         infl = _influence(offs, kp, sigma)
-        within = _membership_d2(q, p) <= r2
+        d2 = _membership_d2(q, p)
+        within = d2 <= r2 if tt is None else (d2 <= r2) & (d2 <= tt[:, t0:t1])
         infl = torch.where(within[..., None], infl, 0.0)
         contrib = torch.einsum("xytbk,xytkc->xybc", _round(infl, dtype), _round(gt[:, t0:t1], dtype))
         _scatter_add_bands(out, contrib, starts[:, t0:t1])
     return out
 
 
-def _pool_tiles(s_feats, q_points, s_points, out, r_active, tile, band_width, starts):
+def _pool_tiles(s_feats, q_points, s_points, out, r_active, tile, band_width, starts, tau=None):
     """Shared set-up of the maxpool backward passes: tiles, bands, the
-    forward output per tile and every tile chunk's membership."""
+    forward output per tile and every tile chunk's membership, d2 <=
+    r_active² or, with ``tau`` (B, M), d2 <= tau[m]."""
     b, m = q_points.shape[:2]
     n, c = s_feats.shape[1:]
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     starts = _starts_of(m, n, tile, num_tiles, band, b, q_points.device, starts)
     qt, pb, fb = _tiles(q_points, s_points, s_feats, tile, num_tiles, band, starts)
     ot = out.reshape(b, num_tiles, tile, c)
-    r2 = r_active * r_active
+    thr = r_active * r_active if tau is None else tau.reshape(b, num_tiles, tile, 1)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * band * c):
-        within = _membership_d2(qt[:, t0:t1], pb[:, t0:t1]) <= r2  # (B, t, T, band)
-        # (B, t, T, band, C): in reach and tied with the forward max
+        within = _membership_d2(qt[:, t0:t1], pb[:, t0:t1]) <= (thr if tau is None else thr[:, t0:t1])
+        # (B, t, T, band, C): a member and tied with the forward max
         tied = within[..., None] & (fb[:, t0:t1, None].float() == ot[:, t0:t1, :, None].float())
         yield t0, t1, starts, tied
 
 
-def banded_maxpool_tie_count(s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024, starts=None):
+def banded_maxpool_tie_count(s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024, starts=None,
+                             tau=None):
     """Per (query, channel) count of in-reach band rows whose feature equals
     the forward max ``out`` (plain version of the tie-count pass,
-    cofii2p_tpu/ops/maxpool_kernel.py:236-328).  Returns (B, M, C) fp32;
-    0 where the neighbourhood is empty."""
+    cofii2p_tpu/ops/maxpool_kernel.py:236-328); with ``tau`` (B, M) the
+    members are the rows with d2 <= tau[m] and ``r_active`` is unused.
+    Returns (B, M, C) fp32; 0 where the neighbourhood is empty."""
     b, m, c = out.shape
     parts = [tied.sum(3).float() for *_, tied in _pool_tiles(
-        s_feats, q_points, s_points, out, r_active, tile, band_width, starts)]
+        s_feats, q_points, s_points, out, r_active, tile, band_width, starts, tau)]
     return torch.cat(parts, dim=1).reshape(b, m, c)
 
 
-def banded_maxpool_route(g_scaled, s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024, starts=None):
+def banded_maxpool_route(g_scaled, s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024, starts=None,
+                         tau=None):
     """Routing of the maxpool backward (plain version of
-    cofii2p_tpu/ops/maxpool_kernel.py::_maxpool_bwd_kernel): every in-reach
-    band row j whose feature equals the forward max ``out[m, c]`` receives
-    ``g_scaled[m, c]``.  The caller divides the cotangent by
-    max(tie count, 1) first (maxpool_kernel.py:478-483), so ties split it
-    evenly.  g_scaled (B, M, C) -> (B, N, C) fp32."""
+    cofii2p_tpu/ops/maxpool_kernel.py::_maxpool_bwd_kernel, and with
+    ``starts`` of _mp_bwd_dyn_kernel, with ``tau`` of
+    _maxpool_bwd_kernel_tau): every member band row j whose feature equals
+    the forward max ``out[m, c]`` receives ``g_scaled[m, c]``.  The caller
+    divides the cotangent by max(tie count, 1) first
+    (maxpool_kernel.py:478-483), so ties split it evenly.  g_scaled
+    (B, M, C) -> (B, N, C) fp32."""
     b, m, c = g_scaled.shape
     n = s_feats.shape[1]
     res = torch.zeros(b, n, c, dtype=torch.float32, device=g_scaled.device)
     g32 = g_scaled.float()
-    for t0, t1, starts_, tied in _pool_tiles(s_feats, q_points, s_points, out, r_active, tile, band_width, starts):
+    for t0, t1, starts_, tied in _pool_tiles(s_feats, q_points, s_points, out, r_active, tile, band_width, starts,
+                                             tau):
         gt = g32.reshape(b, -1, tied.shape[2], c)[:, t0:t1, :, None]  # (B, t, T, 1, C)
         _scatter_add_bands(res, torch.where(tied, gt, 0.0).sum(2), starts_[:, t0:t1])
     return res

@@ -57,6 +57,19 @@ SIGNATURES = {
     "kpconv_aggregate_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _F, _P],
+    "kpconv_transpose_dyn_launch": [_P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _F, _F, _P],
+    "kpconv_transpose_tau_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _F, _F, _P],
+    "maxpool_count_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
+    "maxpool_bwd_dyn_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "maxpool_bwd_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "band_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

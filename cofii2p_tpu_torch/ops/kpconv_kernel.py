@@ -1,7 +1,7 @@
 """Banded KPConv: the CUDA kernels' wrappers, their plain versions and the
 autograd Function that differentiates through them.
 
-Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Five kernels:
+Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Seven kernels:
  - :func:`banded_kpconv_fused` (csrc/kpconv_fused.cu; replaces
    banded_kpconv_fused_pallas) aggregates the in-reach band rows of each
    query and contracts with the (K, Cin, Cout) weights in one pass; the
@@ -11,20 +11,24 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Five kernels:
    the residual the weight gradient needs;
  - :func:`banded_kpconv_transpose_fused` (csrc/kpconv_transpose.cu;
    replaces _transpose_agg) is the aggregate's feature gradient on static
-   bands;
+   bands, :func:`banded_kpconv_transpose_dyn_fused` (the same source in
+   window mode, then csrc/band_scatter.cu; replaces _transpose_agg_dyn) on
+   dynamic windows;
  - :func:`banded_kpconv_fused_tau` and :func:`banded_kpconv_aggregate_tau`
    (csrc/kpconv_fused.cu in tau mode; replace banded_kpconv_fused_tau_pallas
    and banded_kpconv_aggregate_tau_pallas) are the two under the k-NN
    semantics of a reference checkpoint: membership d2 <= tau[m], the
-   layer's own kernel points, the active-row count.  Forward only: their
-   backward (#11) is not ported.
+   layer's own kernel points, the active-row count;
+   :func:`banded_kpconv_transpose_tau_fused` (csrc/kpconv_transpose.cu in
+   tau mode; replaces _transpose_agg_tau) is their feature gradient.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor; there is no other fallback.  A wrapper returns
 no autograd history, so on the card it refuses inputs that require grad
-under grad mode: differentiation goes through :class:`BandedKPConvFn`
-(:func:`banded_kpconv_apply` picks the path), as the JAX package goes
-through its ``custom_vjp``.
+under grad mode: differentiation goes through :class:`BandedKPConvFn` and
+:class:`BandedKPConvTauFn` (:func:`banded_kpconv_apply` and
+:func:`banded_kpconv_tau_apply` pick the path), as the JAX package goes
+through its ``custom_vjp``s.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from cofii2p_tpu_torch.ops.banded import (
     banded_kpconv_aggregate_transpose,
     bwd_geometry,
     kernel_reach,
+    scatter_band_stacks,
     static_starts,
     tau_reach2,
 )
@@ -98,13 +103,13 @@ def _check_cuda(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def check_no_grad(what: str, *tensors, backward: str | None = None) -> None:
+def check_no_grad(what: str, *tensors, function: str | None = None) -> None:
     """A kernel's output carries no autograd history: refuse inputs that
-    would need one instead of silently cutting the gradient.  ``backward``
-    names the kernel a forward-only wrapper's gradient still waits for."""
+    would need one instead of silently cutting the gradient.  ``function``
+    names the autograd Function that differentiates through the kernel."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        how = (f"its backward, {backward}, is not ported yet" if backward else
-               "differentiate through its autograd Function (ops/kpconv_kernel.py, ops/maxpool_kernel.py)")
+        how = (f"differentiate through {function}" if function else
+               "it runs inside the autograd Functions' backward (ops/kpconv_kernel.py, ops/maxpool_kernel.py)")
         raise RuntimeError(f"{what}: the CUDA kernel returns no autograd history; {how}")
 
 
@@ -142,7 +147,7 @@ def banded_kpconv_fused(
             s_feats, q_points, s_points, weights, radius, sigma, kernel_size,
             tile, band_width, dtype, starts,
         )
-    check_no_grad("banded_kpconv_fused", s_feats, weights)
+    check_no_grad("banded_kpconv_fused", s_feats, weights, function="BandedKPConvFn")
     b, m = q_points.shape[:2]
     n, cin = s_feats.shape[1:]
     k_num, w_cin, cout = weights.shape
@@ -207,7 +212,7 @@ def banded_kpconv_aggregate_fused(
         return banded_kpconv_aggregate_plain(
             s_feats, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, starts,
         )
-    check_no_grad("banded_kpconv_aggregate_fused", s_feats)
+    check_no_grad("banded_kpconv_aggregate_fused", s_feats, function="BandedKPConvFn")
     _check_cuda(s_feats=s_feats, q_points=q_points, s_points=s_points)
     b, m = q_points.shape[:2]
     n, cin = s_feats.shape[1:]
@@ -247,6 +252,42 @@ def _transpose_plan(m, n, tile, band, num_tiles, stile, device):
     return stile, torch.as_tensor(qstart_blk, device=device), q_win // tile
 
 
+def _check_transpose(g_weighted, q_points, s_points, kernel_size):
+    """Checks shared by the transposed wrappers; returns g in fp32 and the
+    shapes (B, M, K, C, N)."""
+    g = g_weighted.float().contiguous()
+    _check_cuda(g_weighted=g, q_points=q_points, s_points=s_points)
+    b, m, k_num, c = g.shape
+    if q_points.dtype != torch.float32 or s_points.dtype != torch.float32:
+        raise ValueError("points must be float32")
+    if k_num != kernel_size or q_points.shape[:2] != (b, m) or s_points.shape[0] != b:
+        raise ValueError("shape mismatch between the cotangent and the points")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"C <= {MAX_CHANNELS} supported, got {c}")
+    return g, (b, m, k_num, c, s_points.shape[1])
+
+
+def _transpose_static(launcher, g_weighted, q_points, s_points, kp, r2, sigma, kernel_size, tile, band_width, dtype,
+                      *tau):
+    """Launch a transposed pass on static bands (kernel #9, or #11 with
+    ``tau``) through the library's ``launcher``; returns (B, N, C) fp32."""
+    g, (b, m, k_num, c, n) = _check_transpose(g_weighted, q_points, s_points, kernel_size)
+    tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
+    st = static_starts(m, n, tile, band, num_tiles, b, g.device).contiguous()
+    ts, qstart_blk, n_qtiles = _transpose_plan(
+        m, n, tile, band, num_tiles, pick_tq(n, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(c))), g.device
+    )
+    out = torch.empty(b, n, c, dtype=torch.float32, device=g.device)
+    err = getattr(cuda_lib.lib(), launcher)(
+        q_points.data_ptr(), s_points.data_ptr(), g.data_ptr(), kp.data_ptr(),
+        st.data_ptr(), qstart_blk.data_ptr(), *(t.data_ptr() for t in tau), out.data_ptr(), b, m, n, c,
+        k_num, tile, num_tiles, band, ts, n_qtiles,
+        int(dtype == torch.bfloat16), r2, float(sigma), cuda_lib.stream_of(g),
+    )
+    cuda_lib.check(err, launcher)
+    return out
+
+
 def banded_kpconv_transpose_fused(
     g_weighted, q_points, s_points, radius, sigma, kernel_size=15, tile=128,
     band_width=1024, dtype=torch.float32,
@@ -260,31 +301,11 @@ def banded_kpconv_transpose_fused(
             g_weighted, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype,
         )
     check_no_grad("banded_kpconv_transpose_fused", g_weighted)
-    g = g_weighted.float().contiguous()
-    _check_cuda(g_weighted=g, q_points=q_points, s_points=s_points)
-    b, m, k_num, c = g.shape
-    n = s_points.shape[1]
-    if q_points.dtype != torch.float32 or s_points.dtype != torch.float32:
-        raise ValueError("points must be float32")
-    if k_num != kernel_size or q_points.shape[:2] != (b, m) or s_points.shape[0] != b:
-        raise ValueError("shape mismatch between the cotangent and the points")
-    if c > MAX_CHANNELS:
-        raise ValueError(f"C <= {MAX_CHANNELS} supported, got {c}")
-    tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
-    st = static_starts(m, n, tile, band, num_tiles, b, g.device).contiguous()
-    ts, qstart_blk, n_qtiles = _transpose_plan(
-        m, n, tile, band, num_tiles, pick_tq(n, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(c))), g.device
+    out = _transpose_static(
+        "kpconv_transpose_launch", g_weighted, q_points, s_points,
+        _kernel_points(float(radius), int(kernel_size), g_weighted.device),
+        float(np.float32(kernel_reach(radius, sigma, kernel_size) ** 2)), sigma, kernel_size, tile, band_width, dtype,
     )
-    kp = _kernel_points(float(radius), int(kernel_size), g.device)
-    out = torch.empty(b, n, c, dtype=torch.float32, device=g.device)
-    r2 = float(np.float32(kernel_reach(radius, sigma, kernel_size) ** 2))
-    err = cuda_lib.lib().kpconv_transpose_launch(
-        q_points.data_ptr(), s_points.data_ptr(), g.data_ptr(), kp.data_ptr(),
-        st.data_ptr(), qstart_blk.data_ptr(), out.data_ptr(), b, m, n, c,
-        k_num, tile, num_tiles, band, ts, n_qtiles,
-        int(dtype == torch.bfloat16), r2, float(sigma), cuda_lib.stream_of(g),
-    )
-    cuda_lib.check(err, "kpconv_transpose")
     banded_kpconv_transpose_fused.launches += 1
     return out
 
@@ -292,24 +313,102 @@ def banded_kpconv_transpose_fused(
 banded_kpconv_transpose_fused.launches = 0
 
 
+def banded_kpconv_transpose_dyn_plain(
+    g_weighted, q_points, s_points, starts, radius, sigma, kernel_size=15, tile=128,
+    band_width=256, dtype=torch.float32,
+):
+    """Plain version of :func:`banded_kpconv_transpose_dyn_fused`."""
+    return banded_kpconv_aggregate_transpose(
+        g_weighted, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, starts,
+    )
+
+
+def transpose_dyn_with_stack(
+    g_weighted, q_points, s_points, starts, radius, sigma, kernel_size=15, tile=128,
+    band_width=256, dtype=torch.float32,
+):
+    """Kernel #10's two launches on CUDA tensors: the window stack
+    (B, num_tiles, band, C) fp32, then its scatter; returns (g_feats
+    (B, N, C) fp32, stack).  Counts nothing: the wrapper
+    :func:`banded_kpconv_transpose_dyn_fused` does."""
+    g, (b, m, k_num, c, n) = _check_transpose(g_weighted, q_points, s_points, kernel_size)
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    st = _starts_arg(m, n, tile, band, num_tiles, b, g.device, starts)
+    _check_cuda(starts=st)
+    kp = _kernel_points(float(radius), int(kernel_size), g.device)
+    stack = torch.empty(b, num_tiles, band, c, dtype=torch.float32, device=g.device)
+    r2 = float(np.float32(kernel_reach(radius, sigma, kernel_size) ** 2))
+    err = cuda_lib.lib().kpconv_transpose_dyn_launch(
+        q_points.data_ptr(), s_points.data_ptr(), g.data_ptr(), kp.data_ptr(), st.data_ptr(),
+        stack.data_ptr(), b, m, n, c, k_num, tile, num_tiles, band,
+        pick_tq(band, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(c))), int(dtype == torch.bfloat16), r2,
+        float(sigma), cuda_lib.stream_of(g),
+    )
+    cuda_lib.check(err, "kpconv_transpose_dyn")
+    return band_scatter(stack, st, n), stack
+
+
+def band_scatter(stack, starts, n):
+    """csrc/band_scatter.cu: the window stack (B, nt, band, C) fp32 added
+    back to (B, N, C) fp32 in tile order; plain version
+    ops/banded.py::scatter_band_stacks."""
+    b, nt, band, c = stack.shape
+    out = torch.empty(b, n, c, dtype=torch.float32, device=stack.device)
+    err = cuda_lib.lib().band_scatter_launch(
+        stack.data_ptr(), starts.data_ptr(), out.data_ptr(), b, n, c, nt, band, cuda_lib.stream_of(stack),
+    )
+    cuda_lib.check(err, "band_scatter")
+    return out
+
+
+band_scatter_plain = scatter_band_stacks
+
+
+def banded_kpconv_transpose_dyn_fused(
+    g_weighted, q_points, s_points, starts, radius, sigma, kernel_size=15, tile=128,
+    band_width=256, dtype=torch.float32,
+):
+    """Transposed banded aggregation on dynamic windows (kernel #10): the
+    feature gradient (B, N, C) fp32 of the aggregate taken over ``starts``
+    (B, num_tiles) windows of width ``band_width``.  Each tile's window
+    gradient goes to a stack, and the overlapping windows are added in tile
+    order (:func:`transpose_dyn_with_stack`); plain version
+    ops/banded.py::banded_kpconv_aggregate_transpose with ``starts``."""
+    if g_weighted.device.type == "cpu":
+        return banded_kpconv_transpose_dyn_plain(
+            g_weighted, q_points, s_points, starts, radius, sigma, kernel_size, tile, band_width, dtype,
+        )
+    check_no_grad("banded_kpconv_transpose_dyn_fused", g_weighted)
+    out, _ = transpose_dyn_with_stack(
+        g_weighted, q_points, s_points, starts, radius, sigma, kernel_size, tile, band_width, dtype,
+    )
+    banded_kpconv_transpose_dyn_fused.launches += 1
+    return out
+
+
+banded_kpconv_transpose_dyn_fused.launches = 0
+
+
 class BandedKPConvFn(torch.autograd.Function):
-    """Differentiable banded KPConv on static bands, the counterpart of the
-    JAX package's ``_fused_fwd``/``_fused_bwd`` (and ``_fwd``/``_bwd`` with
-    the contraction outside): the forward runs the aggregate kernel and the
+    """Differentiable banded KPConv, the counterpart of the JAX package's
+    ``_fused_fwd``/``_fused_bwd`` (and ``_fwd``/``_bwd`` with the
+    contraction outside): the forward runs the aggregate kernel and the
     contraction as a matmul in the compute dtype, keeping ``weighted`` for
     the weight gradient; the backward contracts the cotangent with W, runs
     the transposed kernel for the feature gradient where the features need
-    one, and contracts ``weighted`` with the cotangent for dW.  Returns
-    (out (B, M, Cout) fp32 unnormalised, count (B, M) int32, no gradient).
+    one (kernel #9 on static bands, #10 on dynamic ``starts``), and
+    contracts ``weighted`` with the cotangent for dW.  Returns (out
+    (B, M, Cout) fp32 unnormalised, count (B, M) int32, no gradient).
     """
 
     @staticmethod
-    def forward(ctx, s_feats, weights, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype):
+    def forward(ctx, s_feats, weights, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype,
+                starts=None):
         weighted, count = banded_kpconv_aggregate_fused(
-            s_feats, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype,
+            s_feats, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, starts,
         )
         out = torch.einsum("bmkc,kcd->bmd", _round(weighted, dtype), _round(weights, dtype))
-        ctx.save_for_backward(weights, weighted, q_points, s_points)
+        ctx.save_for_backward(weights, weighted, q_points, s_points, starts)
         ctx.args = (radius, sigma, kernel_size, tile, band_width, dtype)
         ctx.feats_dtype = s_feats.dtype
         ctx.mark_non_differentiable(count)
@@ -317,18 +416,24 @@ class BandedKPConvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, _g_count):
-        weights, weighted, q_points, s_points = ctx.saved_tensors
+        weights, weighted, q_points, s_points, starts = ctx.saved_tensors
         radius, sigma, kernel_size, tile, band_width, dtype = ctx.args
         g_out = _round(g_out, dtype)
         g_feats = g_w = None
         if ctx.needs_input_grad[0]:
             g_weighted = torch.einsum("bmd,kcd->bmkc", g_out, _round(weights, dtype))
-            g_feats = banded_kpconv_transpose_fused(
-                g_weighted, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype,
-            ).to(ctx.feats_dtype)
+            if starts is None:
+                g_feats = banded_kpconv_transpose_fused(
+                    g_weighted, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype,
+                )
+            else:
+                g_feats = banded_kpconv_transpose_dyn_fused(
+                    g_weighted, q_points, s_points, starts, radius, sigma, kernel_size, tile, band_width, dtype,
+                )
+            g_feats = g_feats.to(ctx.feats_dtype)
         if ctx.needs_input_grad[1]:
             g_w = torch.einsum("bmkc,bmd->kcd", _round(weighted, dtype), g_out).to(weights.dtype)
-        return g_feats, g_w, None, None, None, None, None, None, None, None
+        return g_feats, g_w, None, None, None, None, None, None, None, None, None
 
 
 def banded_kpconv_apply(
@@ -339,17 +444,14 @@ def banded_kpconv_apply(
     count (B, M) int32).
 
     Differentiated (grad mode on and the features or W requiring grad) it
-    runs :class:`BandedKPConvFn`; otherwise the fused kernel where
-    ``fused`` (see :func:`fused_contraction_fits`), else the aggregate
-    kernel and a matmul, as cofii2p_tpu/models/kpconv.py:355-382 chooses.
+    runs :class:`BandedKPConvFn`, on static bands or dynamic ``starts``;
+    otherwise the fused kernel where ``fused`` (see
+    :func:`fused_contraction_fits`), else the aggregate kernel and a
+    matmul, as cofii2p_tpu/models/kpconv.py:355-382 chooses.
     """
     if torch.is_grad_enabled() and (s_feats.requires_grad or weights.requires_grad):
-        if starts is not None:
-            raise NotImplementedError(
-                "the KPConv backward under dynamic windows (_transpose_agg_dyn, kernel #10) is not ported yet"
-            )
         return BandedKPConvFn.apply(
-            s_feats, weights, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype,
+            s_feats, weights, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, starts,
         )
     if fused:
         return banded_kpconv_fused(
@@ -362,7 +464,7 @@ def banded_kpconv_apply(
 
 
 # ---------------------------------------------------------------------------
-# k-NN (tau) semantics: kernels #6 and #7
+# k-NN (tau) semantics: kernels #6, #7 and #11
 # ---------------------------------------------------------------------------
 
 
@@ -422,7 +524,7 @@ def banded_kpconv_fused_tau(
             s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size,
             tile, band_width, dtype, starts,
         )
-    check_no_grad("banded_kpconv_fused_tau", s_feats, weights, backward="kernel #11 (_transpose_agg_tau)")
+    check_no_grad("banded_kpconv_fused_tau", s_feats, weights, function="BandedKPConvTauFn")
     b, m, n, cin, tile, num_tiles, band, st, kp32, active = _tau_launch_args(
         s_feats, q_points, s_points, tau, kp, kernel_size, tile, band_width, dtype, starts,
     )
@@ -462,7 +564,7 @@ def banded_kpconv_aggregate_tau(
         return banded_kpconv_aggregate_tau_plain(
             s_feats, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype, starts,
         )
-    check_no_grad("banded_kpconv_aggregate_tau", s_feats, backward="kernel #11 (_transpose_agg_tau)")
+    check_no_grad("banded_kpconv_aggregate_tau", s_feats, function="BandedKPConvTauFn")
     b, m, n, cin, tile, num_tiles, band, st, kp32, active = _tau_launch_args(
         s_feats, q_points, s_points, tau, kp, kernel_size, tile, band_width, dtype, starts,
     )
@@ -485,14 +587,115 @@ def banded_kpconv_aggregate_tau(
 banded_kpconv_aggregate_tau.launches = 0
 
 
+def banded_kpconv_transpose_tau_plain(
+    g_weighted, q_points, s_points, tau, kp, radius, sigma, kernel_size=15, tile=128,
+    band_width=1024, dtype=torch.float32,
+):
+    """Plain version of :func:`banded_kpconv_transpose_tau_fused`."""
+    return banded_kpconv_aggregate_transpose(
+        g_weighted, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, tau=tau, kp=kp,
+    )
+
+
+def banded_kpconv_transpose_tau_fused(
+    g_weighted, q_points, s_points, tau, kp, radius, sigma, kernel_size=15, tile=128,
+    band_width=1024, dtype=torch.float32,
+):
+    """Transposed banded aggregation under k-NN semantics (kernel #11): the
+    feature gradient (B, N, C) fp32 of :func:`banded_kpconv_aggregate_tau`
+    on static bands, membership (d2 <= tau_reach2) & (d2 <= tau[m]) and the
+    layer's own kernel points ``kp`` (K, 3); plain version
+    ops/banded.py::banded_kpconv_aggregate_transpose with ``tau`` and
+    ``kp``."""
+    if g_weighted.device.type == "cpu":
+        return banded_kpconv_transpose_tau_plain(
+            g_weighted, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype,
+        )
+    check_no_grad("banded_kpconv_transpose_tau_fused", g_weighted)
+    b, m = q_points.shape[:2]
+    if tau.dtype != torch.float32 or tau.shape != (b, m):
+        raise ValueError(f"tau must be float32 of shape {(b, m)}")
+    if kp.shape != (kernel_size, 3):
+        raise ValueError(f"kernel points of shape {tuple(kp.shape)} != {(kernel_size, 3)}")
+    kp32 = kp.float().contiguous()
+    _check_cuda(tau=tau, kernel_points=kp32)
+    out = _transpose_static(
+        "kpconv_transpose_tau_launch", g_weighted, q_points, s_points, kp32,
+        float(np.float32(tau_reach2(radius, sigma, kernel_size))), sigma, kernel_size, tile, band_width, dtype, tau,
+    )
+    banded_kpconv_transpose_tau_fused.launches += 1
+    return out
+
+
+banded_kpconv_transpose_tau_fused.launches = 0
+
+
+class BandedKPConvTauFn(torch.autograd.Function):
+    """Differentiable banded KPConv under k-NN semantics, the counterpart
+    of the JAX package's ``_fused_tau_fwd``/``_fused_tau_bwd`` (and
+    ``_tau_fwd``/``_tau_bwd``, kpconv_kernel.py:717-846, 1239-1278): the
+    forward runs the aggregate tau kernel (#6) and the contraction in the
+    compute dtype; the backward contracts the cotangent with W, runs kernel
+    #11 for the feature gradient where the features need one, and contracts
+    ``weighted`` with the cotangent for dW.  tau and the kernel points get
+    no gradient: coordinates are data and ``kernel_points`` is a frozen
+    buffer (JAX's stop_gradient, models/kpconv.py:170-172).  Static bands
+    only: k-NN window starts are forward-only, as in the JAX package.
+    Returns (out (B, M, Cout) fp32 unnormalised, count (B, M) int32, no
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, s_feats, weights, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width,
+                dtype):
+        weighted, count = banded_kpconv_aggregate_tau(
+            s_feats, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype,
+        )
+        out = torch.einsum("bmkc,kcd->bmd", _round(weighted, dtype), _round(weights, dtype))
+        ctx.save_for_backward(weights, weighted, q_points, s_points, tau, kp)
+        ctx.args = (radius, sigma, kernel_size, tile, band_width, dtype)
+        ctx.feats_dtype = s_feats.dtype
+        ctx.mark_non_differentiable(count)
+        return out, count
+
+    @staticmethod
+    def backward(ctx, g_out, _g_count):
+        weights, weighted, q_points, s_points, tau, kp = ctx.saved_tensors
+        radius, sigma, kernel_size, tile, band_width, dtype = ctx.args
+        g_out = _round(g_out, dtype)
+        g_feats = g_w = None
+        if ctx.needs_input_grad[0]:
+            g_weighted = torch.einsum("bmd,kcd->bmkc", g_out, _round(weights, dtype))
+            g_feats = banded_kpconv_transpose_tau_fused(
+                g_weighted, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype,
+            ).to(ctx.feats_dtype)
+        if ctx.needs_input_grad[1]:
+            g_w = torch.einsum("bmkc,bmd->kcd", _round(weighted, dtype), g_out).to(weights.dtype)
+        return g_feats, g_w, None, None, None, None, None, None, None, None, None, None
+
+
 def banded_kpconv_tau_apply(
     s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size=15,
     tile=128, band_width=1024, dtype=torch.float32, starts=None, fused=True,
 ):
-    """The model's KPConv under k-NN semantics: the fused kernel where
-    ``fused`` (:func:`fused_contraction_fits`), else the aggregate kernel
-    and a matmul, as cofii2p_tpu/models/kpconv.py:231-299 chooses.  Returns
-    (out (B, M, Cout) fp32 unnormalised, count (B, M) int32)."""
+    """The model's KPConv under k-NN semantics.  Returns (out (B, M, Cout)
+    fp32 unnormalised, count (B, M) int32).
+
+    Differentiated (grad mode on and the features or W requiring grad) it
+    runs :class:`BandedKPConvTauFn`, whose forward is the aggregate kernel,
+    as JAX's ``_tau_fwd``/``_fused_tau_fwd`` run the unfused aggregate;
+    with k-NN window ``starts`` it raises, as they do.  Otherwise the fused
+    kernel where ``fused`` (:func:`fused_contraction_fits`), else the
+    aggregate kernel and a matmul, as cofii2p_tpu/models/kpconv.py:231-299
+    chooses."""
+    if torch.is_grad_enabled() and (s_feats.requires_grad or weights.requires_grad):
+        if starts is not None:
+            raise NotImplementedError(
+                "kNN window starts are forward-only (the .t7 reproduction path never differentiates); "
+                "train without kpconv_knn_window_plan"
+            )
+        return BandedKPConvTauFn.apply(
+            s_feats, weights, q_points, s_points, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype,
+        )
     if fused:
         return banded_kpconv_fused_tau(
             s_feats, q_points, s_points, weights, tau, kp, radius, sigma, kernel_size, tile, band_width, dtype, starts,

@@ -1,24 +1,28 @@
 """Banded maxpool: the CUDA kernels' wrappers, their plain versions and the
 autograd Function that differentiates through them.
 
-Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Four kernels:
+Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Six kernels:
  - :func:`banded_maxpool_fused` (csrc/maxpool.cu; replaces
    banded_maxpool_pallas) keeps per-query membership as a bitmask in
    shared memory and reads a feature row only where it is in reach;
  - :func:`banded_maxpool_tie_count_fused` (the same source in count mode;
-   replaces _match_count) counts the in-reach rows tied at the max;
+   replaces _match_count) counts the member rows tied at the max, on
+   static bands or dynamic windows, by radius or by tau;
  - :func:`banded_maxpool_backward_fused` (csrc/maxpool_bwd.cu; replaces
    _bwd) routes the tie-divided cotangent to those rows, transposed over
    support tiles, on static bands;
+   :func:`banded_maxpool_backward_dyn_fused` (the same source in window
+   mode, then csrc/band_scatter.cu; replaces _bwd_dyn) on dynamic windows;
  - :func:`banded_maxpool_tau` (csrc/maxpool.cu in tau mode; replaces
    banded_maxpool_tau_pallas) is the reference's k-NN maxpool: membership
-   d2 <= tau[m], no radius mask.  Forward only: its backward (#15) is not
-   ported.
+   d2 <= tau[m], no radius mask; :func:`banded_maxpool_backward_tau_fused`
+   (csrc/maxpool_bwd.cu in tau mode; replaces _tau_bwd) its routing.
 
 Each wrapper takes its plain version (ops/banded.py) for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no other fallback.
-Differentiation goes through :class:`BandedMaxpoolFn`
-(:func:`banded_maxpool_apply` picks the path).
+Differentiation goes through :class:`BandedMaxpoolFn` and
+:class:`BandedMaxpoolTauFn` (:func:`banded_maxpool_apply` and
+:func:`banded_maxpool_tau_apply` pick the path).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
     _check_cuda,
     _starts_arg,
     _transpose_plan,
+    band_scatter,
     check_no_grad,
     pick_tq,
 )
@@ -48,11 +53,24 @@ _MAX_TS = 32  # support rows per block of the backward (csrc/maxpool_bwd.cu)
 banded_maxpool_plain = banded_maxpool
 
 
+banded_maxpool_tie_count_plain = banded_maxpool_tie_count
+banded_maxpool_route_plain = banded_maxpool_route
+
+
 def banded_maxpool_tau_plain(s_feats, q_points, s_points, tau, tile=128, band_width=1024, starts=None):
     """Plain version of :func:`banded_maxpool_tau`."""
     return banded_maxpool(s_feats, q_points, s_points, 0.0, tile, band_width, starts, tau=tau)
-banded_maxpool_tie_count_plain = banded_maxpool_tie_count
-banded_maxpool_route_plain = banded_maxpool_route
+
+
+def banded_maxpool_route_dyn_plain(g_scaled, s_feats, q_points, s_points, out, starts, r_active, tile=128,
+                                   band_width=256):
+    """Plain version of :func:`banded_maxpool_backward_dyn_fused`."""
+    return banded_maxpool_route(g_scaled, s_feats, q_points, s_points, out, r_active, tile, band_width, starts)
+
+
+def banded_maxpool_route_tau_plain(g_scaled, s_feats, q_points, s_points, out, tau, tile=128, band_width=1024):
+    """Plain version of :func:`banded_maxpool_backward_tau_fused`."""
+    return banded_maxpool_route(g_scaled, s_feats, q_points, s_points, out, 0.0, tile, band_width, tau=tau)
 
 
 def banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile=128, band_width=1024, starts=None):
@@ -64,7 +82,7 @@ def banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile=128, band_w
     """
     if s_feats.device.type == "cpu":
         return banded_maxpool_plain(s_feats, q_points, s_points, r_active, tile, band_width, starts)
-    check_no_grad("banded_maxpool_fused", s_feats)
+    check_no_grad("banded_maxpool_fused", s_feats, function="BandedMaxpoolFn")
     b, m = q_points.shape[:2]
     n, c = s_feats.shape[1:]
     if s_feats.dtype not in (torch.float32, torch.bfloat16):
@@ -98,7 +116,7 @@ def banded_maxpool_tau(s_feats, q_points, s_points, tau, tile=128, band_width=10
     Returns (B, M, C) in the dtype of ``s_feats``."""
     if s_feats.device.type == "cpu":
         return banded_maxpool_tau_plain(s_feats, q_points, s_points, tau, tile, band_width, starts)
-    check_no_grad("banded_maxpool_tau", s_feats, backward="kernel #15 (_tau_bwd)")
+    check_no_grad("banded_maxpool_tau", s_feats, function="BandedMaxpoolTauFn")
     b, m = q_points.shape[:2]
     n, c = s_feats.shape[1:]
     if s_feats.dtype not in (torch.float32, torch.bfloat16):
@@ -137,29 +155,71 @@ def _check_pool(s_feats, q_points, s_points, out):
     return b, m, n, c
 
 
-def banded_maxpool_tie_count_fused(s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024):
-    """Per (query, channel) count of in-reach band rows tied at the forward
-    max ``out`` (kernel #12), (B, M, C) fp32, static bands; plain version
+def banded_maxpool_tie_count_fused(s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024,
+                                   starts=None, tau=None):
+    """Per (query, channel) count of member band rows tied at the forward
+    max ``out`` (kernel #12), (B, M, C) fp32: on static bands or the
+    forward's dynamic ``starts`` (B, num_tiles), members by d2 <=
+    r_active² or, with ``tau`` (B, M), by d2 <= tau[m]; plain version
     ops/banded.py::banded_maxpool_tie_count."""
     if s_feats.device.type == "cpu":
-        return banded_maxpool_tie_count_plain(s_feats, q_points, s_points, out, r_active, tile, band_width)
+        return banded_maxpool_tie_count_plain(s_feats, q_points, s_points, out, r_active, tile, band_width, starts,
+                                              tau)
     check_no_grad("banded_maxpool_tie_count_fused", s_feats, out)
     b, m, n, c = _check_pool(s_feats, q_points, s_points, out)
-    tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
-    st = static_starts(m, n, tile, band, num_tiles, b, s_feats.device).contiguous()
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    st = _starts_arg(m, n, tile, band, num_tiles, b, s_feats.device, starts)
+    _check_cuda(starts=st)
+    if tau is not None:
+        _check_tau(tau, b, m)
     cnt = torch.empty(b, m, c, dtype=torch.float32, device=s_feats.device)
-    err = cuda_lib.lib().maxpool_count_launch(
-        q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
-        int(s_feats.dtype == torch.bfloat16), st.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-        b, m, n, c, tile, band, pick_tq(tile, 16),
-        float(np.float32(r_active * r_active)), cuda_lib.stream_of(s_feats),
-    )
+    lib, common = cuda_lib.lib(), (q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
+                                   int(s_feats.dtype == torch.bfloat16), st.data_ptr())
+    if tau is None:
+        err = lib.maxpool_count_launch(
+            *common, out.data_ptr(), cnt.data_ptr(), b, m, n, c, tile, band, pick_tq(tile, 16),
+            float(np.float32(r_active * r_active)), cuda_lib.stream_of(s_feats),
+        )
+    else:
+        err = lib.maxpool_count_tau_launch(
+            *common, tau.data_ptr(), out.data_ptr(), cnt.data_ptr(), b, m, n, c, tile, band, pick_tq(tile, 16),
+            cuda_lib.stream_of(s_feats),
+        )
     cuda_lib.check(err, "maxpool_count")
     banded_maxpool_tie_count_fused.launches += 1
     return cnt
 
 
 banded_maxpool_tie_count_fused.launches = 0
+
+
+def _check_tau(tau, b, m):
+    if tau.dtype != torch.float32 or tau.shape != (b, m):
+        raise ValueError(f"tau must be float32 of shape {(b, m)}")
+    _check_cuda(tau=tau)
+
+
+def _route_static(launcher, g_scaled, s_feats, q_points, s_points, out, tile, band_width, r2=None, tau=None):
+    """Launch a maxpool routing pass on static bands (kernel #13 with
+    ``r2``, #15 with ``tau``) through the library's ``launcher``; returns
+    (B, N, C) fp32."""
+    gs = g_scaled.float().contiguous()
+    b, m, n, c = _check_pool(s_feats, q_points, s_points, out)
+    _check_cuda(g_scaled=gs)
+    if gs.shape != (b, m, c):
+        raise ValueError(f"cotangent shape {tuple(gs.shape)} != {(b, m, c)}")
+    tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
+    st = static_starts(m, n, tile, band, num_tiles, b, gs.device).contiguous()
+    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, _MAX_TS), gs.device)
+    g_feats = torch.empty(b, n, c, dtype=torch.float32, device=gs.device)
+    err = getattr(cuda_lib.lib(), launcher)(
+        q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
+        int(s_feats.dtype == torch.bfloat16), out.data_ptr(), gs.data_ptr(), st.data_ptr(),
+        qstart_blk.data_ptr(), *(() if tau is None else (tau.data_ptr(),)), g_feats.data_ptr(), b, m, n, c, tile,
+        num_tiles, band, ts, n_qtiles, *(() if r2 is None else (r2,)), cuda_lib.stream_of(gs),
+    )
+    cuda_lib.check(err, launcher)
+    return g_feats
 
 
 def banded_maxpool_backward_fused(g_scaled, s_feats, q_points, s_points, out, r_active, tile=128, band_width=1024):
@@ -170,22 +230,8 @@ def banded_maxpool_backward_fused(g_scaled, s_feats, q_points, s_points, out, r_
     if g_scaled.device.type == "cpu":
         return banded_maxpool_route_plain(g_scaled, s_feats, q_points, s_points, out, r_active, tile, band_width)
     check_no_grad("banded_maxpool_backward_fused", g_scaled, s_feats, out)
-    gs = g_scaled.float().contiguous()
-    b, m, n, c = _check_pool(s_feats, q_points, s_points, out)
-    _check_cuda(g_scaled=gs)
-    if gs.shape != (b, m, c):
-        raise ValueError(f"cotangent shape {tuple(gs.shape)} != {(b, m, c)}")
-    tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
-    st = static_starts(m, n, tile, band, num_tiles, b, gs.device).contiguous()
-    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, _MAX_TS), gs.device)
-    g_feats = torch.empty(b, n, c, dtype=torch.float32, device=gs.device)
-    err = cuda_lib.lib().maxpool_bwd_launch(
-        q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
-        int(s_feats.dtype == torch.bfloat16), out.data_ptr(), gs.data_ptr(), st.data_ptr(),
-        qstart_blk.data_ptr(), g_feats.data_ptr(), b, m, n, c, tile, num_tiles, band, ts,
-        n_qtiles, float(np.float32(r_active * r_active)), cuda_lib.stream_of(gs),
-    )
-    cuda_lib.check(err, "maxpool_bwd")
+    g_feats = _route_static("maxpool_bwd_launch", g_scaled, s_feats, q_points, s_points, out, tile,
+                            band_width, r2=float(np.float32(r_active * r_active)))
     banded_maxpool_backward_fused.launches += 1
     return g_feats
 
@@ -193,36 +239,136 @@ def banded_maxpool_backward_fused(g_scaled, s_feats, q_points, s_points, out, r_
 banded_maxpool_backward_fused.launches = 0
 
 
+def route_dyn_with_stack(g_scaled, s_feats, q_points, s_points, out, starts, r_active, tile=128, band_width=256):
+    """Kernel #14's two launches on CUDA tensors: the window stack
+    (B, num_tiles, band, C) fp32, then its scatter; returns (g_feats
+    (B, N, C) fp32, stack).  Counts nothing: the wrapper
+    :func:`banded_maxpool_backward_dyn_fused` does."""
+    gs = g_scaled.float().contiguous()
+    b, m, n, c = _check_pool(s_feats, q_points, s_points, out)
+    if gs.shape != (b, m, c):
+        raise ValueError(f"cotangent shape {tuple(gs.shape)} != {(b, m, c)}")
+    tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
+    st = _starts_arg(m, n, tile, band, num_tiles, b, gs.device, starts)
+    _check_cuda(g_scaled=gs, starts=st)
+    stack = torch.empty(b, num_tiles, band, c, dtype=torch.float32, device=gs.device)
+    err = cuda_lib.lib().maxpool_bwd_dyn_launch(
+        q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(), int(s_feats.dtype == torch.bfloat16),
+        out.data_ptr(), gs.data_ptr(), st.data_ptr(), stack.data_ptr(), b, m, n, c, tile, num_tiles, band,
+        pick_tq(band, _MAX_TS), float(np.float32(r_active * r_active)), cuda_lib.stream_of(gs),
+    )
+    cuda_lib.check(err, "maxpool_bwd_dyn")
+    return band_scatter(stack, st, n), stack
+
+
+def banded_maxpool_backward_dyn_fused(g_scaled, s_feats, q_points, s_points, out, starts, r_active, tile=128,
+                                      band_width=256):
+    """Maxpool feature gradient on dynamic windows (kernel #14): as
+    :func:`banded_maxpool_backward_fused` over the forward's ``starts``
+    (B, num_tiles) windows of width ``band_width``; each tile's window
+    gradient goes to a stack, added up in tile order
+    (:func:`route_dyn_with_stack`).  Plain version
+    ops/banded.py::banded_maxpool_route with ``starts``."""
+    if g_scaled.device.type == "cpu":
+        return banded_maxpool_route_dyn_plain(g_scaled, s_feats, q_points, s_points, out, starts, r_active, tile,
+                                              band_width)
+    check_no_grad("banded_maxpool_backward_dyn_fused", g_scaled, s_feats, out)
+    g_feats, _ = route_dyn_with_stack(g_scaled, s_feats, q_points, s_points, out, starts, r_active, tile, band_width)
+    banded_maxpool_backward_dyn_fused.launches += 1
+    return g_feats
+
+
+banded_maxpool_backward_dyn_fused.launches = 0
+
+
+def banded_maxpool_backward_tau_fused(g_scaled, s_feats, q_points, s_points, out, tau, tile=128, band_width=1024):
+    """Maxpool feature gradient under k-NN semantics (kernel #15): as
+    :func:`banded_maxpool_backward_fused` with the members d2 <= tau[m],
+    tau (B, M) fp32, and no radius mask; plain version
+    ops/banded.py::banded_maxpool_route with ``tau``."""
+    if g_scaled.device.type == "cpu":
+        return banded_maxpool_route_tau_plain(g_scaled, s_feats, q_points, s_points, out, tau, tile, band_width)
+    check_no_grad("banded_maxpool_backward_tau_fused", g_scaled, s_feats, out)
+    _check_tau(tau, *q_points.shape[:2])
+    g_feats = _route_static("maxpool_bwd_tau_launch", g_scaled, s_feats, q_points, s_points, out, tile,
+                            band_width, tau=tau)
+    banded_maxpool_backward_tau_fused.launches += 1
+    return g_feats
+
+
+banded_maxpool_backward_tau_fused.launches = 0
+
+
 class BandedMaxpoolFn(torch.autograd.Function):
-    """Differentiable banded maxpool on static bands, the counterpart of the
-    JAX package's ``custom_vjp`` (maxpool_kernel.py:229-233, 469-546): the
-    forward kernel, then in the backward the tie count, the cotangent
-    divided by max(count, 1), and the routing kernel."""
+    """Differentiable banded maxpool, the counterpart of the JAX package's
+    ``custom_vjp`` (maxpool_kernel.py:229-233, 469-546): the forward
+    kernel, then in the backward the tie count, the cotangent divided by
+    max(count, 1), and the routing kernel: #13 on static bands, #14 on the
+    forward's dynamic ``starts``."""
 
     @staticmethod
-    def forward(ctx, s_feats, q_points, s_points, r_active, tile, band_width):
-        out = banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile, band_width)
-        ctx.save_for_backward(s_feats, q_points, s_points, out)
+    def forward(ctx, s_feats, q_points, s_points, r_active, tile, band_width, starts=None):
+        out = banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile, band_width, starts)
+        ctx.save_for_backward(s_feats, q_points, s_points, out, starts)
         ctx.args = (r_active, tile, band_width)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        s_feats, q_points, s_points, out = ctx.saved_tensors
+        s_feats, q_points, s_points, out, starts = ctx.saved_tensors
         r_active, tile, band_width = ctx.args
-        cnt = banded_maxpool_tie_count_fused(s_feats, q_points, s_points, out, r_active, tile, band_width)
+        cnt = banded_maxpool_tie_count_fused(s_feats, q_points, s_points, out, r_active, tile, band_width, starts)
         g_scaled = g.float() / torch.clamp(cnt, min=1.0)
-        g_feats = banded_maxpool_backward_fused(g_scaled, s_feats, q_points, s_points, out, r_active, tile, band_width)
-        return g_feats.to(s_feats.dtype), None, None, None, None, None
+        if starts is None:
+            g_feats = banded_maxpool_backward_fused(g_scaled, s_feats, q_points, s_points, out, r_active, tile,
+                                                    band_width)
+        else:
+            g_feats = banded_maxpool_backward_dyn_fused(g_scaled, s_feats, q_points, s_points, out, starts, r_active,
+                                                        tile, band_width)
+        return g_feats.to(s_feats.dtype), None, None, None, None, None, None
 
 
 def banded_maxpool_apply(s_feats, q_points, s_points, r_active, tile=128, band_width=1024, starts=None):
     """The model's banded maxpool: through :class:`BandedMaxpoolFn` when
     differentiated, else the forward kernel."""
     if torch.is_grad_enabled() and s_feats.requires_grad:
+        return BandedMaxpoolFn.apply(s_feats, q_points, s_points, r_active, tile, band_width, starts)
+    return banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile, band_width, starts)
+
+
+class BandedMaxpoolTauFn(torch.autograd.Function):
+    """Differentiable k-NN maxpool on static bands, the counterpart of the
+    JAX package's ``_tau_fwd``/``_tau_bwd`` (maxpool_kernel.py:679-795):
+    kernel #8 forward; in the backward the tie count in tau mode (#12), the
+    cotangent divided by max(count, 1), and kernel #15.  tau gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, s_feats, q_points, s_points, tau, tile, band_width):
+        out = banded_maxpool_tau(s_feats, q_points, s_points, tau, tile, band_width)
+        ctx.save_for_backward(s_feats, q_points, s_points, tau, out)
+        ctx.args = (tile, band_width)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s_feats, q_points, s_points, tau, out = ctx.saved_tensors
+        tile, band_width = ctx.args
+        cnt = banded_maxpool_tie_count_fused(s_feats, q_points, s_points, out, 0.0, tile, band_width, tau=tau)
+        g_scaled = g.float() / torch.clamp(cnt, min=1.0)
+        g_feats = banded_maxpool_backward_tau_fused(g_scaled, s_feats, q_points, s_points, out, tau, tile, band_width)
+        return g_feats.to(s_feats.dtype), None, None, None, None, None
+
+
+def banded_maxpool_tau_apply(s_feats, q_points, s_points, tau, tile=128, band_width=1024, starts=None):
+    """The model's k-NN maxpool: through :class:`BandedMaxpoolTauFn` when
+    differentiated (k-NN window ``starts`` then raise, as JAX's
+    ``_tau_fwd`` does), else kernel #8."""
+    if torch.is_grad_enabled() and s_feats.requires_grad:
         if starts is not None:
             raise NotImplementedError(
-                "the maxpool backward under dynamic windows (_bwd_dyn, kernel #14) is not ported yet"
+                "kNN window starts are forward-only (the .t7 reproduction path never differentiates); "
+                "train without kpconv_knn_window_plan"
             )
-        return BandedMaxpoolFn.apply(s_feats, q_points, s_points, r_active, tile, band_width)
-    return banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile, band_width, starts)
+        return BandedMaxpoolTauFn.apply(s_feats, q_points, s_points, tau, tile, band_width)
+    return banded_maxpool_tau(s_feats, q_points, s_points, tau, tile, band_width, starts)

@@ -2,11 +2,15 @@
 (counterpart of cofii2p_tpu/train.py, with the same flags plus ``--device``).
 
     python -m cofii2p_tpu_torch.train kitti --synthetic --steps 4 --batch_size 8
+    python -m cofii2p_tpu_torch.train kitti --synthetic --fast --steps 4 --batch_size 8
+    python -m cofii2p_tpu_torch.train kitti --synthetic kpconv_impl=banded_knn --steps 4 --batch_size 8
     python -m cofii2p_tpu_torch.train tiny --synthetic --steps 2 --device cpu   # tests
 
 Runs on the card (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` runs the kernels' plain versions, for tests.
-``--fast`` (the narrow dynamic-window training) is not ported yet.
+``--fast`` trains with the w256 dynamic windows of config.FAST_DYNAMIC_PLAN
+(``with_fast_windows``, after the overrides: an explicit window plan wins,
+and a ``banded_knn`` config is left alone).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 
 from cofii2p_tpu_torch import train_lib
-from cofii2p_tpu_torch.config import apply_overrides, get_config
+from cofii2p_tpu_torch.config import apply_overrides, get_config, with_fast_windows
 from cofii2p_tpu_torch.data.loader import BatchLoader
 from cofii2p_tpu_torch.models.network import CoFiI2P
 from cofii2p_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -61,18 +65,16 @@ def main(argv=None):
     parser.add_argument("--ckpt_every_epochs", type=int, default=1,
                         help="save cadence in epochs (reference saves every epoch)")
     parser.add_argument("--fast", action="store_true",
-                        help="train with the w256 dynamic windows (not ported yet: raises)")
+                        help="train with the w256 dynamic windows (config.FAST_DYNAMIC_PLAN); "
+                             "explicit kpconv_dynamic_plan= overrides win")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) | cpu (tests)")
     parser.add_argument("overrides", nargs="*", help="config key=value overrides")
     # key=value overrides may come before or after the options
     args = parser.parse_intermixed_args(argv)
 
-    if args.fast:
-        raise NotImplementedError(
-            "--fast needs the dynamic-window backward kernels #10 (_transpose_agg_dyn) and #14 (_bwd_dyn), "
-            "the next slice of ROADMAP queue 2"
-        )
     cfg = apply_overrides(get_config(args.dataset), args.overrides)
+    if args.fast:
+        cfg = with_fast_windows(cfg)
     batch_size = args.batch_size or cfg.train_batch_size
     device = resolve_device(args.device)
 

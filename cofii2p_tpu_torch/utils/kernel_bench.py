@@ -1,14 +1,17 @@
 """Per-call times of the port's CUDA kernels on the serving, training or
 `.t7` eval path.
 
-    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|train|t7] [--batch 8] [--reps 10]
+    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|train|fast|knn_train|t7] [--batch 8] [--reps 10]
 
 ``serve`` runs one forward of bench.py's serving config (bf16 w192,
 fused attention); ``train`` one fp32 training step of the default
-KITTIConfig (static bands), forward and backward; ``t7`` one fp32 forward
-of the configuration a reference checkpoint is evaluated with
-(evaluation/eval_all.py::reference_ckpt_config: k-NN semantics, static
-bands, per-layer kernel points, fused attention).  All use seeded random
+KITTIConfig (static bands), forward and backward; ``fast`` the same step
+with ``train --fast``'s w256 dynamic windows (config.with_fast_windows);
+``knn_train`` the step under ``kpconv_impl=banded_knn`` with per-layer
+kernel points; ``t7`` one fp32 forward of the configuration a reference
+checkpoint is evaluated with (evaluation/eval_all.py::reference_ckpt_config:
+k-NN semantics, static bands, per-layer kernel points, fused attention).
+All use seeded random
 weights and synthetic KITTI-shaped frames.  Every call of a kernel wrapper
 is recorded with its arguments, then replayed on its own: the kernel and
 its plain PyTorch version are timed with CUDA events, and the call's bound
@@ -76,14 +79,22 @@ def kernel_wrappers() -> dict:
         "banded_knn_tau_kernel": (kpc, tk.banded_knn_tau_kernel, tk.banded_knn_tau_plain),
         "banded_kpconv_fused_tau": (kpk, kpk.banded_kpconv_fused_tau, kpk.banded_kpconv_fused_tau_plain),
         "banded_kpconv_aggregate_tau": (kpk, kpk.banded_kpconv_aggregate_tau, kpk.banded_kpconv_aggregate_tau_plain),
-        "banded_maxpool_tau": (kpc, mpk.banded_maxpool_tau, mpk.banded_maxpool_tau_plain),
+        "banded_maxpool_tau": (mpk, mpk.banded_maxpool_tau, mpk.banded_maxpool_tau_plain),
         "banded_kpconv_fused": (kpk, kpk.banded_kpconv_fused, kpk.banded_kpconv_fused_plain),
         "banded_kpconv_aggregate_fused": (kpk, kpk.banded_kpconv_aggregate_fused, kpk.banded_kpconv_aggregate_plain),
         "banded_kpconv_transpose_fused": (kpk, kpk.banded_kpconv_transpose_fused, kpk.banded_kpconv_transpose_plain),
+        "banded_kpconv_transpose_dyn_fused": (kpk, kpk.banded_kpconv_transpose_dyn_fused,
+                                              kpk.banded_kpconv_transpose_dyn_plain),
+        "banded_kpconv_transpose_tau_fused": (kpk, kpk.banded_kpconv_transpose_tau_fused,
+                                              kpk.banded_kpconv_transpose_tau_plain),
         "banded_maxpool_fused": (mpk, mpk.banded_maxpool_fused, mpk.banded_maxpool_plain),
         "banded_maxpool_tie_count_fused": (mpk, mpk.banded_maxpool_tie_count_fused,
                                            mpk.banded_maxpool_tie_count_plain),
         "banded_maxpool_backward_fused": (mpk, mpk.banded_maxpool_backward_fused, mpk.banded_maxpool_route_plain),
+        "banded_maxpool_backward_dyn_fused": (mpk, mpk.banded_maxpool_backward_dyn_fused,
+                                              mpk.banded_maxpool_route_dyn_plain),
+        "banded_maxpool_backward_tau_fused": (mpk, mpk.banded_maxpool_backward_tau_fused,
+                                              mpk.banded_maxpool_route_tau_plain),
         "fused_attention": (tf, att.fused_attention, att.fused_attention_plain),
     }
 
@@ -124,7 +135,11 @@ def call_bound(name: str, args, kwargs=None):
         else:  # the aggregated pairs: within tau and the padded reach
             pairs = _pairs(q, s, tau_reach2(a["radius"], a["sigma"], ks) ** 0.5, tile, bw, starts, tau)
         mma16 = a["dtype"] == torch.bfloat16
-        if name == "banded_kpconv_transpose_fused":
+        if tau is not None:
+            pts += tau.numel() * 4 + ks * 3 * 4
+        if starts is not None:
+            pts += starts.numel() * 4
+        if name.startswith("banded_kpconv_transpose"):
             g = a["g_weighted"]
             c = g.shape[-1]
             return bound_ms(pts + g.numel() * 4 + b * n * c * 4, ops32=pairs * ks * (2 * c + INFL_OPS))
@@ -132,8 +147,6 @@ def call_bound(name: str, args, kwargs=None):
         cin = f.shape[-1]
         infl = pairs * ks * INFL_OPS
         agg = 2.0 * pairs * ks * cin
-        if tau is not None:
-            pts += tau.numel() * 4 + ks * 3 * 4
         if name in ("banded_kpconv_aggregate_fused", "banded_kpconv_aggregate_tau"):
             io = pts + f.numel() * f.element_size() + b * m * (ks * cin + 1) * 4
             return bound_ms(io, ops32=infl + (0 if mma16 else agg), ops16=agg if mma16 else 0.0)
@@ -145,11 +158,10 @@ def call_bound(name: str, args, kwargs=None):
     f = a["s_feats"]
     c = f.shape[-1]
     fbytes = f.numel() * f.element_size()
-    if name == "banded_maxpool_tau":
-        pairs = _pairs(q, s, None, a["tile"], a["band_width"], starts, tau)
-        return bound_ms(pts + tau.numel() * 4 + fbytes + b * m * c * f.element_size(), ops32=pairs * c)
-    pairs = _pairs(q, s, a["r_active"], a["tile"], a["band_width"], starts)
-    if name == "banded_maxpool_fused":
+    # members: d2 <= tau[m] (no radius mask) or in reach
+    pairs = _pairs(q, s, None if tau is not None else a["r_active"], a["tile"], a["band_width"], starts, tau)
+    pts += (0 if tau is None else tau.numel() * 4) + (0 if starts is None else starts.numel() * 4)
+    if name in ("banded_maxpool_fused", "banded_maxpool_tau"):
         return bound_ms(pts + fbytes + b * m * c * f.element_size(), ops32=pairs * c)
     out_bytes = a["out"].numel() * a["out"].element_size()
     if name == "banded_maxpool_tie_count_fused":
@@ -242,14 +254,37 @@ def record_t7(batch, seed, dev):
     return calls
 
 
-def record_train(batch, seed, dev):
-    from cofii2p_tpu_torch import train_lib
-    from cofii2p_tpu_torch.config import KITTIConfig
-    from cofii2p_tpu_torch.models.network import CoFiI2P
-    from cofii2p_tpu_torch.utils.convert import randomize
+def train_config(path: str):
+    """The fp32 KITTI training configuration of a kernel_bench path (and of
+    chip_smoke.py's train phases): 'train' static bands, 'fast' train
+    --fast's windows, 'knn_train' the k-NN semantics."""
+    from cofii2p_tpu_torch.config import KITTIConfig, with_fast_windows
 
-    cfg = KITTIConfig()
-    model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(dev)
+    if path == "fast":
+        return with_fast_windows(KITTIConfig())
+    if path == "knn_train":
+        return KITTIConfig(kpconv_impl="banded_knn")
+    return KITTIConfig()
+
+
+def train_model(cfg, seed, dev):
+    """Seeded random weights; under banded_knn every KPConv with its own
+    rotated and jittered kernel points, as a reference checkpoint has."""
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.utils.convert import jitter_kernel_points, randomize
+
+    gen = torch.Generator().manual_seed(seed)
+    model = randomize(CoFiI2P(cfg), gen)
+    if cfg.kpconv_impl == "banded_knn":
+        jitter_kernel_points(model, gen)
+    return model.to(dev)
+
+
+def record_train(batch, seed, dev, path="train"):
+    from cofii2p_tpu_torch import train_lib
+
+    cfg = train_config(path)
+    model = train_model(cfg, seed, dev)
     hb = _frames(cfg, batch, dev)
     draws = train_lib.make_train_draws(cfg, batch, torch.Generator(dev).manual_seed(seed), dev)
     calls = []
@@ -271,7 +306,7 @@ def _frames(cfg, batch, dev):
 
 def main():
     ap = argparse.ArgumentParser(description="time the port's kernels on the serving or training path")
-    ap.add_argument("--path", choices=("serve", "train", "t7"), default="serve")
+    ap.add_argument("--path", choices=("serve", "train", "fast", "knn_train", "t7"), default="serve")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -281,7 +316,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    calls = {"serve": record_serve, "train": record_train, "t7": record_t7}[args.path](args.batch, args.seed, dev)
+    if args.path in ("train", "fast", "knn_train"):
+        calls = record_train(args.batch, args.seed, dev, args.path)
+    else:
+        calls = {"serve": record_serve, "t7": record_t7}[args.path](args.batch, args.seed, dev)
     torch.cuda.synchronize()
 
     wrappers = kernel_wrappers()

@@ -15,6 +15,10 @@ the autograd Functions' gradients against autograd of the plain versions
 rel <= 1e-4 (KPConv) and 1e-5 (maxpool).  The k-NN (tau) kernels: tau and
 the k-NN maxpool bit-equal (exact order statistics; a select), the tau
 KPConvs with equal active-row counts and fp32 rel <= 1e-4, bf16 <= 5e-2.
+The backward kernels of the dynamic windows (#10, #14) and of the k-NN
+semantics (#11, #15) and the tie count's window and tau modes (#12): tie
+counts bit-equal, #10/#11 rel <= 1e-4, #14/#15 rel <= 1e-5, and the
+window scatter bit-equal to its plain version on the kernel's own stack.
 """
 
 import numpy as np
@@ -24,6 +28,7 @@ import torch
 from cofii2p_tpu_torch.ops.attention_kernel import fused_attention, fused_attention_plain
 from cofii2p_tpu_torch.ops.banded import _load_kernel_points, dynamic_band_starts, dynamic_knn_starts, kernel_reach
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
+    band_scatter_plain,
     banded_kpconv_aggregate_fused,
     banded_kpconv_aggregate_plain,
     banded_kpconv_aggregate_tau,
@@ -33,19 +38,31 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
     banded_kpconv_fused_plain,
     banded_kpconv_fused_tau,
     banded_kpconv_fused_tau_plain,
+    banded_kpconv_tau_apply,
+    banded_kpconv_transpose_dyn_fused,
+    banded_kpconv_transpose_dyn_plain,
     banded_kpconv_transpose_fused,
     banded_kpconv_transpose_plain,
+    banded_kpconv_transpose_tau_fused,
+    banded_kpconv_transpose_tau_plain,
+    transpose_dyn_with_stack,
 )
 from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_apply,
+    banded_maxpool_backward_dyn_fused,
     banded_maxpool_backward_fused,
+    banded_maxpool_backward_tau_fused,
     banded_maxpool_fused,
     banded_maxpool_plain,
+    banded_maxpool_route_dyn_plain,
     banded_maxpool_route_plain,
+    banded_maxpool_route_tau_plain,
     banded_maxpool_tau,
+    banded_maxpool_tau_apply,
     banded_maxpool_tau_plain,
     banded_maxpool_tie_count_fused,
     banded_maxpool_tie_count_plain,
+    route_dyn_with_stack,
 )
 from cofii2p_tpu_torch.ops.pyramid import morton_order
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel, banded_knn_tau_plain
@@ -254,3 +271,106 @@ def test_kpconv_tau_kernels_match_plain(cuda_device, cin, cout):
     torch.cuda.synchronize()
     assert torch.equal(cnt, ref_cnt)
     assert rel_err(got_w, ref_w) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,c", [(1024, 2048, 64), (2048, 2048, 256), (512, 1024, 512)])
+def test_window_transpose_kernel_matches_plain(cuda_device, m, n, c):
+    """Kernel #10 on w256 windows: rel <= 1e-4 against the plain version,
+    and the scatter bit-equal to its plain version on the kernel's stack."""
+    q, s = clouds(m, n, cuda_device)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, 256, "best", 1)
+    gw = torch.randn(2, m, 15, c, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    got = banded_kpconv_transpose_dyn_fused(gw, q, s, starts, R, S, 15, 128, 256)
+    assert rel_err(got, banded_kpconv_transpose_dyn_plain(gw, q, s, starts, R, S, 15, 128, 256)) <= 1e-4
+    out, stack = transpose_dyn_with_stack(gw, q, s, starts, R, S, 15, 128, 256)
+    assert torch.equal(out, band_scatter_plain(stack, starts, n)) and torch.equal(out, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [128, 1024])
+def test_window_maxpool_backward_kernels_match_plain(cuda_device, c):
+    """The tie count in window mode bit-equal, kernel #14 rel <= 1e-5, its
+    scatter bit-equal on its own stack; duplicated points tie."""
+    q, s = clouds(512, 2048, cuda_device)
+    s, f = tied_features(s, c, cuda_device)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, 256, "best", 1)
+    out = banded_maxpool_fused(f, q, s, R_ACT, 128, 256, starts)
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256, starts)
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, 256, starts))
+    assert (cnt > 1).any()
+    gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(cuda_device) / cnt.clamp(min=1)
+    got = banded_maxpool_backward_dyn_fused(gs, f, q, s, out, starts, R_ACT, 128, 256)
+    assert rel_err(got, banded_maxpool_route_dyn_plain(gs, f, q, s, out, starts, R_ACT, 128, 256)) <= 1e-5
+    g2, stack = route_dyn_with_stack(gs, f, q, s, out, starts, R_ACT, 128, 256)
+    assert torch.equal(g2, band_scatter_plain(stack, starts, s.shape[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,c,bw", [(1024, 2048, 64, 256), (2048, 2048, 256, 1024), (1024, 1024, 512, 1024)])
+def test_tau_transpose_kernel_matches_plain(cuda_device, m, n, c, bw):
+    """Kernel #11 with per-layer kernel points on duplicated points: rel <= 1e-4."""
+    q, s = clouds(m, n, cuda_device)
+    s, _ = tied_features(s, 1, cuda_device)
+    if m == n:
+        q = s
+    g = torch.Generator().manual_seed(8)
+    kp = jittered_kernel_points(torch.tensor(_load_kernel_points(R, 15), dtype=torch.float32), g).to(cuda_device)
+    tau = banded_knn_tau_plain(q, s, 32, 128, bw)
+    gw = torch.randn(2, m, 15, c, generator=g).to(cuda_device)
+    got = banded_kpconv_transpose_tau_fused(gw, q, s, tau, kp, R, S, 15, 128, bw)
+    assert rel_err(got, banded_kpconv_transpose_tau_plain(gw, q, s, tau, kp, R, S, 15, 128, bw)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [128, 1024])
+def test_tau_maxpool_backward_kernels_match_plain(cuda_device, c):
+    """The tie count in tau mode bit-equal, kernel #15 rel <= 1e-5."""
+    q, s = clouds(512, 2048, cuda_device)
+    s, f = tied_features(s, c, cuda_device)
+    tau = banded_knn_tau_plain(q, s, 16, 128, 256)
+    out = banded_maxpool_tau(f, q, s, tau, 128, 256)
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, 0.0, 128, 256, tau=tau)
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, 0.0, 128, 256, tau=tau))
+    assert (cnt > 1).any()
+    gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)).to(cuda_device) / cnt.clamp(min=1)
+    got = banded_maxpool_backward_tau_fused(gs, f, q, s, out, tau, 128, 256)
+    assert rel_err(got, banded_maxpool_route_tau_plain(gs, f, q, s, out, tau, 128, 256)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_window_and_tau_functions_match_plain_autograd(cuda_device):
+    """BandedKPConvFn and BandedMaxpoolFn on w256 windows, BandedKPConvTauFn
+    and BandedMaxpoolTauFn with per-layer kernel points, through the kernels
+    against autograd of the plain versions: rel <= 1e-4 (KPConv) and 1e-5
+    (maxpool)."""
+    q, s = clouds(1024, 2048, cuda_device)
+    s, f0 = tied_features(s, 64, cuda_device)
+    w0 = (torch.randn(15, 64, 64, generator=torch.Generator().manual_seed(10)) / 8).to(cuda_device)
+    g = torch.randn(2, 1024, 64, generator=torch.Generator().manual_seed(11)).to(cuda_device)
+    kp = jittered_kernel_points(torch.tensor(_load_kernel_points(R, 15), dtype=torch.float32),
+                                torch.Generator().manual_seed(12)).to(cuda_device)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, 256, "best", 1)
+    tau = banded_knn_tau_plain(q, s, 32, 128, 256)
+    cases = {
+        "window": ((banded_kpconv_apply, banded_maxpool_apply), (banded_kpconv_fused_plain, banded_maxpool_plain),
+                   lambda conv, f, w: conv(f, q, s, w, R, S, 15, 128, 256, starts=starts),
+                   lambda pool, f: pool(f, q, s, R_ACT, 128, 256, starts)),
+        "tau": ((banded_kpconv_tau_apply, banded_maxpool_tau_apply),
+                (banded_kpconv_fused_tau_plain, banded_maxpool_tau_plain),
+                lambda conv, f, w: conv(f, q, s, w, tau, kp, R, S, 15, 128, 256),
+                lambda pool, f: pool(f, q, s, tau, 128, 256)),
+    }
+    for name, (kern, plain, call_conv, call_pool) in cases.items():
+        grads = []
+        for conv, pool in (kern, plain):
+            f, w = f0.clone().requires_grad_(), w0.clone().requires_grad_()
+            out, cnt = call_conv(conv, f, w)
+            (out / cnt[..., None]).backward(g)
+            fp = f0.clone().requires_grad_()
+            call_pool(pool, fp).backward(g)
+            grads.append((f.grad, w.grad, fp.grad))
+        torch.cuda.synchronize()
+        assert rel_err(grads[0][0], grads[1][0]) <= 1e-4, name
+        assert rel_err(grads[0][1], grads[1][1]) <= 1e-4, name
+        assert rel_err(grads[0][2], grads[1][2]) <= 1e-5, name

@@ -33,7 +33,7 @@ from cofii2p_tpu_torch.evaluation import calc_result, eval_all, ir_rmse
 from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body, pose_errors_np
 from cofii2p_tpu_torch.models.network import CoFiI2P
 from cofii2p_tpu_torch.utils.checkpoint import REFERENCE_UNUSED, export_t7, import_t7
-from cofii2p_tpu_torch.utils.convert import jax_to_state_dict, jittered_kernel_points
+from cofii2p_tpu_torch.utils.convert import jax_to_state_dict
 from tests.torch_parity import (
     assert_eval_outputs_match,
     cfg_pair,
@@ -41,25 +41,13 @@ from tests.torch_parity import (
     host_batch,
     jax_test_mode,
     jax_variables,
+    per_layer_kernel_points,
     rel_err,
     replay_draws,
     to_torch,
 )
 
 B = 2
-
-
-def per_layer_kernel_points(params, seed=0):
-    """Each KPConv's kernel points rotated and jittered independently
-    (utils/convert.py::jittered_kernel_points), in a JAX parameter tree."""
-    gen = torch.Generator().manual_seed(seed)
-
-    def perturb(path, x):
-        if "kernel_points" not in jax.tree_util.keystr(path):
-            return np.asarray(x)
-        return jittered_kernel_points(torch.tensor(np.asarray(x)), gen).numpy()
-
-    return jax.tree_util.tree_map_with_path(perturb, params)
 
 
 @pytest.fixture(scope="module")

@@ -188,10 +188,11 @@ def test_knn_dispatch_follows_the_jax_package(monkeypatch):
     shortcuts through the tau maxpool."""
     import cofii2p_tpu_torch.models.kpconv as kpc
     import cofii2p_tpu_torch.ops.kpconv_kernel as kpk
+    import cofii2p_tpu_torch.ops.maxpool_kernel as mpk
     from cofii2p_tpu_torch.config import TinyConfig
 
     wrappers = ((kpk, "banded_kpconv_fused_tau"), (kpk, "banded_kpconv_aggregate_tau"),
-                (kpc, "banded_knn_tau_kernel"), (kpc, "banded_maxpool_tau"))
+                (kpc, "banded_knn_tau_kernel"), (mpk, "banded_maxpool_tau"))
     calls = _kpconv_dispatch(monkeypatch, TinyConfig(kpconv_impl="banded_knn"), False, wrappers)
     by_name = {n: [m for m, name in calls if name == n] for _, n in wrappers}
     assert len(by_name["banded_knn_tau_kernel"]) == 9

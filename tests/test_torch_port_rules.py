@@ -3,9 +3,10 @@ package; each kernel wrapper takes its plain version for a CPU tensor
 (launch counter untouched) and raises, never falls back, for a tensor it
 cannot launch on; off the CPU a wrapper refuses inputs that require grad
 under grad mode (its output would carry no autograd history), so
-gradients reach the kernels only through the autograd Functions, and the
-forward-only k-NN (tau) wrappers name the backward kernel still missing;
-chip_smoke.py fails without a card."""
+gradients reach the kernels only through the autograd Functions, and each
+forward wrapper names the Function that differentiates through it; the
+Functions, too, take the plain versions for CPU tensors and never fall
+back for others; chip_smoke.py fails without a card."""
 
 import ast
 import os
@@ -19,16 +20,28 @@ import torch
 import cofii2p_tpu_torch
 from cofii2p_tpu_torch.ops.attention_kernel import fused_attention
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
+    BandedKPConvFn,
+    BandedKPConvTauFn,
     banded_kpconv_aggregate_fused,
     banded_kpconv_aggregate_tau,
+    banded_kpconv_apply,
     banded_kpconv_fused,
     banded_kpconv_fused_tau,
+    banded_kpconv_tau_apply,
+    banded_kpconv_transpose_dyn_fused,
     banded_kpconv_transpose_fused,
+    banded_kpconv_transpose_tau_fused,
 )
 from cofii2p_tpu_torch.ops.maxpool_kernel import (
+    BandedMaxpoolFn,
+    BandedMaxpoolTauFn,
+    banded_maxpool_apply,
+    banded_maxpool_backward_dyn_fused,
     banded_maxpool_backward_fused,
+    banded_maxpool_backward_tau_fused,
     banded_maxpool_fused,
     banded_maxpool_tau,
+    banded_maxpool_tau_apply,
     banded_maxpool_tie_count_fused,
 )
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
@@ -149,6 +162,46 @@ def _maxpool_tau(device, dtype=torch.float32, grad=False):
     return lambda: banded_maxpool_tau(f, pts, pts, tau, 128, 64)
 
 
+def _starts(device):
+    return torch.zeros(1, 2, dtype=torch.int32).to(device)
+
+
+def _transpose_dyn(device, dtype=torch.float32, grad=False):
+    g, pts, _ = _inputs(device, dtype, False)
+    gw = torch.randn(1, 256, 15, 8, generator=g).to(device).requires_grad_(grad)
+    return lambda: banded_kpconv_transpose_dyn_fused(gw, pts, pts, _starts(device), 0.85, 0.4, 15, 128, 64)
+
+
+def _transpose_tau(device, dtype=torch.float32, grad=False):
+    g, pts, _, tau, kp = _tau_args(device, dtype, False)
+    gw = torch.randn(1, 256, 15, 8, generator=g).to(device).requires_grad_(grad)
+    return lambda: banded_kpconv_transpose_tau_fused(gw, pts, pts, tau, kp, 0.85, 0.4, 15, 128, 64)
+
+
+def _tie_count_dyn(device, dtype=torch.float32, grad=False):
+    _, pts, f, out = _pooled(device, dtype, grad)
+    return lambda: banded_maxpool_tie_count_fused(f, pts, pts, out, 1.0, 128, 64, _starts(device))
+
+
+def _tie_count_tau(device, dtype=torch.float32, grad=False):
+    _, pts, f, tau, _ = _tau_args(device, dtype, grad)
+    out = torch.randn(1, 256, 8, generator=torch.Generator().manual_seed(1)).to(device, dtype)
+    return lambda: banded_maxpool_tie_count_fused(f, pts, pts, out, 0.0, 128, 64, tau=tau)
+
+
+def _maxpool_bwd_dyn(device, dtype=torch.float32, grad=False):
+    g, pts, f, out = _pooled(device, dtype, grad)
+    gs = torch.randn(1, 256, 8, generator=g).to(device)
+    return lambda: banded_maxpool_backward_dyn_fused(gs, f, pts, pts, out, _starts(device), 1.0, 128, 64)
+
+
+def _maxpool_bwd_tau(device, dtype=torch.float32, grad=False):
+    g, pts, f, tau, _ = _tau_args(device, dtype, grad)
+    out = torch.randn(1, 256, 8, generator=g).to(device, dtype)
+    gs = torch.randn(1, 256, 8, generator=g).to(device)
+    return lambda: banded_maxpool_backward_tau_fused(gs, f, pts, pts, out, tau, 128, 64)
+
+
 def _attention(device, dtype=torch.float32, grad=False):
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 32, generator=g).to(device, dtype).requires_grad_(grad)
@@ -163,11 +216,18 @@ WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool
             "maxpool_bwd": (banded_maxpool_backward_fused, _maxpool_bwd),
             "knn_tau": (banded_knn_tau_kernel, _knn_tau), "kpconv_tau": (banded_kpconv_fused_tau, _kpconv_tau),
             "kpconv_aggregate_tau": (banded_kpconv_aggregate_tau, _aggregate_tau),
-            "maxpool_tau": (banded_maxpool_tau, _maxpool_tau)}
+            "maxpool_tau": (banded_maxpool_tau, _maxpool_tau),
+            "kpconv_transpose_dyn": (banded_kpconv_transpose_dyn_fused, _transpose_dyn),
+            "kpconv_transpose_tau": (banded_kpconv_transpose_tau_fused, _transpose_tau),
+            "maxpool_count_dyn": (banded_maxpool_tie_count_fused, _tie_count_dyn),
+            "maxpool_count_tau": (banded_maxpool_tie_count_fused, _tie_count_tau),
+            "maxpool_bwd_dyn": (banded_maxpool_backward_dyn_fused, _maxpool_bwd_dyn),
+            "maxpool_bwd_tau": (banded_maxpool_backward_tau_fused, _maxpool_bwd_tau)}
 # tau is a function of coordinates only: it has no input to refuse
 GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau"})
-# the forward-only wrappers and the backward kernel each still waits for
-TAU_BACKWARDS = {"kpconv_tau": "#11", "kpconv_aggregate_tau": "#11", "maxpool_tau": "#15"}
+# the k-NN forward wrappers and the autograd Function each names
+TAU_BACKWARDS = {"kpconv_tau": "BandedKPConvTauFn", "kpconv_aggregate_tau": "BandedKPConvTauFn",
+                 "maxpool_tau": "BandedMaxpoolTauFn"}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
@@ -208,10 +268,65 @@ def test_non_cpu_tensor_requiring_grad_is_refused(name):
 
 @pytest.mark.parametrize("name", sorted(TAU_BACKWARDS))
 def test_tau_wrappers_name_their_missing_backward(name):
+    """The k-NN forward wrappers refuse an input that requires grad and
+    name the autograd Function that differentiates through them."""
     wrapper, make = WRAPPERS[name]
     with pytest.raises(RuntimeError, match=TAU_BACKWARDS[name]):
         make("meta", grad=True)()
     assert wrapper.launches == 0
+
+
+def _fn_kpconv(device):
+    g, pts, f = _inputs(device, torch.float32, True)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_kpconv_apply(f, pts, pts, w, 0.85, 0.4, 15, 128, 64)
+
+
+def _fn_kpconv_dyn(device):
+    g, pts, f = _inputs(device, torch.float32, True)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_kpconv_apply(f, pts, pts, w, 0.85, 0.4, 15, 128, 64, starts=_starts(device))
+
+
+def _fn_kpconv_tau(device):
+    g, pts, f, tau, kp = _tau_args(device, torch.float32, True)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_kpconv_tau_apply(f, pts, pts, w, tau, kp, 0.85, 0.4, 15, 128, 64)
+
+
+def _fn_maxpool(device):
+    _, pts, f = _inputs(device, torch.float32, True)
+    return lambda: banded_maxpool_apply(f, pts, pts, 1.0, 128, 64, _starts(device))
+
+
+def _fn_maxpool_tau(device):
+    _, pts, f, tau, _ = _tau_args(device, torch.float32, True)
+    return lambda: banded_maxpool_tau_apply(f, pts, pts, tau, 128, 64)
+
+
+FUNCTIONS = {"kpconv": (BandedKPConvFn, _fn_kpconv), "kpconv_dyn": (BandedKPConvFn, _fn_kpconv_dyn),
+             "kpconv_tau": (BandedKPConvTauFn, _fn_kpconv_tau), "maxpool_dyn": (BandedMaxpoolFn, _fn_maxpool),
+             "maxpool_tau": (BandedMaxpoolTauFn, _fn_maxpool_tau)}
+
+
+@pytest.mark.parametrize("name", sorted(FUNCTIONS))
+def test_functions_take_plain_versions_on_cpu_and_never_fall_back(name):
+    """Differentiated, the model's dispatchers go through the autograd
+    Functions: on CPU tensors their forward and backward run the plain
+    versions (every launch counter stays 0); on a tensor that is not on the
+    CPU (a meta tensor) the forward goes to the kernel path, which raises."""
+    fn, make = FUNCTIONS[name]
+    wrappers = [w for w, _ in WRAPPERS.values()]
+    for w in wrappers:
+        w.launches = 0
+    res = make("cpu")()
+    out = res[0] if isinstance(res, tuple) else res
+    assert out.grad_fn.name().startswith(fn.__name__)
+    out.sum().backward()
+    assert all(w.launches == 0 for w in wrappers)
+    with pytest.raises(ValueError):
+        make("meta")()
+    assert all(w.launches == 0 for w in wrappers)
 
 
 def test_chip_smoke_fails_without_card_and_alone(tmp_path):

@@ -4,7 +4,12 @@ Same numpy frames and weights on both sides (weights from a JAX
 ``model.init`` through utils/convert.py, norm scales and BatchNorm
 statistics perturbed), and JAX's own random draws replayed into the port
 (tests/torch_parity.py::replay_train_draws).  On the CPU the port's
-autograd Functions run the kernels' plain versions.
+autograd Functions run the kernels' plain versions.  The one-step parity
+runs three configurations: the static bands; dynamic windows narrower than
+their levels (``kpconv_dynamic_plan``; ``--fast``'s w256 plan turns every
+TinyConfig entry into the static band, so it would test nothing here);
+and the k-NN semantics (``kpconv_impl='banded_knn'``) with every KPConv's
+kernel points rotated and jittered, as a reference checkpoint has them.
 
 Tolerances: the training fields of sample prep exactly equal; one train
 step's losses 1e-4 (relative, rms-floored) and every parameter gradient
@@ -31,22 +36,36 @@ from cofii2p_tpu_torch import train_lib
 from cofii2p_tpu_torch.data.device_pipeline import masked_choice
 from cofii2p_tpu_torch.models.kpconv import norm_cancelled_biases
 from cofii2p_tpu_torch.models.network import CoFiI2P
+from cofii2p_tpu_torch.ops.banded import banded_pair_count, kernel_reach
 from cofii2p_tpu_torch.utils.convert import jax_to_state_dict, load_jax_params
 from tests.torch_parity import (
-    cfg_pair, host_batch, jax_variables, rel_err, replay_prep_draws, replay_train_draws, to_torch,
+    cfg_pair, config_fields, host_batch, jax_variables, per_layer_kernel_points, rel_err, replay_prep_draws,
+    replay_train_draws, to_torch,
 )
 
 STEP, B = 3, 2
+# the one-step parity's configurations (TinyConfig overrides)
+CASES = {
+    "static": {},
+    "windows": dict(kpconv_dynamic_plan=(0, 128, 64, 32, 0)),
+    "knn": dict(kpconv_impl="banded_knn", kpconv_shared_influence=False),
+}
 TRAIN_FIELDS = ("pc_kpt_idx", "kpt_valid", "pc_outline_idx", "coarse_img_mask", "coarse_img_kpt_idx",
                 "coarse_img_outline_index", "fine_xy_coors", "fine_center_kpt_coors", "relative_index",
                 "fine_pc_inline_index")
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg, tcfg = cfg_pair("TinyConfig")
+_SETUPS = {}
+
+
+def _setup(case):
+    if case in _SETUPS:
+        return _SETUPS[case]
+    jcfg, tcfg = cfg_pair("TinyConfig", **CASES[case])
     hb = host_batch(jcfg, B, start=2)
     jmodel, params, stats = jax_variables(jcfg, hb, seed=2)
+    if case == "knn":
+        params = per_layer_kernel_points(params)
     rng = jax.random.PRNGKey(11)
     prep_rng, _ = jax.random.split(jax.random.fold_in(rng, STEP))
     jbatch = j_prepare(*(jnp.asarray(hb[k]) for k in ("pc", "attrs", "P", "K")), prep_rng,
@@ -66,11 +85,23 @@ def setup():
     }
     tmodel = load_jax_params(CoFiI2P(tcfg), params, stats)
     tbatch = train_lib.prepare_batch(tcfg, to_torch(hb), replay_train_draws(jcfg, rng, STEP, B))
-    return jcfg, tcfg, hb, jmodel, params, stats, jbatch, want, tmodel, tbatch
+    _SETUPS[case] = jcfg, tcfg, hb, jmodel, params, stats, jbatch, want, tmodel, tbatch
+    return _SETUPS[case]
 
 
-def test_prepare_samples_training_fields(setup):
-    _, _, _, _, _, _, jbatch, _, _, tbatch = setup
+@pytest.fixture(scope="module", params=sorted(CASES))
+def setup(request):
+    """One JAX train step per configuration, compiled once for the module."""
+    return _setup(request.param)
+
+
+@pytest.fixture(scope="module")
+def static_setup():
+    return _setup("static")
+
+
+def test_prepare_samples_training_fields(static_setup):
+    _, _, _, _, _, _, jbatch, _, _, tbatch = static_setup
     for key in TRAIN_FIELDS:
         np.testing.assert_array_equal(tbatch[key].numpy(), np.asarray(jbatch[key]), err_msg=key)
     np.testing.assert_allclose(tbatch["K_4"].numpy(), np.asarray(jbatch["K_4"]), rtol=1e-6)
@@ -111,6 +142,7 @@ def test_train_step_gradients(setup, step_result):
     _, grads = step_result
     ref = {n: want["grads"][n] for n in grads}
     assert all(float(g.abs().max()) == 0.0 for n, g in want["grads"].items() if n.endswith("kernel_points"))
+    assert not any(n.endswith("kernel_points") for n in grads)  # a frozen buffer in the port
     cancelled = set(norm_cancelled_biases(tmodel))
     assert len(cancelled) == 4
     rms_all = float(torch.cat([r.flatten() for r in ref.values()]).pow(2).mean().sqrt())
@@ -136,8 +168,8 @@ def test_train_step_batchnorm_statistics(setup, step_result):
         assert rel_err(sd[k], want["stats"][k]) <= 1e-4, k
 
 
-def test_eval_step_matches_jax(setup):
-    jcfg, tcfg, hb, jmodel, params, stats, _, _, _, _ = setup
+def test_eval_step_matches_jax(static_setup):
+    jcfg, tcfg, hb, jmodel, params, stats, _, _, _, _ = static_setup
     rng = jax.random.PRNGKey(5)
     state = jtl.TrainState(params, stats, None, jnp.asarray(0, jnp.int32))
     want = jax.device_get(jtl.make_eval_step(jcfg, jmodel)(state, {k: jnp.asarray(v) for k, v in hb.items()}, rng))
@@ -204,10 +236,67 @@ def test_train_cli_writes_and_resumes_a_checkpoint(tmp_path):
 
 
 def test_train_cli_refuses_fast_and_a_missing_card():
+    """The trainer runs on the card unless asked for the CPU, with or
+    without --fast (which no longer refuses by itself)."""
     from cofii2p_tpu_torch import train
 
-    with pytest.raises(NotImplementedError, match="#10"):
-        train.main(["tiny", "--synthetic", "--fast", "--device", "cpu"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            train.main(["tiny", "--synthetic", "--steps", "1"])
+        for extra in ([], ["--fast"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                train.main(["tiny", "--synthetic", "--steps", "1"] + extra)
+
+
+def test_windows_case_drops_pairs():
+    """The windows case is no static plan in disguise: its windows leave
+    out in-reach pairs that the whole support level holds."""
+    _, _, _, _, _, _, _, _, tmodel, tbatch = _setup("windows")
+    fpn, pts = tmodel.pc_encoder, tbatch["points"]
+    pairs = [(0, 0, 1, True)] + [(lvl, sl, 2 ** sl, sl == lvl) for lvl in range(1, 5) for sl in (lvl - 1, lvl)]
+    dropped, windowed = 0, 0
+    for lvl, sl, scale, is_self in pairs:
+        starts = fpn.starts_for(pts[lvl], pts[sl], sl, scale, is_self)
+        if starts is None:
+            continue
+        windowed += 1
+        r_act = kernel_reach(fpn.r * scale, fpn.s * scale, fpn.kernel_size)
+        win = banded_pair_count(pts[lvl], pts[sl], r_act, fpn.tile, fpn.dyn_w(sl, is_self), starts)
+        whole = banded_pair_count(pts[lvl], pts[sl], r_act, fpn.tile, pts[sl].shape[1])
+        assert (win <= whole).all()
+        dropped += int((whole - win).sum())
+    assert windowed == 6 and dropped > 0
+
+
+def _cli_common(tmp_path):
+    return ["tiny", "--synthetic", "--synthetic_frames", "8", "--batch_size", "2", "--device", "cpu",
+            f"root_path={tmp_path}", "num_workers=2"]
+
+
+@pytest.mark.parametrize("overrides", [[], ["kpconv_dynamic_plan=0,128,64,32,0"]])
+def test_train_cli_fast_applies_with_fast_windows(tmp_path, monkeypatch, overrides):
+    """--fast takes JAX's with_fast_windows of the same overrides: the w256
+    plan fitted to the levels (all static at TinyConfig), and an explicit
+    window plan wins; two steps run and save a checkpoint."""
+    import cofii2p_tpu.config as jconfig
+    from cofii2p_tpu_torch import train
+    from cofii2p_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    seen = []
+    monkeypatch.setattr(train, "CoFiI2P", lambda cfg: seen.append(cfg) or CoFiI2P(cfg))
+    save_dir = train.main(_cli_common(tmp_path) + ["--fast", "--steps", "2"] + overrides)
+    keys = [a for a in _cli_common(tmp_path) if "=" in a] + overrides
+    want = jconfig.with_fast_windows(jconfig.apply_overrides(jconfig.get_config("tiny"), keys))
+    assert config_fields(seen[0]) == config_fields(want)
+    assert latest_checkpoint(save_dir).endswith("step_00000002.pt")
+
+
+def test_train_cli_trains_banded_knn(tmp_path):
+    """kpconv_impl=banded_knn trains two steps; a k-NN window plan is
+    forward-only and refuses the differentiated step, as in JAX."""
+    from cofii2p_tpu_torch import train
+    from cofii2p_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    save_dir = train.main(_cli_common(tmp_path) + ["kpconv_impl=banded_knn", "--steps", "2"])
+    assert latest_checkpoint(save_dir).endswith("step_00000002.pt")
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        train.main(_cli_common(tmp_path) + ["kpconv_impl=banded_knn", "kpconv_knn_window_plan=0,128,0,0,0",
+                                            "--steps", "1"])

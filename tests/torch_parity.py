@@ -87,6 +87,21 @@ def jax_variables(jcfg, hb: dict, seed: int = 0):
     return model, params, stats
 
 
+def per_layer_kernel_points(params, seed=0):
+    """Each KPConv's kernel points rotated and jittered independently
+    (utils/convert.py::jittered_kernel_points), in a JAX parameter tree."""
+    from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def perturb(path, x):
+        if "kernel_points" not in jax.tree_util.keystr(path):
+            return np.asarray(x)
+        return jittered_kernel_points(torch.tensor(np.asarray(x)), gen).numpy()
+
+    return jax.tree_util.tree_map_with_path(perturb, params)
+
+
 def replay_prep_draws(jcfg, prep_rng, batch: int) -> dict:
     """JAX's random draws of one prepare_samples call, replayed from its key
     splits (device_pipeline.py:56,103-116,183-184, pyramid.py:121-123): the
@@ -139,8 +154,13 @@ def lidar_cloud(n, rng, extent=40.0, far=0):
     return pts.astype(np.float32)
 
 
+def ordered_idx(pts):
+    """The JAX package's Morton order of a cloud."""
+    return np.asarray(morton_order(jnp.asarray(pts), ordering="xz"))
+
+
 def ordered(pts):
-    return pts[np.asarray(morton_order(jnp.asarray(pts), ordering="xz"))]
+    return pts[ordered_idx(pts)]
 
 
 def config_fields(cfg) -> dict:
