@@ -25,10 +25,16 @@ the last line):
            training (tau transpose, tau maxpool backward, the tie count by
            tau) on the k-NN pairs' static bands: tie counts bit-equal,
            transposes rel <= 1e-4, maxpool backwards rel <= 1e-5, the window
-           scatter bit-equal on the kernel's own stack; the kernel's and the
-           plain version's time (CUDA events) and the least time the card
-           could take for the same work (the larger of bytes over 3.35 TB/s
-           and operations over the peak rate of their type)
+           scatter bit-equal on the kernel's own stack; the fused residual
+           band pass (#16) at the four strided blocks' serving shapes (bf16,
+           w192) and the three fp32 static ones it takes, on clouds with
+           duplicated points: counts equal and shortcuts bit-equal to the
+           plain version and to the pair it fuses (#1 then #3), the conv
+           bit-equal to #1's and within #1's thresholds of the plain
+           version, with the pair's time beside the kernel's; the kernel's
+           and the plain version's time (CUDA events) and the least time
+           the card could take for the same work (the larger of bytes over
+           3.35 TB/s and operations over the peak rate of their type)
   fp32     the whole forward at B=1 in fp32 through the kernels and through
            the plain versions: FPN and transformer outputs agree
   grad     one fp32 train step at B=1 on a KITTI-scale frame through the
@@ -47,6 +53,14 @@ the last line):
            correspondences, on which the JAX package's ransac_pnp itself
            returns NaN poses for some frames; those are counted, not
            failed.
+  serve_resfuse  serve with kpconv_residual_fused=True (same seeded
+           weights): launches per forward (4 fused strided blocks, 10
+           KPConvs, no separate maxpool), the same output checks and
+           frames/s; then one B=8 forward with and without the flag on the
+           same frames and draws (FPN outputs within 1e-3, the 4 shortcuts
+           bit-equal), and one B=1 fp32 static-band forward with the flag
+           through the kernels (3 fused blocks) and through
+           kpconv_kernel='xla' (outputs within 1e-3).
   train    `python -m cofii2p_tpu_torch.train kitti --synthetic --steps 4
            --batch_size 8` through train.main (fp32, static bands, full
            KITTI width, val at step 4): launches per step of each kernel,
@@ -89,15 +103,19 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "train", "t7", "train_fast", "train_knn")
+PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "serve_resfuse", "train", "t7", "train_fast",
+          "train_knn")
 BATCH = 8
 REQUESTS = 3
 TRAIN_STEPS = 4
-PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16}
+PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0}
+# with kpconv_residual_fused: the 4 strided blocks' conv and shortcut in one
+# pass each (all fit residual_fused_fits in bf16 at w192), the other 10 convs
+PER_RESFUSE_FORWARD = {"residual_fused": 4, "kpconv_fused": 10, "maxpool": 0, "attention": 16}
 # launches per train step: 14 KPConvs forward, 13 feature gradients (not
 # encoder1_1's, whose input needs none), 4 strided shortcuts forward and
 # backward; no fused KPConv and no fused attention while differentiating
-NOT_TRAINED = {"kpconv_fused": 0, "attention": 0, "kpconv_fused_tau": 0}
+NOT_TRAINED = {"kpconv_fused": 0, "attention": 0, "kpconv_fused_tau": 0, "residual_fused": 0}
 PER_STEP = {"kpconv_aggregate": 14, "kpconv_transpose": 13, "maxpool": 4, "maxpool_count": 4, "maxpool_bwd": 4,
             "kpconv_transpose_dyn": 0, "maxpool_bwd_dyn": 0, "knn_tau": 0, "kpconv_aggregate_tau": 0,
             **NOT_TRAINED}
@@ -119,7 +137,7 @@ PER_KNN_STEP = {"knn_tau": 9, "kpconv_aggregate_tau": 14, "kpconv_transpose_tau"
 # Cin = 512 ones on the aggregate kernel, 4 strided shortcuts, 16 attention
 # calls; none of the radius kernels
 PER_T7_FORWARD = {"knn_tau": 9, "kpconv_fused_tau": 12, "kpconv_aggregate_tau": 2, "maxpool_tau": 4, "attention": 16,
-                  "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0}
+                  "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0, "residual_fused": 0}
 T7_DUMP_KEYS = {"GT_P", "pred_P", "K", "fine_xy", "corr_mask", "object_points", "superpoints_score"}
 KERNELS = {
     "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
@@ -137,6 +155,7 @@ KERNELS = {
     "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:826"),
     "maxpool_bwd_dyn": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:452"),
     "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
+    "residual_fused": ("cofii2p_tpu_torch/csrc/residual_fused.cu", "cofii2p_tpu/ops/residual_kernel.py:386"),
 }
 # the path whose launch counts the summary reports for each kernel
 SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention")
@@ -144,6 +163,7 @@ TRAIN_KERNELS = ("kpconv_aggregate", "kpconv_transpose", "maxpool_count", "maxpo
 T7_KERNELS = ("knn_tau", "kpconv_aggregate_tau", "kpconv_fused_tau", "maxpool_tau")
 FAST_KERNELS = ("kpconv_transpose_dyn", "maxpool_bwd_dyn")
 KNN_TRAIN_KERNELS = ("kpconv_transpose_tau", "maxpool_bwd_tau")
+SERVE_RESFUSE_KERNELS = ("residual_fused",)
 
 
 def wrappers():
@@ -151,6 +171,7 @@ def wrappers():
     from cofii2p_tpu_torch.ops import attention_kernel as att
     from cofii2p_tpu_torch.ops import kpconv_kernel as kpk
     from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
+    from cofii2p_tpu_torch.ops import residual_kernel as rk
     from cofii2p_tpu_torch.ops import tau_kernel as tk
 
     return {"kpconv_fused": kpk.banded_kpconv_fused, "maxpool": mpk.banded_maxpool_fused,
@@ -162,7 +183,8 @@ def wrappers():
             "kpconv_transpose_dyn": kpk.banded_kpconv_transpose_dyn_fused,
             "kpconv_transpose_tau": kpk.banded_kpconv_transpose_tau_fused,
             "maxpool_bwd_dyn": mpk.banded_maxpool_backward_dyn_fused,
-            "maxpool_bwd_tau": mpk.banded_maxpool_backward_tau_fused}
+            "maxpool_bwd_tau": mpk.banded_maxpool_backward_tau_fused,
+            "residual_fused": rk.banded_residual_fused}
 
 
 def reset_launches():
@@ -356,6 +378,7 @@ def check_kernels(device, gen, tally):
     check_training_kernels(device, gen, tally, cfg)
     check_knn_kernels(device, gen, tally, cfg)
     check_window_and_tau_backward_kernels(device, gen, tally, cfg)
+    check_residual_kernel(device, gen, tally, cfg)
 
 
 def check_training_kernels(device, gen, tally, cfg):
@@ -742,6 +765,68 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
         del f, out, ref, cnt, gs, got
 
 
+def check_residual_kernel(device, gen, tally, cfg):
+    """Kernel #16 against its plain version and against the pair it fuses
+    (#1 then #3, kernel_bench.unfused_pair) on the same inputs, B=8, on
+    clouds with duplicated points so that maxima tie: the four strided
+    blocks at the serving shapes (bf16; w192 windows on support levels 1-3,
+    the static band on level 0) and the three the fp32 static plan fuses.
+    Counts equal and shortcuts bit-equal to both; the conv bit-equal to
+    #1's, since it is #1's code at #1's block size (csrc/kpconv_fused.cuh),
+    and within #1's thresholds of the plain version (fp32 rel <= 1e-3,
+    bf16 rel <= 5e-2)."""
+    import torch
+
+    from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN
+    from cofii2p_tpu_torch.ops.banded import dynamic_band_starts, kernel_reach
+    from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_fused, banded_residual_fused_plain
+    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, time_ms, unfused_pair
+
+    b, r0, s0, plan = BATCH, cfg.init_radius, cfg.init_sigma, cfg.kpconv_band_plan
+    levels, idents = pyramid_with_duplicates(cfg.pyramid_sizes, b, gen, device)
+    cases = [(stage, torch.bfloat16, SERVE_DYNAMIC_PLAN[stage - 2]) for stage in range(2, 6)]
+    cases += [(stage, torch.float32, 0) for stage in range(2, 5)]
+    for stage, dtype, width in cases:
+        ql, sl = stage - 1, stage - 2
+        q, s = levels[ql], levels[sl]
+        cin = cfg.kpconv_init_dim * 2 ** (stage - 1)
+        cmid = cin // 4
+        r, sg = r0 * 2**sl, s0 * 2**sl
+        starts, bw = None, plan[sl]
+        if width:  # as KPConvFPN.starts_for places them
+            starts = dynamic_band_starts(q, s, kernel_reach(r, sg), 128, width, "best", max(1, s.shape[1] // 2560))
+            bw = width
+        rows = idents[sl][..., None]
+        fm = torch.gather(torch.randn(b, levels[0].shape[1], cin, generator=gen).to(device), 1,
+                          rows.expand(-1, -1, cin)).to(dtype)  # duplicated points tie
+        fa = torch.gather(torch.randn(b, levels[0].shape[1], cmid, generator=gen).to(device), 1,
+                          rows.expand(-1, -1, cmid)).to(dtype)
+        w = (torch.randn(15, cmid, cmid, generator=gen) / cmid**0.5).to(device)
+        args = (fm, fa, w, q, s, r, sg, 15, 128, bw, dtype, starts)
+        out, cnt, mp = banded_residual_fused(*args)
+        ref, ref_cnt, ref_mp = banded_residual_fused_plain(*args)
+        p_out, p_cnt, p_mp = unfused_pair(*args)
+        torch.cuda.synchronize()
+        name = f"enc{stage}_1 lvl{ql}<-lvl{sl} Cin {cin} Cmid {cmid} {'w%d' % width if width else 'band'} {dtype}"
+        err, tol = rel_err(out, ref), (5e-2 if dtype == torch.bfloat16 else 1e-3)
+        ok = (torch.equal(cnt, ref_cnt) and torch.equal(cnt, p_cnt) and torch.equal(mp, ref_mp)
+              and torch.equal(mp, p_mp) and mp.dtype == dtype and torch.equal(out, p_out) and err <= tol)
+        if not ok:
+            raise PhaseError(f"residual_fused {name}: counts equal to plain {torch.equal(cnt, ref_cnt)} and to #1 "
+                             f"{torch.equal(cnt, p_cnt)}; shortcut bit-equal to plain {torch.equal(mp, ref_mp)} and "
+                             f"to #3 {torch.equal(mp, p_mp)} ({mp.dtype}); conv bit-equal to #1 "
+                             f"{torch.equal(out, p_out)}, rel {err:.3e} vs plain (<= {tol})")
+        k_ms = time_ms(lambda: banded_residual_fused(*args))
+        p_ms = time_ms(lambda: banded_residual_fused_plain(*args), 3)
+        pair_ms = time_ms(lambda: unfused_pair(*args))
+        bd = call_bound("banded_residual_fused", args)
+        tally.add("residual_fused", (out - ref).abs().max().item(), k_ms, p_ms, bd)
+        say("kernels", f"residual_fused {name} B={b} M={q.shape[1]} N={s.shape[1]}: counts equal, shortcut "
+            f"bit-equal to plain and #3, conv bit-equal to #1, rel {err:.2e} vs plain; kernel {k_ms:.3f} ms, "
+            f"pair #1+#3 {pair_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        del fm, fa, out, ref, mp, ref_mp, p_out, p_mp
+
+
 def frames(cfg, count, device, start=0):
     import torch
 
@@ -754,35 +839,47 @@ def frames(cfg, count, device, start=0):
     return {k: torch.as_tensor(v).to(device) for k, v in hb.items()}
 
 
-def check_fp32_path(device, seed):
-    """The whole forward at B=1, fp32: kernels vs plain versions."""
+def fp32_forward(cfg, device, seed):
+    """A B=1 forward of ``cfg`` (fp32, no grad) through the kernels and
+    through the plain versions (kpconv_kernel='xla', attention='full'),
+    same seeded weights and draws.  Returns the kernels' launches and the
+    FPN and transformer outputs' rel errors; fails above 1e-3."""
     import torch
 
-    from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
     from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
     from cofii2p_tpu_torch.evaluation.pipeline import make_draws
     from cofii2p_tpu_torch.models.network import CoFiI2P
     from cofii2p_tpu_torch.utils.convert import randomize
 
-    cfg = KITTIConfig(kpconv_dynamic_plan=SERVE_DYNAMIC_PLAN, kpconv_dynamic_plan_self=SERVE_DYNAMIC_PLAN_SELF,
-                      attention="pallas")
-    plain_cfg = cfg.replace(kpconv_kernel="xla", attention="full")
     gen = torch.Generator().manual_seed(seed)
     model = randomize(CoFiI2P(cfg), gen).to(device).eval()
-    plain = CoFiI2P(plain_cfg).to(device).eval()
+    plain = CoFiI2P(cfg.replace(kpconv_kernel="xla", attention="full")).to(device).eval()
     plain.load_state_dict(model.state_dict())
     hb = frames(cfg, 1, device)
     draws = make_draws(cfg, 1, torch.Generator(device).manual_seed(seed), device)
     batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
     with torch.no_grad():
-        got, ref = model(batch), plain(batch)
+        reset_launches()
+        got = model(batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        ref = plain(batch)
     torch.cuda.synchronize()
     errs = {f"fpn[{i}]": rel_err(g, r) for i, (g, r) in enumerate(zip(got["pc_features"], ref["pc_features"]))}
     errs["transformer_img"] = rel_err(got["img_mid"], ref["img_mid"])
     errs["transformer_pc"] = rel_err(got["pc_fused"], ref["pc_fused"])
-    worst = max(errs.values())
-    if worst > 1e-3:
+    if max(errs.values()) > 1e-3:
         raise PhaseError(f"fp32 kernels vs plain: {errs}")
+    return launches, errs
+
+
+def check_fp32_path(device, seed):
+    """The whole forward at B=1, fp32: kernels vs plain versions."""
+    from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
+
+    cfg = KITTIConfig(kpconv_dynamic_plan=SERVE_DYNAMIC_PLAN, kpconv_dynamic_plan_self=SERVE_DYNAMIC_PLAN_SELF,
+                      attention="pallas")
+    _, errs = fp32_forward(cfg, device, seed)
     say("fp32", "B=1 forward, kernels vs plain versions: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
 
 
@@ -1141,34 +1238,30 @@ def check_pose(device, gen):
         f"max |t - t_gt| {t_err:.4f} m, inliers {res.num_inliers.tolist()}")
 
 
-def serve(device, seed, smi_line, profile=False):
+def serve(device, seed, smi_line, profile=False, residual_fused=False):
     import torch
 
-    from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
     from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body
     from cofii2p_tpu_torch.models.network import CoFiI2P
-    from cofii2p_tpu_torch.ops.attention_kernel import fused_attention
-    from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_fused
-    from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_fused
     from cofii2p_tpu_torch.utils.convert import randomize
+    from cofii2p_tpu_torch.utils.kernel_bench import serve_config
 
-    # bench.py:277-282, the serving configuration
-    cfg = KITTIConfig(compute_dtype="bfloat16", kpconv_dynamic_plan=SERVE_DYNAMIC_PLAN,
-                      kpconv_dynamic_plan_self=SERVE_DYNAMIC_PLAN_SELF, attention="pallas")
+    phase = "serve_resfuse" if residual_fused else "serve"
+    per_forward = PER_RESFUSE_FORWARD if residual_fused else PER_FORWARD
+    cfg = serve_config(residual_fused)
     model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(device).eval()
     run = make_eval_body(cfg, model)
     requests = [frames(cfg, BATCH, device, start=i * BATCH) for i in range(REQUESTS + 1)]
     gen = torch.Generator(device).manual_seed(seed)
     run(requests[0], gen)  # warm-up
     torch.cuda.synchronize()
-    wrappers = {"kpconv_fused": banded_kpconv_fused, "maxpool": banded_maxpool_fused, "attention": fused_attention}
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     outs = [run(hb, gen) for hb in requests[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     if profile:
         from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -1177,41 +1270,134 @@ def serve(device, seed, smi_line, profile=False):
             run(requests[1], gen)
             torch.cuda.synchronize()
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-        with open(os.path.join(OUT_DIR, "serve_profile.txt"), "w") as fh:
+        with open(os.path.join(OUT_DIR, f"{phase}_profile.txt"), "w") as fh:
             fh.write(table)
-        prof.export_chrome_trace(os.path.join(OUT_DIR, "serve_trace.json"))
-        say("serve", "profile of one request written to chiprun_out/serve_profile.txt")
-    for name, n in launches.items():
-        if n == 0:
-            raise PhaseError(f"serve: kernel {name} was never launched on the main path")
-        if n != PER_FORWARD[name] * REQUESTS:
+        prof.export_chrome_trace(os.path.join(OUT_DIR, f"{phase}_trace.json"))
+        say(phase, f"profile of one request written to chiprun_out/{phase}_profile.txt")
+    for name, want in per_forward.items():
+        n = launches[name]
+        if want and n == 0:
+            raise PhaseError(f"{phase}: kernel {name} was never launched on the main path")
+        if n != want * REQUESTS:
             raise PhaseError(
-                f"serve: {name} launched {n} times in {REQUESTS} forwards, expected {PER_FORWARD[name]} each "
-                "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls)"
+                f"{phase}: {name} launched {n} times in {REQUESTS} forwards, expected {want} each "
+                + ("(10 KPConvs, 4 strided blocks' conv and shortcut in one pass, 8 layers x 2 attention calls)"
+                   if residual_fused else "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls)")
             )
     eye = torch.eye(3, device=device)
     nonfinite_pose = 0
     for i, out in enumerate(outs):
         for field, val in out._asdict().items():
             if field not in ("R", "t") and val.is_floating_point() and not torch.isfinite(val).all():
-                raise PhaseError(f"serve: request {i} field {field} has non-finite values")
+                raise PhaseError(f"{phase}: request {i} field {field} has non-finite values")
         finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
         if not finite[out.success].all():
-            raise PhaseError(f"serve: request {i} has a non-finite pose where RANSAC succeeded")
+            raise PhaseError(f"{phase}: request {i} has a non-finite pose where RANSAC succeeded")
         nonfinite_pose += int((~finite).sum())
         orth = (out.R[finite].transpose(-1, -2) @ out.R[finite] - eye).abs().amax().item() if finite.any() else 0.0
         if orth > 1e-3:
-            raise PhaseError(f"serve: request {i} |R^T R - I| = {orth:.2e} > 1e-3")
+            raise PhaseError(f"{phase}: request {i} |R^T R - I| = {orth:.2e} > 1e-3")
         if out.R.shape != (BATCH, 3, 3) or out.fine_xy.shape != (BATCH, cfg.num_superpoints, 2):
-            raise PhaseError(f"serve: request {i} shapes {out.R.shape}, {out.fine_xy.shape}")
+            raise PhaseError(f"{phase}: request {i} shapes {out.R.shape}, {out.fine_xy.shape}")
     fps = REQUESTS * BATCH / dt
     succ = sum(int(o.success.sum()) for o in outs)
-    say("serve", f"{REQUESTS} requests x {BATCH} frames (160x512, 20480 pts), bf16 w192: {fps:.2f} frames/s, "
+    say(phase, f"{REQUESTS} requests x {BATCH} frames (160x512, 20480 pts), bf16 w192"
+        + (", kpconv_residual_fused" if residual_fused else "") + f": {fps:.2f} frames/s, "
         f"{dt / REQUESTS * 1e3:.1f} ms/request, peak {peak:.2f} GiB, launches/forward "
-        + ", ".join(f"{k} {v // REQUESTS}" for k, v in launches.items())
+        + ", ".join(f"{k} {launches[k] // REQUESTS}" for k in per_forward)
         + f"; RANSAC success {succ}/{REQUESTS * BATCH}, non-finite poses {nonfinite_pose} (all without success); "
         f"card {smi_line}")
+    if residual_fused:
+        try:
+            say(phase, check_resfuse_against_pair(cfg, model, requests[1], device, seed))
+            say(phase, check_resfuse_fp32(device, seed))
+        except PhaseError as e:
+            raise PhaseError(f"{phase}: {e}") from None
+    del model, run, requests, outs
+    torch.cuda.empty_cache()
     return launches, fps, peak
+
+
+class captured_outputs:
+    """Within the context, ``outs[name]`` lists what each named kernel
+    wrapper (kernel_bench.kernel_wrappers) returned, in call order."""
+
+    def __init__(self, *names):
+        self.names, self.outs = names, {n: [] for n in names}
+
+    def __enter__(self):
+        from cofii2p_tpu_torch.utils.kernel_bench import kernel_wrappers
+
+        self.patched = []
+        for name in self.names:
+            mod, fn, _ = kernel_wrappers()[name]
+
+            def rec(*a, _fn=fn, _name=name, **kw):
+                res = _fn(*a, **kw)
+                self.outs[_name].append(res)
+                return res
+
+            rec.launches = 0  # the wrapper counts on the attribute it is found by
+            self.patched.append((mod, name, fn))
+            setattr(mod, name, rec)
+        return self.outs
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.patched:
+            setattr(mod, name, fn)
+
+
+def check_resfuse_against_pair(cfg, model, hb, device, seed):
+    """One bf16 B=8 forward of the serving model with the flag and of the
+    same weights without it, on the same frames and draws: FPN outputs
+    within 1e-3 (the fp32 phase's tolerance) and every strided block's
+    shortcut bit-equal (#16's against #3's)."""
+    import torch
+
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+
+    draws = make_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device)
+    batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
+    pair = CoFiI2P(cfg.replace(kpconv_residual_fused=False)).to(device).eval()
+    pair.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        with captured_outputs("banded_residual_fused") as fused:
+            got = model(batch)["pc_features"]
+        with captured_outputs("banded_maxpool_fused") as unfused:
+            ref = pair(batch)["pc_features"]
+    torch.cuda.synchronize()
+    shortcuts = [r[2] for r in fused["banded_residual_fused"]]
+    pooled = unfused["banded_maxpool_fused"]
+    if len(shortcuts) != 4 or len(pooled) != 4:
+        raise PhaseError(f"{len(shortcuts)} fused and {len(pooled)} separate shortcuts per forward, expected 4 each")
+    bad = [i for i, (a, b) in enumerate(zip(shortcuts, pooled)) if not torch.equal(a, b)]
+    if bad:
+        raise PhaseError(f"the shortcuts of strided blocks {[f'encoder{i + 2}_1' for i in bad]} differ from #3's")
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    same = all(torch.equal(g, r) for g, r in zip(got, ref))
+    if max(errs) > 1e-3:
+        raise PhaseError(f"FPN outputs with and without the flag differ: rel {errs} (<= 1e-3)")
+    del pair
+    return (f"B={BATCH} forward with the flag vs without, same weights, frames and draws: 4 strided shortcuts "
+            f"bit-equal to #3's; FPN outputs rel " + ", ".join(f"{e:.2e}" for e in errs)
+            + (" (bit-equal)" if same else ""))
+
+
+def check_resfuse_fp32(device, seed):
+    """A B=1 fp32 forward of KITTIConfig (static bands) with the flag,
+    through the kernels and through kpconv_kernel='xla': encoder2_1-4_1
+    take #16 (encoder5_1's shapes exceed residual_fused_fits, so it runs
+    #1 and #3); FPN and transformer outputs within 1e-3."""
+    from cofii2p_tpu_torch.config import KITTIConfig
+
+    launches, errs = fp32_forward(KITTIConfig(kpconv_residual_fused=True, attention="pallas"), device, seed)
+    if launches["residual_fused"] != 3 or launches["maxpool"] != 1:
+        raise PhaseError(f"fp32 static forward launched residual_fused {launches['residual_fused']} and maxpool "
+                         f"{launches['maxpool']} times, expected 3 and 1")
+    return ("B=1 fp32 static-band forward with the flag, kernels vs kpconv_kernel='xla': residual_fused 3, "
+            f"maxpool 1 launches (encoder5_1 unfused); " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
 
 
 def t7(device, seed, smi_line):
@@ -1419,6 +1605,9 @@ def main():
         if "serve" in phases:
             served, _, _ = run("serve", serve, device, args.seed, smi_line, args.profile)
             launches.update({k: served[k] for k in SERVE_KERNELS})
+        if "serve_resfuse" in phases:
+            served, _, _ = run("serve_resfuse", serve, device, args.seed, smi_line, False, True)
+            launches.update({k: served[k] for k in SERVE_RESFUSE_KERNELS})
         if "train" in phases:
             trained = run("train", train, device, args.seed, smi_line)
             launches.update({k: trained[k] for k in TRAIN_KERNELS})

@@ -16,6 +16,14 @@ aggregate kernel and a matmul, as the JAX package chooses.
 ``kernel='xla'`` calls the plain versions directly under plain autograd,
 as the JAX config's 'xla' selects the XLA twins.
 
+``residual_fused`` (``config.kpconv_residual_fused``): a strided block
+passes its input to its KPConv as ``mp_feats``, and where
+``residual_fused_fits`` admits the shapes the KPConv runs
+ops/residual_kernel.py::banded_residual_apply, which returns the shortcut
+maxpool beside the conv from one band pass (kernel #16; all four strided
+blocks in bf16 serving, encoder2_1..4_1 on the fp32 static plan);
+differentiated, the unfused pair runs, as in the JAX package.
+
 ``impl='banded_knn'`` is the k-NN semantics a reference checkpoint was
 trained with: per (query level, support level) pair one threshold tau per
 query (ops/tau_kernel.py, kernel #5) decides membership d2 <= tau, every
@@ -37,6 +45,7 @@ from torch import nn
 from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
 from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu
 from cofii2p_tpu_torch.ops.banded import (
+    band_plan,
     banded_knn_tau,
     banded_nearest_index,
     dynamic_band_starts,
@@ -56,6 +65,7 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_tau_apply,
     banded_maxpool_tau_plain,
 )
+from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_apply, residual_fused_fits
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
 
 KERNELS = ("auto", "pallas", "xla")
@@ -77,7 +87,10 @@ class KPConv(nn.Module):
     divided by the count, plus bias (kpconv.py:224-299, 355-382).  Under
     ``impl='banded_knn'`` ``tau`` (B, M) is the pair's k-NN threshold
     (computed here over the static band when not given) and the layer's
-    own ``kernel_points`` place the influence.
+    own ``kernel_points`` place the influence.  With ``mp_feats`` (a
+    strided block's input, banded impl, kernels) it returns (out,
+    shortcut): the maxpool of ``mp_feats`` from the fused band pass where
+    ``residual_fused_fits``, else None (kpconv.py:312-353).
     """
 
     def __init__(self, in_channels, out_channels, kernel_size=15, radius=0.425, sigma=0.2,
@@ -95,10 +108,12 @@ class KPConv(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_channels).uniform_(-bound, bound))
         kp = np.asarray(load_kernel_points(radius, kernel_size, 3), np.float32)
         self.register_buffer("kernel_points", torch.as_tensor(kp))
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        self.fused = fused_contraction_fits(kernel_size, in_channels, out_channels, tile, wbytes=itemsize)
+        self.wbytes = torch.empty((), dtype=dtype).element_size()
+        self.fused = fused_contraction_fits(kernel_size, in_channels, out_channels, tile, wbytes=self.wbytes)
 
-    def forward(self, s_feats, q_points, s_points, starts=None, tau=None):
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, mp_feats=None):
+        if mp_feats is not None:
+            return self._residual(s_feats, q_points, s_points, starts, mp_feats)
         if self.impl == "banded_knn":
             if tau is None:
                 tau = knn_tau(self.kernel, q_points, s_points, self.knn_k, self.tile, self.band_width)
@@ -111,6 +126,18 @@ class KPConv(nn.Module):
             plain, apply = banded_kpconv_fused_plain, banded_kpconv_apply
         out, count = plain(*args) if self.kernel == "xla" else apply(*args, fused=self.fused)
         return out / count[..., None].to(out.dtype) + self.bias
+
+    def _residual(self, s_feats, q_points, s_points, starts, mp_feats):
+        band = band_plan(q_points.shape[1], s_points.shape[1], self.tile, self.band_width, starts)[2]
+        cin, cout = self.weights.shape[1:]
+        if not (self.fused and residual_fused_fits(self.kernel_size, cin, cout, mp_feats.shape[-1], band, self.tile,
+                                                   self.wbytes, mp_feats.element_size())):
+            return self.forward(s_feats, q_points, s_points, starts), None
+        out, count, shortcut = banded_residual_apply(
+            mp_feats, s_feats, self.weights, q_points, s_points, self.radius, self.sigma, self.kernel_size,
+            self.tile, self.band_width, self.dtype, starts,
+        )
+        return out / count[..., None].to(out.dtype) + self.bias, shortcut
 
 
 class UnaryBlock(nn.Module):
@@ -145,15 +172,18 @@ class ConvBlock(nn.Module):
 class ResidualBlock(nn.Module):
     """Bottleneck residual KPConv block; a strided block's shortcut is the
     banded maxpool of its input, over {d2 <= tau} under ``impl=
-    'banded_knn'`` (reference modules.py:162-240; kpconv.py:599-632)."""
+    'banded_knn'`` (reference modules.py:162-240; kpconv.py:539-632).
+    ``residual_fused`` requests the fused band pass, which a strided banded
+    block on the kernels takes (kpconv.py:543-554)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm=32,
                  strided=False, dtype=torch.float32, tile=128, band_width=1024, kernel="auto",
-                 impl="banded", knn_k=128):
+                 impl="banded", knn_k=128, residual_fused=False):
         super().__init__()
         mid = out_channels // 4
         self.strided, self.tile, self.band_width, self.kernel = strided, tile, band_width, kernel
         self.impl, self.knn_k = impl, knn_k
+        self.residual_fused = residual_fused and strided and impl == "banded" and kernel != "xla"
         self.r_active = kernel_reach(radius, sigma, kernel_size)
         self.unary1 = (
             UnaryBlock(in_channels, mid, group_norm, dtype=dtype) if in_channels != mid else None
@@ -169,18 +199,23 @@ class ResidualBlock(nn.Module):
 
     def forward(self, s_feats, q_points, s_points, starts=None, tau=None):
         x = s_feats if self.unary1 is None else self.unary1(s_feats)
-        x = self.KPConv(x, q_points, s_points, starts, tau)
-        x = self.unary2(leaky_relu(self.norm_conv(x)))
-        if self.strided and self.impl == "banded_knn":
-            if tau is None:
-                tau = knn_tau(self.kernel, q_points, s_points, self.knn_k, self.tile, self.band_width)
-            fn = banded_maxpool_tau_plain if self.kernel == "xla" else banded_maxpool_tau_apply
-            shortcut = fn(s_feats, q_points, s_points, tau, self.tile, self.band_width, starts)
-        elif self.strided:
-            fn = banded_maxpool_plain if self.kernel == "xla" else banded_maxpool_apply
-            shortcut = fn(s_feats, q_points, s_points, self.r_active, self.tile, self.band_width, starts)
+        shortcut = None
+        if self.residual_fused:
+            x, shortcut = self.KPConv(x, q_points, s_points, starts, tau, mp_feats=s_feats)
         else:
+            x = self.KPConv(x, q_points, s_points, starts, tau)
+        x = self.unary2(leaky_relu(self.norm_conv(x)))
+        if not self.strided:
             shortcut = s_feats
+        elif shortcut is None:  # not from the fused band pass
+            if self.impl == "banded_knn":
+                if tau is None:
+                    tau = knn_tau(self.kernel, q_points, s_points, self.knn_k, self.tile, self.band_width)
+                fn = banded_maxpool_tau_plain if self.kernel == "xla" else banded_maxpool_tau_apply
+                shortcut = fn(s_feats, q_points, s_points, tau, self.tile, self.band_width, starts)
+            else:
+                fn = banded_maxpool_plain if self.kernel == "xla" else banded_maxpool_apply
+                shortcut = fn(s_feats, q_points, s_points, self.r_active, self.tile, self.band_width, starts)
         if self.unary_shortcut is not None:
             shortcut = self.unary_shortcut(shortcut)
         return leaky_relu(x + shortcut)
@@ -227,7 +262,7 @@ class KPConvFPN(nn.Module):
                  init_sigma=0.2, group_norm=32, dtype=torch.float32, tile=128, band_width=1024,
                  band_plan=None, kernel="auto", dynamic_plan=None, dynamic_plan_self=None,
                  dynamic_center="best", impl="banded", knn_k=128, knn_window_plan=None,
-                 shared_influence=True):
+                 shared_influence=True, residual_fused=False):
         super().__init__()
         d, ks, r, s = init_dim, kernel_size, init_radius, init_sigma
         self.tile, self.band_width, self.band_plan = tile, band_width, band_plan
@@ -244,7 +279,8 @@ class KPConvFPN(nn.Module):
             rs, rc = r * 2 ** (stage - 2), r * 2 ** (stage - 1)
             ss, sc = s * 2 ** (stage - 2), s * 2 ** (stage - 1)
             setattr(self, f"encoder{stage}_1", ResidualBlock(
-                cin, cin, ks, rs, ss, strided=True, band_width=self._bw_for(lvl - 1, False), **common))
+                cin, cin, ks, rs, ss, strided=True, band_width=self._bw_for(lvl - 1, False),
+                residual_fused=residual_fused, **common))
             setattr(self, f"encoder{stage}_2", ResidualBlock(
                 cin, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), **common))
             setattr(self, f"encoder{stage}_3", ResidualBlock(

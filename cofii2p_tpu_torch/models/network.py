@@ -102,8 +102,6 @@ class CoFiI2P(nn.Module):
                 "maxpool_compact_plan / aggregate_compact_plan: the compacted formulations are ROADMAP "
                 "queue 1 item 11 (alternate paths)"
             )
-        if cfg.kpconv_residual_fused:
-            raise NotImplementedError("kpconv_residual_fused: the fused residual band pass (#16) is not ported")
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.pc_encoder = KPConvFPN(
@@ -115,6 +113,7 @@ class CoFiI2P(nn.Module):
             dynamic_plan=cfg.kpconv_dynamic_plan, dynamic_plan_self=cfg.kpconv_dynamic_plan_self,
             dynamic_center=cfg.kpconv_dynamic_center, impl=cfg.kpconv_impl, knn_k=cfg.neighbor_num,
             knn_window_plan=cfg.kpconv_knn_window_plan, shared_influence=cfg.kpconv_shared_influence,
+            residual_fused=cfg.kpconv_residual_fused,
         )
         stage_sizes = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}[cfg.img_backbone]
         self.img_encoder = ResNetEncoder(stage_sizes, dtype=dtype)

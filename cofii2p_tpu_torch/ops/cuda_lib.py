@@ -70,6 +70,9 @@ SIGNATURES = {
     "maxpool_bwd_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "band_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "residual_fused_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _F, _P],
 }
 
 _lock = threading.Lock()

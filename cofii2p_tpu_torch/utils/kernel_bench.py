@@ -1,10 +1,13 @@
 """Per-call times of the port's CUDA kernels on the serving, training or
 `.t7` eval path.
 
-    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|train|fast|knn_train|t7] [--batch 8] [--reps 10]
+    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|resfuse|train|fast|knn_train|t7] [--batch 8] [--reps 10]
 
 ``serve`` runs one forward of bench.py's serving config (bf16 w192,
-fused attention); ``train`` one fp32 training step of the default
+fused attention); ``resfuse`` the same with ``kpconv_residual_fused=True``
+(each strided block's conv and shortcut in one pass, kernel #16, whose
+lines also give the time of the unfused pair, #1 and #3, on the same
+inputs); ``train`` one fp32 training step of the default
 KITTIConfig (static bands), forward and backward; ``fast`` the same step
 with ``train --fast``'s w256 dynamic windows (config.with_fast_windows);
 ``knn_train`` the step under ``kpconv_impl=banded_knn`` with per-layer
@@ -73,6 +76,7 @@ def kernel_wrappers() -> dict:
     from cofii2p_tpu_torch.ops import attention_kernel as att
     from cofii2p_tpu_torch.ops import kpconv_kernel as kpk
     from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
+    from cofii2p_tpu_torch.ops import residual_kernel as rk
     from cofii2p_tpu_torch.ops import tau_kernel as tk
 
     return {
@@ -96,7 +100,23 @@ def kernel_wrappers() -> dict:
         "banded_maxpool_backward_tau_fused": (mpk, mpk.banded_maxpool_backward_tau_fused,
                                               mpk.banded_maxpool_route_tau_plain),
         "fused_attention": (tf, att.fused_attention, att.fused_attention_plain),
+        "banded_residual_fused": (rk, rk.banded_residual_fused, rk.banded_residual_fused_plain),
     }
+
+
+def unfused_pair(mp_feats, agg_feats, weights, q_points, s_points, radius, sigma, kernel_size=15, tile=128,
+                 band_width=1024, dtype=torch.float32, starts=None):
+    """Kernel #16's work done by the pair it fuses: #1 on ``agg_feats``,
+    then #3 on ``mp_feats`` (the strided block without the flag)."""
+    from cofii2p_tpu_torch.ops.banded import kernel_reach
+    from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_fused
+    from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_fused
+
+    out, count = banded_kpconv_fused(agg_feats, q_points, s_points, weights, radius, sigma, kernel_size, tile,
+                                     band_width, dtype, starts)
+    shortcut = banded_maxpool_fused(mp_feats, q_points, s_points, kernel_reach(radius, sigma, kernel_size), tile,
+                                    band_width, starts)
+    return out, count, shortcut
 
 
 def call_bound(name: str, args, kwargs=None):
@@ -128,7 +148,7 @@ def call_bound(name: str, args, kwargs=None):
 
         band = band_plan(m, n, a["tile"], a["band_width"], starts)[2]
         return bound_ms(pts + b * m * 4, ops32=9.0 * b * m * band)
-    if name.startswith("banded_kpconv"):
+    if name.startswith("banded_kpconv") or name == "banded_residual_fused":
         ks, tile, bw = a["kernel_size"], a["tile"], a["band_width"]
         if tau is None:
             pairs = _pairs(q, s, kernel_reach(a["radius"], a["sigma"], ks), tile, bw, starts)
@@ -143,7 +163,7 @@ def call_bound(name: str, args, kwargs=None):
             g = a["g_weighted"]
             c = g.shape[-1]
             return bound_ms(pts + g.numel() * 4 + b * n * c * 4, ops32=pairs * ks * (2 * c + INFL_OPS))
-        f = a["s_feats"]
+        f = a["agg_feats" if name == "banded_residual_fused" else "s_feats"]
         cin = f.shape[-1]
         infl = pairs * ks * INFL_OPS
         agg = 2.0 * pairs * ks * cin
@@ -154,6 +174,11 @@ def call_bound(name: str, args, kwargs=None):
         cout = w.shape[-1]
         mma = agg + 2.0 * b * m * ks * cin * cout
         io = pts + f.numel() * f.element_size() + w.numel() * 4 + b * m * (cout + 1) * 4
+        if name == "banded_residual_fused":
+            # and the shortcut: one comparison per in-reach pair and channel
+            mp = a["mp_feats"]
+            io += (mp.numel() + b * m * mp.shape[-1]) * mp.element_size()
+            infl += pairs * mp.shape[-1]
         return bound_ms(io, ops32=infl + (0 if mma16 else mma), ops16=mma if mma16 else 0.0)
     f = a["s_feats"]
     c = f.shape[-1]
@@ -200,21 +225,31 @@ def _describe(name, args, kwargs):
         return f"q {tuple(a['q'].shape)} kv {a['k'].shape[1]} {a['q'].dtype}"
     if name == "banded_knn_tau_kernel":
         return f"M {a['q_points'].shape[1]} N {a['s_points'].shape[1]} k {a['k']} bw{a['band_width']}"
-    lead = a.get("s_feats", a.get("g_weighted"))
+    lead = a.get("s_feats", a.get("g_weighted", a.get("agg_feats")))
     band = ("w%d" if a.get("starts") is not None else "bw%d") % a["band_width"]
     extra = f" Cout {a['weights'].shape[-1]}" if "weights" in a else ""
+    if "mp_feats" in a:
+        extra += f" Cin {a['mp_feats'].shape[-1]}"
     return f"M {a['q_points'].shape[1]} N {a['s_points'].shape[1]} C {lead.shape[-1]}{extra} {band} {lead.dtype}"
 
 
-def record_serve(batch, seed, dev):
+def serve_config(residual_fused=False):
+    """bench.py:277-282, the serving configuration (and chip_smoke.py's
+    serve phases), with or without the fused residual band pass."""
     from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
+
+    return KITTIConfig(compute_dtype="bfloat16", kpconv_dynamic_plan=SERVE_DYNAMIC_PLAN,
+                       kpconv_dynamic_plan_self=SERVE_DYNAMIC_PLAN_SELF, attention="pallas",
+                       kpconv_residual_fused=residual_fused)
+
+
+def record_serve(batch, seed, dev, residual_fused=False):
     from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
     from cofii2p_tpu_torch.evaluation.pipeline import make_draws
     from cofii2p_tpu_torch.models.network import CoFiI2P
     from cofii2p_tpu_torch.utils.convert import randomize
 
-    cfg = KITTIConfig(compute_dtype="bfloat16", kpconv_dynamic_plan=SERVE_DYNAMIC_PLAN,
-                      kpconv_dynamic_plan_self=SERVE_DYNAMIC_PLAN_SELF, attention="pallas")
+    cfg = serve_config(residual_fused)
     model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(dev).eval()
     hb = _frames(cfg, batch, dev)
     draws = make_draws(cfg, batch, torch.Generator(dev).manual_seed(seed), dev)
@@ -306,7 +341,7 @@ def _frames(cfg, batch, dev):
 
 def main():
     ap = argparse.ArgumentParser(description="time the port's kernels on the serving or training path")
-    ap.add_argument("--path", choices=("serve", "train", "fast", "knn_train", "t7"), default="serve")
+    ap.add_argument("--path", choices=("serve", "resfuse", "train", "fast", "knn_train", "t7"), default="serve")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -318,6 +353,8 @@ def main():
     dev = torch.device("cuda")
     if args.path in ("train", "fast", "knn_train"):
         calls = record_train(args.batch, args.seed, dev, args.path)
+    elif args.path == "resfuse":
+        calls = record_serve(args.batch, args.seed, dev, residual_fused=True)
     else:
         calls = {"serve": record_serve, "t7": record_t7}[args.path](args.batch, args.seed, dev)
     torch.cuda.synchronize()
@@ -330,15 +367,21 @@ def main():
             k_ms = time_ms(lambda: kern(*a, **kw), args.reps)
             p_ms = time_ms(lambda: plain(*a, **kw), max(1, args.reps // 3))
             b_ms, by = call_bound(name, a, kw)
-            t = totals.setdefault(name, [0, 0.0, 0.0, 0.0])
+            # kernel #16 beside the pair it fuses, on the same inputs
+            pair_ms = time_ms(lambda: unfused_pair(*a, **kw), args.reps) if name == "banded_residual_fused" else None
+            t = totals.setdefault(name, [0, 0.0, 0.0, 0.0, 0.0])
             t[0] += 1
             t[1] += k_ms
             t[2] += p_ms
             t[3] += b_ms
+            t[4] += pair_ms or 0.0
+            pair = "" if pair_ms is None else f"  pair #1+#3 {pair_ms:8.3f} ms"
             print(f"{name:32s} {_describe(name, a, kw):52s} kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
-                  f"bound {b_ms:7.3f} ms ({by})", flush=True)
-    for name, (n, k_ms, p_ms, b_ms) in totals.items():
-        print(f"TOTAL {name:32s} {n:3d} calls  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  bound {b_ms:8.3f} ms")
+                  f"bound {b_ms:7.3f} ms ({by}){pair}", flush=True)
+    for name, (n, k_ms, p_ms, b_ms, pair_ms) in totals.items():
+        pair = f"  pair #1+#3 {pair_ms:8.3f} ms" if name == "banded_residual_fused" else ""
+        print(f"TOTAL {name:32s} {n:3d} calls  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  bound {b_ms:8.3f} ms"
+              f"{pair}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"{args.path} path, B={args.batch}; {torch.cuda.get_device_name(0)}; nvidia-smi: {smi or 'unavailable'}")

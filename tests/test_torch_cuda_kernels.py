@@ -19,6 +19,10 @@ The backward kernels of the dynamic windows (#10, #14) and of the k-NN
 semantics (#11, #15) and the tie count's window and tau modes (#12): tie
 counts bit-equal, #10/#11 rel <= 1e-4, #14/#15 rel <= 1e-5, and the
 window scatter bit-equal to its plain version on the kernel's own stack.
+The fused residual band pass (#16): counts equal and shortcuts bit-equal
+to the plain version and to the pair it fuses (#1, #3), the conv
+bit-equal to #1's (the same kernel code at the same block size) and
+within #1's tolerances of the plain version.
 """
 
 import numpy as np
@@ -65,6 +69,7 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
     route_dyn_with_stack,
 )
 from cofii2p_tpu_torch.ops.pyramid import morton_order
+from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_fused, banded_residual_fused_plain
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel, banded_knn_tau_plain
 from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
 
@@ -374,3 +379,31 @@ def test_window_and_tau_functions_match_plain_autograd(cuda_device):
         assert rel_err(grads[0][0], grads[1][0]) <= 1e-4, name
         assert rel_err(grads[0][1], grads[1][1]) <= 1e-4, name
         assert rel_err(grads[0][2], grads[1][2]) <= 1e-5, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,cin,cmid,width,dynamic", [
+    (1024, 2048, 128, 32, 256, False),  # encoder2_1's widths, static band of 768 rows
+    (1024, 2048, 1024, 256, 192, True),  # encoder5_1's widths on w192 windows
+    (512, 4096, 256, 64, 1024, False),  # a 3072-row band: two membership segments
+])
+def test_residual_fused_kernel_matches_plain_and_the_pair(cuda_device, m, n, cin, cmid, width, dynamic):
+    q, s = clouds(m, n, cuda_device, lone=8)
+    g = torch.Generator().manual_seed(0)
+    fm32 = torch.randn(2, n, cin, generator=g).to(cuda_device)
+    fa32 = torch.randn(2, n, cmid, generator=g).to(cuda_device)
+    w = (torch.randn(15, cmid, cmid, generator=g) / cmid**0.5).to(cuda_device)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, width, "best", 1) if dynamic else None
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        fm, fa = fm32.to(dtype), fa32.to(dtype)
+        args = (fm, fa, w, q, s, R, S, 15, 128, width, dtype, starts)
+        out, cnt, mp = banded_residual_fused(*args)
+        ref, ref_cnt, ref_mp = banded_residual_fused_plain(*args)
+        conv, conv_cnt = banded_kpconv_fused(fa, q, s, w, R, S, 15, 128, width, dtype, starts)
+        pooled = banded_maxpool_fused(fm, q, s, R_ACT, 128, width, starts)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, ref_cnt) and torch.equal(cnt, conv_cnt)
+        assert mp.dtype == dtype and torch.equal(mp, ref_mp) and torch.equal(mp, pooled)
+        assert torch.equal(out, conv)
+        assert rel_err(out, ref) <= tol
+    assert (mp == 0).all(-1).any()  # the lone queries' empty neighbourhoods

@@ -206,13 +206,41 @@ def test_knn_dispatch_follows_the_jax_package(monkeypatch):
     (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 11"),
     (dict(kpconv_impl="banded_knn", kpconv_knn_window_plan=(0, 128, 0, 0, 0), aggregate_compact_plan=(0, 16, 0, 0, 0)),
      "queue 1 item 11"),
-    (dict(kpconv_residual_fused=True), "#16"),
 ])
 def test_network_refuses_unported_variants(override, match):
-    """The gather and compacted formulations and the fused residual pass
-    raise at construction, naming where they stand; so a k-NN window plan
-    can never meet a compacted plan (the guard ADVICE r5 asks of knn_w)."""
+    """The gather and compacted formulations raise at construction,
+    naming where they stand; so a k-NN window plan can never meet a
+    compacted plan (the guard ADVICE r5 asks of knn_w)."""
     from cofii2p_tpu_torch.config import TinyConfig
 
     with pytest.raises(NotImplementedError, match=match):
         CoFiI2P(TinyConfig(**override))
+
+
+@pytest.mark.parametrize("dtype,grad", [("float32", False), ("bfloat16", False), ("float32", True)])
+def test_residual_fused_dispatch_follows_the_jax_package(monkeypatch, dtype, grad):
+    """kpconv_residual_fused=True (models/kpconv.py:539-575, 312-353):
+    without grad the four strided blocks' KPConvs take the fused band pass
+    (at TinyConfig every one fits residual_fused_fits) and no separate
+    shortcut maxpool runs; the other ten convs keep their kernels.
+    Differentiated, none takes it: the pair runs through BandedKPConvFn
+    (the aggregate kernel) and BandedMaxpoolFn, four maxpools."""
+    import cofii2p_tpu_torch.ops.kpconv_kernel as kpk
+    import cofii2p_tpu_torch.ops.maxpool_kernel as mpk
+    import cofii2p_tpu_torch.ops.residual_kernel as rk
+    from cofii2p_tpu_torch.config import TinyConfig
+
+    wrappers = ((rk, "banded_residual_fused"), (mpk, "banded_maxpool_fused"), (kpk, "banded_kpconv_fused"),
+                (kpk, "banded_kpconv_aggregate_fused"))
+    calls = _kpconv_dispatch(monkeypatch, TinyConfig(compute_dtype=dtype, kpconv_residual_fused=True), grad, wrappers)
+    by_name = {n: [m for m, name in calls if name == n] for _, n in wrappers}
+    strided = [f"encoder{stage}_1.KPConv" for stage in range(2, 6)]
+    if grad:
+        assert by_name["banded_residual_fused"] == []
+        assert sorted(by_name["banded_maxpool_fused"]) == strided
+        assert len(by_name["banded_kpconv_aggregate_fused"]) == 14
+    else:
+        assert sorted(by_name["banded_residual_fused"]) == strided
+        assert by_name["banded_maxpool_fused"] == []
+        fused, unfused = by_name["banded_kpconv_fused"], by_name["banded_kpconv_aggregate_fused"]
+        assert len(fused) + len(unfused) == 10 and not set(fused + unfused) & set(strided)

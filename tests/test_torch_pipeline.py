@@ -12,6 +12,7 @@ success) wherever no superpoint of the frame sits inside such a margin.
 
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from cofii2p_tpu.evaluation.pipeline import make_eval_body as j_make_eval_body
@@ -31,8 +32,14 @@ from tests.torch_parity import (
 DYN = dict(kpconv_dynamic_plan=(0, 64, 64, 64, 0), kpconv_dynamic_plan_self=(0, 0, 64, 64, 0))
 
 
-def test_eval_pipeline_matches_jax():
-    jcfg, tcfg = cfg_pair("TinyConfig", attention="pallas", **DYN)
+@pytest.mark.parametrize("residual_fused", [False, True])
+def test_eval_pipeline_matches_jax(residual_fused):
+    """With kpconv_residual_fused the JAX side runs kpconv_kernel='pallas'
+    (interpret mode), since under 'auto' off the TPU it never reaches its
+    fused pass (models/kpconv.py:550-553); the port's four strided blocks
+    take banded_residual_fused (its plain version on the CPU)."""
+    extra = dict(kpconv_residual_fused=True, kpconv_kernel="pallas") if residual_fused else {}
+    jcfg, tcfg = cfg_pair("TinyConfig", attention="pallas", **DYN, **extra)
     b = 2
     hb = host_batch(jcfg, b, start=4)
     jmodel, params, stats = jax_variables(jcfg, hb, seed=1)

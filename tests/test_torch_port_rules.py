@@ -44,6 +44,7 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_tau_apply,
     banded_maxpool_tie_count_fused,
 )
+from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_apply, banded_residual_fused
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -202,6 +203,12 @@ def _maxpool_bwd_tau(device, dtype=torch.float32, grad=False):
     return lambda: banded_maxpool_backward_tau_fused(gs, f, pts, pts, out, tau, 128, 64)
 
 
+def _residual(device, dtype=torch.float32, grad=False):
+    g, pts, f = _inputs(device, dtype, grad)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_residual_fused(f, f, w, pts, pts, 0.85, 0.4, 15, 128, 64)
+
+
 def _attention(device, dtype=torch.float32, grad=False):
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 32, generator=g).to(device, dtype).requires_grad_(grad)
@@ -222,7 +229,8 @@ WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool
             "maxpool_count_dyn": (banded_maxpool_tie_count_fused, _tie_count_dyn),
             "maxpool_count_tau": (banded_maxpool_tie_count_fused, _tie_count_tau),
             "maxpool_bwd_dyn": (banded_maxpool_backward_dyn_fused, _maxpool_bwd_dyn),
-            "maxpool_bwd_tau": (banded_maxpool_backward_tau_fused, _maxpool_bwd_tau)}
+            "maxpool_bwd_tau": (banded_maxpool_backward_tau_fused, _maxpool_bwd_tau),
+            "residual_fused": (banded_residual_fused, _residual)}
 # tau is a function of coordinates only: it has no input to refuse
 GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau"})
 # the k-NN forward wrappers and the autograd Function each names
@@ -304,9 +312,15 @@ def _fn_maxpool_tau(device):
     return lambda: banded_maxpool_tau_apply(f, pts, pts, tau, 128, 64)
 
 
+def _fn_residual(device):
+    g, pts, f = _inputs(device, torch.float32, True)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_residual_apply(f, f, w, pts, pts, 0.85, 0.4, 15, 128, 64)
+
+
 FUNCTIONS = {"kpconv": (BandedKPConvFn, _fn_kpconv), "kpconv_dyn": (BandedKPConvFn, _fn_kpconv_dyn),
              "kpconv_tau": (BandedKPConvTauFn, _fn_kpconv_tau), "maxpool_dyn": (BandedMaxpoolFn, _fn_maxpool),
-             "maxpool_tau": (BandedMaxpoolTauFn, _fn_maxpool_tau)}
+             "maxpool_tau": (BandedMaxpoolTauFn, _fn_maxpool_tau), "residual": (BandedKPConvFn, _fn_residual)}
 
 
 @pytest.mark.parametrize("name", sorted(FUNCTIONS))
