@@ -4,6 +4,7 @@ NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases device,build,kernels
+    python3 chip_smoke.py --phases device,build,serve --requests 3
 
 Phases (each prints one or more lines; any failure exits non-zero before
 the last line):
@@ -12,7 +13,12 @@ the last line):
            source (first use, cached by source hash under
            build/cofii2p_tpu_torch/)
   kernels  each CUDA kernel against its plain PyTorch version: the serving
-           kernels at the serving shapes, fp32 and bf16; the training
+           kernels at the serving shapes, fp32 and bf16 (the fused KPConv
+           at lvl0 4->64 on fp32 features and 32->32, lvl1 <- lvl0
+           32->64, lvl2 static and w192, lvl4 512->512; the attention with
+           serving's normalised queries and with randn ones, its bf16
+           output within bf16's rounding of the fp32 plain version on the
+           same inputs plus 5e-4); the training
            kernels (aggregate, transposed aggregate, tie count, maxpool
            backward) at the trainer's fp32 shapes, B=8, on clouds with
            duplicated points so that maxima tie; the k-NN kernels (tau,
@@ -45,14 +51,18 @@ the last line):
            correspondences, 512 hypotheses) on scenes of known pose with
            outliers and masked rows: it recovers the pose
   serve    the bench.py serving config (bf16, w192 windows, fused
-           attention) with seeded random weights: a warm-up, then 3
+           attention) with seeded random weights: a warm-up, then 10
            requests of 8 KITTI-shaped synthetic frames through
            make_eval_body; launch counts per forward, finite network
            outputs, finite proper rotations wherever RANSAC succeeded,
            frames/s and peak memory.  Random weights give few and junk
            correspondences, on which the JAX package's ransac_pnp itself
            returns NaN poses for some frames; those are counted, not
-           failed.
+           failed.  Then the drift readout: one B=8 forward through the
+           kernels and through the plain versions on the card (same
+           weights, frames and draws), tools/window_drift.py's four
+           readings, each within twice the CUDA-core kernels' reading
+           plus one point (SERVE_DRIFT_LIMITS).
   serve_resfuse  serve with kpconv_residual_fused=True (same seeded
            weights): launches per forward (4 fused strided blocks, 10
            KPConvs, no separate maxpool), the same output checks and
@@ -106,12 +116,22 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "serve_resfuse", "train", "t7", "train_fast",
           "train_knn")
 BATCH = 8
-REQUESTS = 3
+REQUESTS = 10  # timed requests a serve phase: a request is ~0.13 s, where host jitter of a few ms shows
 TRAIN_STEPS = 4
 PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0}
 # with kpconv_residual_fused: the 4 strided blocks' conv and shortcut in one
 # pass each (all fit residual_fused_fits in bf16 at w192), the other 10 convs
 PER_RESFUSE_FORWARD = {"residual_fused": 4, "kpconv_fused": 10, "maxpool": 0, "attention": 16}
+# the serve phase's drift readings (tools/window_drift.py's four) between
+# the kernels and the plain versions, measured with the CUDA-core #1 and #4
+# before their tensor-core redesign (H100 80GB HBM3, seed 0); a reading may
+# grow to twice that plus one point: 0.01 for a fraction, 1e-2 for the score
+SERVE_DRIFT_PARENT = dict(argmax=0.0369, selection=0.0006, fine_cell=0.0625, score=0.01324)
+SERVE_DRIFT_LIMITS = {k: 2 * v + 0.01 for k, v in SERVE_DRIFT_PARENT.items()}
+# the bf16 attention kernel, beyond bf16's rounding of the fp32 plain
+# version on its inputs: the fp32 sums' order and P split into two bf16
+# terms (2^-16 relative) leave ~1e-5 at these magnitudes
+ATTN_BF16_EXCESS = 5e-4
 # launches per train step: 14 KPConvs forward, 13 feature gradients (not
 # encoder1_1's, whose input needs none), 4 strided shortcuts forward and
 # backward; no fused KPConv and no fused attention while differentiating
@@ -140,7 +160,7 @@ PER_T7_FORWARD = {"knn_tau": 9, "kpconv_fused_tau": 12, "kpconv_aggregate_tau": 
                   "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0, "residual_fused": 0}
 T7_DUMP_KEYS = {"GT_P", "pred_P", "K", "fine_xy", "corr_mask", "object_points", "superpoints_score"}
 KERNELS = {
-    "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
+    "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
     "maxpool": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:208"),
     "attention": ("cofii2p_tpu_torch/csrc/attention.cu", "cofii2p_tpu/ops/attention_kernel.py:53"),
     "kpconv_aggregate": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:228"),
@@ -236,6 +256,13 @@ def rel_err(a, ref):
     return ((a - ref).abs() / ref.abs().clamp(min=rms)).max().item()
 
 
+def bf16_excess(out, ref):
+    """How far a bf16 output lies beyond bf16's rounding of an fp32 result:
+    max(|out - ref| - 2^-8 |ref|), 2^-8 being bf16's unit roundoff."""
+    ref = ref.double()
+    return ((out.double() - ref).abs() - ref.abs() * 2.0**-8).max().item()
+
+
 def synthetic_cloud(n, gen, device):
     """A Morton-ordered ground-plane cloud of KITTI extent."""
     import torch
@@ -283,7 +310,7 @@ def check_kernels(device, gen, tally):
     import torch
 
     from cofii2p_tpu_torch.config import KITTIConfig
-    from cofii2p_tpu_torch.ops.attention_kernel import fused_attention, fused_attention_plain
+    from cofii2p_tpu_torch.ops.attention_kernel import full_attention, fused_attention, fused_attention_plain
     from cofii2p_tpu_torch.ops.banded import dynamic_band_starts, kernel_reach
     from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_fused, banded_kpconv_fused_plain
     from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_fused, banded_maxpool_plain
@@ -296,15 +323,28 @@ def check_kernels(device, gen, tally):
     b = BATCH
 
     # --- A: fused KPConv -------------------------------------------------
+    # serving's shapes: encoder1_1 (Cin 4 -> 64 on fp32 features, the
+    # (32, 64) build) and encoder1_2 on lvl0's static band, a strided
+    # lvl1 <- lvl0 conv on encoder2_1's band (its queries every other lvl0
+    # point, a subset as the pipeline's pyramid has it: on an independent
+    # cloud a query has one or two neighbours, and bf16's rounding points
+    # alone, the plain version's too, move the result by over 5e-2), then
+    # lvl2 static and w192 and lvl4
+    # (all 1280 rows); the last element: the features stay fp32 in the bf16
+    # call
     a_cases = []
-    q2 = levels[2]
+    q0, q2 = levels[0], levels[2]
+    q1s = q0[:, ::2].contiguous()
+    a_cases.append(("lvl0 static C4->64", q0, q0, 4, 64, r0, s0, plan[0], None, True))
+    a_cases.append(("lvl0 static C32", q0, q0, 32, 32, r0, s0, plan[0], None, False))
+    a_cases.append(("lvl1<-0 static C32->64", q1s, q0, 32, 64, r0, s0, plan[0], None, False))
     r2_, s2_ = r0 * 4, s0 * 4
     st = dynamic_band_starts(q2, q2, kernel_reach(r2_, s2_), 128, 192, "best", max(1, q2.shape[1] // 2560))
-    a_cases.append(("lvl2 static C128", q2, q2, 128, 128, r2_, s2_, plan[2], None))
-    a_cases.append(("lvl2 w192 C128", q2, q2, 128, 128, r2_, s2_, 192, st))
+    a_cases.append(("lvl2 static C128", q2, q2, 128, 128, r2_, s2_, plan[2], None, False))
+    a_cases.append(("lvl2 w192 C128", q2, q2, 128, 128, r2_, s2_, 192, st, False))
     q4 = levels[4]
-    a_cases.append(("lvl4 static C512", q4, q4, 512, 512, r0 * 16, s0 * 16, plan[4], None))
-    for name, q, s, cin, cout, r, sg, bw, starts in a_cases:
+    a_cases.append(("lvl4 static C512", q4, q4, 512, 512, r0 * 16, s0 * 16, plan[4], None, False))
+    for name, q, s, cin, cout, r, sg, bw, starts, f32_in in a_cases:
         f = torch.randn(b, s.shape[1], cin, generator=gen).to(device)
         w = (torch.randn(15, cin, cout, generator=gen) / cin**0.5).to(device)
         ref, ref_cnt = banded_kpconv_fused_plain(f, q, s, w, r, sg, 15, 128, bw, torch.float32, starts)
@@ -315,20 +355,27 @@ def check_kernels(device, gen, tally):
             raise PhaseError(f"kpconv {name}: counts differ at {(cnt != ref_cnt).sum().item()} queries")
         if e32 > 1e-3:
             raise PhaseError(f"kpconv {name}: fp32 rel err {e32:.3e} > 1e-3")
-        fb = f.to(torch.bfloat16)
+        fb = f if f32_in else f.to(torch.bfloat16)
         out16, cnt16 = banded_kpconv_fused(fb, q, s, w, r, sg, 15, 128, bw, torch.bfloat16, starts)
         torch.cuda.synchronize()
         e16 = rel_err(out16, ref)
         if e16 > 5e-2:
             raise PhaseError(f"kpconv {name}: bf16 rel err {e16:.3e} > 5e-2 vs fp32 plain")
         args16 = (fb, q, s, w, r, sg, 15, 128, bw, torch.bfloat16, starts)
+        ref16, cnt16_ref = banded_kpconv_fused_plain(*args16)
+        if not torch.equal(cnt16, cnt16_ref):
+            raise PhaseError(f"kpconv {name}: bf16 counts differ at {(cnt16 != cnt16_ref).sum().item()} queries")
         k_ms = time_ms(lambda: banded_kpconv_fused(*args16))
         p_ms = time_ms(lambda: banded_kpconv_fused_plain(*args16), 3)
         n = s.shape[1]
         bd = call_bound("banded_kpconv_fused", args16)
-        tally.add("kpconv_fused", (out - ref).abs().max().item(), k_ms, p_ms, bd)
-        say("kernels", f"kpconv_fused {name} B={b} N={n}: fp32 rel {e32:.2e}, bf16 rel {e16:.2e}, "
-            f"counts equal; bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        # the timed kernel (bf16, tensor cores) against the plain version on its inputs
+        tally.add("kpconv_fused", (out16 - ref16).abs().max().item(), k_ms, p_ms, bd)
+        e16_same = rel_err(out16, ref16)
+        del ref16
+        say("kernels", f"kpconv_fused {name} B={b} N={n}: fp32 rel {e32:.2e}, bf16 rel {e16:.2e} "
+            f"(vs the bf16 plain version {e16_same:.2e}), counts equal; bf16 kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
 
     # --- B: maxpool ------------------------------------------------------
     for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
@@ -354,26 +401,41 @@ def check_kernels(device, gen, tally):
                 f"bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
 
     # --- C: attention ----------------------------------------------------
-    q, k, v = (torch.randn(b, 1280, 4, 32, generator=gen).to(device) for _ in range(3))
-    q = q / q.norm(dim=1, keepdim=True)
-    ref = fused_attention_plain(q, k, v)
-    e32 = (fused_attention(q, k, v) - ref).abs().max().item()
-    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    out16 = fused_attention(qb, kb, vb)
-    torch.cuda.synchronize()
-    e16 = (out16.float() - ref).abs().max().item()
-    if e32 > 1e-5 or e16 > 2e-2 or out16.dtype != torch.bfloat16:
-        raise PhaseError(f"attention: fp32 abs {e32:.2e} (<=1e-5), bf16 abs {e16:.2e} (<=2e-2), dtype {out16.dtype}")
+    # serving's sequence-normalised queries (logits near 0, a near-uniform
+    # softmax, outputs ~0.03) and plain randn ones (logit std ~1), where a
+    # kernel that dropped Q K^T, the 1/sqrt(D) or P V would err by > 4e-3:
+    # fp32 abs <= 1e-5, bf16 abs <= 2e-2 against fp32 plain, and each bf16
+    # output within bf16's rounding of the fp32 plain version on the same
+    # bf16 inputs plus ATTN_BF16_EXCESS
+    for queries in ("randn", "normalised"):
+        q, k, v = (torch.randn(b, 1280, 4, 32, generator=gen).to(device) for _ in range(3))
+        if queries == "normalised":
+            q = q / q.norm(dim=1, keepdim=True)
+        ref = fused_attention_plain(q, k, v)
+        e32 = (fused_attention(q, k, v) - ref).abs().max().item()
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        out16 = fused_attention(qb, kb, vb)
+        torch.cuda.synchronize()
+        e16 = (out16.float() - ref).abs().max().item()
+        excess = bf16_excess(out16, full_attention(qb, kb, vb))
+        if e32 > 1e-5 or e16 > 2e-2 or excess > ATTN_BF16_EXCESS or out16.dtype != torch.bfloat16:
+            raise PhaseError(f"attention, {queries} q: fp32 abs {e32:.2e} (<=1e-5), bf16 abs {e16:.2e} (<=2e-2), "
+                             f"bf16 beyond its rounding {excess:.2e} (<={ATTN_BF16_EXCESS:.0e}), dtype {out16.dtype}")
+        say("kernels", f"attention (8,1280,4,32), {queries} q: fp32 abs {e32:.2e}, bf16 abs {e16:.2e}, bf16 beyond "
+            f"its rounding of the fp32 plain version on the bf16 inputs {excess:.2e}, out bf16")
+    # timed on serving's queries
+    e16_same = (out16.float() - fused_attention_plain(qb, kb, vb).float()).abs().max().item()
     c_ms = time_ms(lambda: fused_attention(qb, kb, vb))
     c_plain = time_ms(lambda: fused_attention_plain(qb, kb, vb))
     # the library's fused attention on the same inputs, timed as a yardstick only
     qh, kh, vh = (x.transpose(1, 2) for x in (qb, kb, vb))
     c_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
     bd = call_bound("fused_attention", (qb, kb, vb))
-    tally.add("attention", e32, c_ms, c_plain, bd, library_ms=c_lib)
-    say("kernels", f"attention (8,1280,4,32): fp32 abs {e32:.2e}, bf16 abs {e16:.2e}, out bf16; "
-        f"bf16 kernel {c_ms:.3f} ms, plain {c_plain:.3f} ms, scaled_dot_product_attention {c_lib:.3f} ms, "
-        f"bound {bd[0]:.3f} ms ({bd[1]})")
+    # the timed kernel (bf16, tensor cores) against the plain version on its inputs
+    tally.add("attention", e16_same, c_ms, c_plain, bd, library_ms=c_lib)
+    say("kernels", f"attention (8,1280,4,32), normalised q: bf16 abs {e16_same:.2e} vs the plain version on "
+        f"the bf16 inputs; bf16 kernel {c_ms:.3f} ms, plain {c_plain:.3f} ms, scaled_dot_product_attention "
+        f"{c_lib:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
 
     check_training_kernels(device, gen, tally, cfg)
     check_knn_kernels(device, gen, tally, cfg)
@@ -1238,7 +1300,7 @@ def check_pose(device, gen):
         f"max |t - t_gt| {t_err:.4f} m, inliers {res.num_inliers.tolist()}")
 
 
-def serve(device, seed, smi_line, profile=False, residual_fused=False):
+def serve(device, seed, smi_line, profile=False, residual_fused=False, n_requests=REQUESTS):
     import torch
 
     from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body
@@ -1251,7 +1313,7 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False):
     cfg = serve_config(residual_fused)
     model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(device).eval()
     run = make_eval_body(cfg, model)
-    requests = [frames(cfg, BATCH, device, start=i * BATCH) for i in range(REQUESTS + 1)]
+    requests = [frames(cfg, BATCH, device, start=i * BATCH) for i in range(n_requests + 1)]
     gen = torch.Generator(device).manual_seed(seed)
     run(requests[0], gen)  # warm-up
     torch.cuda.synchronize()
@@ -1278,9 +1340,9 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False):
         n = launches[name]
         if want and n == 0:
             raise PhaseError(f"{phase}: kernel {name} was never launched on the main path")
-        if n != want * REQUESTS:
+        if n != want * n_requests:
             raise PhaseError(
-                f"{phase}: {name} launched {n} times in {REQUESTS} forwards, expected {want} each "
+                f"{phase}: {name} launched {n} times in {n_requests} forwards, expected {want} each "
                 + ("(10 KPConvs, 4 strided blocks' conv and shortcut in one pass, 8 layers x 2 attention calls)"
                    if residual_fused else "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls)")
             )
@@ -1299,23 +1361,96 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False):
             raise PhaseError(f"{phase}: request {i} |R^T R - I| = {orth:.2e} > 1e-3")
         if out.R.shape != (BATCH, 3, 3) or out.fine_xy.shape != (BATCH, cfg.num_superpoints, 2):
             raise PhaseError(f"{phase}: request {i} shapes {out.R.shape}, {out.fine_xy.shape}")
-    fps = REQUESTS * BATCH / dt
+    fps = n_requests * BATCH / dt
     succ = sum(int(o.success.sum()) for o in outs)
-    say(phase, f"{REQUESTS} requests x {BATCH} frames (160x512, 20480 pts), bf16 w192"
+    say(phase, f"{n_requests} requests x {BATCH} frames (160x512, 20480 pts), bf16 w192"
         + (", kpconv_residual_fused" if residual_fused else "") + f": {fps:.2f} frames/s, "
-        f"{dt / REQUESTS * 1e3:.1f} ms/request, peak {peak:.2f} GiB, launches/forward "
-        + ", ".join(f"{k} {launches[k] // REQUESTS}" for k in per_forward)
-        + f"; RANSAC success {succ}/{REQUESTS * BATCH}, non-finite poses {nonfinite_pose} (all without success); "
+        f"{dt / n_requests * 1e3:.1f} ms/request, peak {peak:.2f} GiB, launches/forward "
+        + ", ".join(f"{k} {launches[k] // n_requests}" for k in per_forward)
+        + f"; RANSAC success {succ}/{n_requests * BATCH}, non-finite poses {nonfinite_pose} (all without success); "
         f"card {smi_line}")
-    if residual_fused:
-        try:
+    try:
+        if residual_fused:
             say(phase, check_resfuse_against_pair(cfg, model, requests[1], device, seed))
             say(phase, check_resfuse_fp32(device, seed))
-        except PhaseError as e:
-            raise PhaseError(f"{phase}: {e}") from None
+        else:
+            say(phase, check_serve_drift(cfg, model, requests[1], device, seed))
+    except PhaseError as e:
+        raise PhaseError(f"{phase}: {e}") from None
     del model, run, requests, outs
     torch.cuda.empty_cache()
     return launches, fps, peak
+
+
+def serve_outputs(model, batch, cfg):
+    """What tools/window_drift.py compares, from one test-mode forward:
+    each superpoint's best image token, the selection mask, the fine pixel
+    and the coarse score."""
+    import torch
+
+    from cofii2p_tpu_torch.models.network import fine_match_xy
+
+    out = model(batch, mode="test")
+    b, s, _ = out["pc_feature_norm"].shape
+    sim = torch.einsum("bsc,blc->bsl", out["pc_feature_norm"].float(),
+                       out["img_feature_norm"].reshape(b, -1, cfg.d_model).float())
+    fine_xy = fine_match_xy(out["fine_img_patch"], out["fine_pc_feature"], out["fine_center_xy"], cfg.fine_decode)
+    return dict(argmax=sim.argmax(-1), mask=out["inlier_mask"], fine_xy=fine_xy,
+                score=out["coarse_pc_score"].float())
+
+
+def check_serve_drift(cfg, model, hb, device, seed):
+    """tools/window_drift.py's four readings between one bf16 B=8 serving
+    forward through the kernels and the same weights, frames and draws
+    through the plain versions on the card (kpconv_kernel='xla' and the
+    attention wrapper's plain version, which keeps the kernel's bf16
+    output; 'full' would return fp32): coarse-argmax drift, selection
+    drift, fine-cell drift among the selected superpoints and max score
+    drift.  Each must stay within twice the parent kernels' reading plus
+    one point (SERVE_DRIFT_LIMITS)."""
+    import torch
+
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+    from cofii2p_tpu_torch.models import transformer as tf
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.ops.attention_kernel import fused_attention_plain
+
+    draws = make_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device)
+    batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
+    plain = CoFiI2P(cfg.replace(kpconv_kernel="xla")).to(device).eval()
+    plain.load_state_dict(model.state_dict())
+    kernel_attention = tf.fused_attention
+    with torch.no_grad():
+        reset_launches()
+        got = serve_outputs(model, batch, cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        tf.fused_attention = fused_attention_plain
+        try:
+            ref = serve_outputs(plain, batch, cfg)
+            torch.cuda.synchronize()
+        finally:
+            tf.fused_attention = kernel_attention
+        plain_launches = read_launches()
+    del plain
+    if plain_launches != launches or launches["kpconv_fused"] != PER_FORWARD["kpconv_fused"]:
+        raise PhaseError(f"drift: launches {launches} through the kernels, {plain_launches} after the plain forward")
+    either = ref["mask"] | got["mask"]
+    n_sel = max(int(either.sum()), 1)
+    moved = (ref["fine_xy"] - got["fine_xy"]).abs().amax(-1) > 1e-6
+    drift = dict(argmax=float((ref["argmax"] != got["argmax"]).float().mean()),
+                 selection=float((ref["mask"] != got["mask"]).float().mean()),
+                 fine_cell=float((moved & either).sum()) / n_sel,
+                 score=float((ref["score"] - got["score"]).abs().max()))
+    over = {k: v for k, v in drift.items() if v > SERVE_DRIFT_LIMITS[k]}
+    line = (f"drift of a B={BATCH} forward, kernels vs plain versions (same weights, frames, draws; {n_sel} "
+            f"superpoints selected by either): coarse-argmax {drift['argmax']:.4f}, selection "
+            f"{drift['selection']:.4f}, fine-cell (selected) {drift['fine_cell']:.4f}, max score {drift['score']:.5f}; "
+            "limits " + ", ".join(f"{k} {v:.4f}" for k, v in SERVE_DRIFT_LIMITS.items()))
+    if over:
+        raise PhaseError(f"{line}: over the limit in {sorted(over)}")
+    return line
 
 
 class captured_outputs:
@@ -1552,6 +1687,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES), help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=REQUESTS, help="timed requests of each serve phase")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one serving request with torch.profiler into chiprun_out/")
     args = ap.parse_args()
@@ -1603,10 +1739,10 @@ def main():
         if "pose" in phases:
             run("pose", check_pose, device, gen)
         if "serve" in phases:
-            served, _, _ = run("serve", serve, device, args.seed, smi_line, args.profile)
+            served, _, _ = run("serve", serve, device, args.seed, smi_line, args.profile, False, args.requests)
             launches.update({k: served[k] for k in SERVE_KERNELS})
         if "serve_resfuse" in phases:
-            served, _, _ = run("serve_resfuse", serve, device, args.seed, smi_line, False, True)
+            served, _, _ = run("serve_resfuse", serve, device, args.seed, smi_line, False, True, args.requests)
             launches.update({k: served[k] for k in SERVE_RESFUSE_KERNELS})
         if "train" in phases:
             trained = run("train", train, device, args.seed, smi_line)

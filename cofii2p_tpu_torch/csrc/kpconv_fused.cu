@@ -1,17 +1,27 @@
-// Launchers of the banded KPConv kernel (kpconv_fused.cuh): kernels #1
-// (fused) and #2 (aggregate), and under k-NN semantics #7 and #6.
+// Launchers of the banded KPConv kernels: kernels #1 (fused) and #2
+// (aggregate), and under k-NN semantics #7 and #6, on the CUDA-core
+// template (kpconv_fused.cuh); #1 in bf16 on the tensor cores
+// (kpconv_mma.cuh).
 
-#include "kpconv_fused.cuh"
+#include "kpconv_mma.cuh"
 
 // q (B, M, 3) fp32, s (B, N, 3) fp32, f (B, N, Cin) fp32 or bf16,
-// W (K, Cin, Cout) fp32 holding compute-dtype values, kp (K, 3) fp32,
-// starts (B, num_tiles) int32; out (B, M, Cout) fp32, count (B, M) int32.
-// TQ divides tile, TQ <= 128, TQ * pad(Cin) and TQ * pad(Cout) <= 8192.
+// kp (K, 3) fp32, starts (B, num_tiles) int32; out (B, M, Cout) fp32,
+// count (B, M) int32.  bf16 compute (round), Cin and Cout <= 512, runs the
+// tensor-core kernel: W is then ops/kpconv_kernel.py::mma_weights' (K, CO,
+// CI) bf16, and the block takes its MmaPlan's queries (TQ is not read).
+// fp32 compute runs the CUDA-core template: W (K, Cin, Cout) fp32, TQ <=
+// 128, TQ * pad(Cin) and TQ * pad(Cout) <= 8192, TQ divides tile.
 extern "C" int kpconv_fused_launch(
     const void* q, const void* s, const void* f, int f_bf16, const void* W,
     const void* kp, const void* starts, void* out, void* count, int B, int M,
     int N, int Cin, int Cout, int K, int tile, int num_tiles, int band, int TQ,
     int round, float r2, float sigma, void* stream) {
+  if (round && cofii2p::mma_widths(Cin, Cout))
+    return launch_mma_widths<false>(B, static_cast<cudaStream_t>(stream), static_cast<const float*>(q),
+                                    static_cast<const float*>(s), f, f_bf16, W, static_cast<const float*>(kp),
+                                    static_cast<const int*>(starts), static_cast<float*>(out),
+                                    static_cast<int*>(count), M, N, Cin, Cout, K, tile, num_tiles, band, r2, sigma);
   const int cs = log2_pad(Cin), os = log2_pad(Cout);
   const int A = cs < 8 ? 0 : 1 << (cs - 8);
   const int AO = os < 8 ? 0 : 1 << (os - 8);

@@ -23,9 +23,10 @@
 // (W_k read from global memory, where L2 keeps it hot across blocks).
 // Band rows with no in-reach query of the block are compacted out once per
 // block (an ordered list in shared memory), so the 15 passes only touch
-// rows that contribute.  No tensor cores yet: wgmma/TMA staging of the
-// contraction is later work.  The aggregate variant is bound by writing
-// its (B, M, 15, Cin) fp32 output (up to 315 MB a call at B = 8): each
+// rows that contribute.  This template runs on the CUDA cores; #1 in bf16
+// (every serving call, and #16's conv half in bf16) runs the tensor-core
+// kernel of kpconv_mma.cuh instead.  The aggregate variant is bound by
+// writing its (B, M, 15, Cin) fp32 output (up to 315 MB a call at B = 8): each
 // thread writes acc_k straight from registers, one coalesced row of Cin
 // channels per query, instead of parking it; membership, influence and
 // counts are the same code as the fused variant's, so the two agree on

@@ -1,0 +1,86 @@
+// Block plan of the tensor-core KPConv (kpconv_mma.cuh): which widths are
+// built, how many queries a block takes, how its 8 warps tile the two
+// products, and what shared memory and registers that costs.
+//
+// Plain constexpr C++ with no CUDA in it, so that a host compiler can
+// evaluate the same plan the kernel is built with
+// (tests/test_torch_kpconv_mma_plan.py does, on the CPU).  The launcher picks
+// the queries per block from here; nothing else keeps a copy of the plan.
+#pragma once
+
+namespace cofii2p {
+
+constexpr int kMmaThreads = 256;             // threads a block (kpconv_fused.cuh's kThreads)
+constexpr int kMmaSeg = 2048;                // band rows per membership segment (kSeg)
+constexpr int kMmaWords = kMmaSeg / 32;      // membership words per query and segment (kWords)
+constexpr int kMmaMaxC = 512;                // Cin and Cout the kernel takes
+constexpr int kSmemPerBlock = 232448;        // dynamic shared memory a block may use (H100)
+constexpr int kSmemPerSM = 233472;           // shared memory an SM holds (H100)
+constexpr int kRegsPerSM = 65536;            // 32-bit registers an SM holds (H100)
+
+// Cin or Cout padded as the kernel pads it: a power of two, at least 32
+constexpr int mma_pad(int c) {
+  int p = 32;
+  while (p < c) p *= 2;
+  return p;
+}
+
+// Every padded (CI, CO) pair up to 512: bf16 compute at any width the
+// wrapper takes runs on the tensor cores
+#define COFII2P_MMA_CO(X, ci) X(ci, 32) X(ci, 64) X(ci, 128) X(ci, 256) X(ci, 512)
+#define COFII2P_MMA_WIDTHS(X) \
+  COFII2P_MMA_CO(X, 32) COFII2P_MMA_CO(X, 64) COFII2P_MMA_CO(X, 128) COFII2P_MMA_CO(X, 256) COFII2P_MMA_CO(X, 512)
+
+constexpr bool mma_widths(int cin, int cout) { return cin >= 1 && cout >= 1 && cin <= kMmaMaxC && cout <= kMmaMaxC; }
+
+// Block plan for padded widths CI, CO.  Once both products run on the
+// tensor cores a zero-influence pair costs a bit test and a zero, so a
+// block takes 64 queries, 32 where a width is 512 (acc_k and out, TQ x CI
+// and TQ x CO fp32 fragments over 256 threads, would otherwise pass the
+// register budget); up to 128 channels two blocks share an SM.
+template <int CI, int CO>
+struct MmaPlan {
+  static constexpr int kMaxC = CI > CO ? CI : CO;
+  static constexpr int TQ = kMaxC <= 256 ? 64 : 32;                // queries per block at most
+  static constexpr int RB = CI <= 64 ? 128 : (CI <= 256 ? 64 : 32);  // active rows per chunk
+  static constexpr int MIN_BLOCKS = kMaxC <= 128 ? 2 : 1;          // blocks an SM holds: <= 128 registers
+  static constexpr int MT = TQ / 16;                                 // 16-row m-tiles
+  // 8 warps over the (TQ, CI) aggregate and the (TQ, CO) output: WMA x WNA
+  // (WMO x WNO) warps, each MA x NA (MO x NO) fragments of 16 x 8
+  static constexpr int WNA = CI / 8 < 8 ? CI / 8 : 8, WMA = 8 / WNA;
+  static constexpr int MA = MT / WMA, NA = CI / 8 / WNA;
+  static constexpr int WNO = CO / 8 < 8 ? CO / 8 : 8, WMO = 8 / WNO;
+  static constexpr int MO = MT / WMO, NO = CO / 8 / WNO;
+  static_assert(WMA * WNA * 32 == kMmaThreads && WMO * WNO * 32 == kMmaThreads, "MmaPlan: 8 warps");
+  static_assert(WMA * MA * 16 == TQ && WNA * NA * 8 == CI, "MmaPlan: the warps tile the aggregate exactly");
+  static_assert(WMO * MO * 16 == TQ && WNO * NO * 8 == CO, "MmaPlan: the warps tile the output exactly");
+  static_assert(RB % 16 == 0 && CI % 32 == 0, "MmaPlan tiling");
+  // shared rows in bf16 elements, padded by 16 bytes against bank conflicts
+  static constexpr int A_STRIDE = RB + 8, F_STRIDE = CI + 8, P_STRIDE = CI + 8;
+  // shared memory in bytes, in layout order (every part a multiple of 16)
+  static constexpr int F_BYTES = 2 * RB * F_STRIDE * 2;   // feature chunks, two slots
+  static constexpr int P_BYTES = TQ * P_STRIDE * 2;       // acc_k in bf16
+  static constexpr int A_BYTES = TQ * A_STRIDE * 2;       // influence tile
+  static constexpr int MASK_BYTES = TQ * kMmaWords * 4;   // membership bits of the segment
+  static constexpr int ACT_BYTES = kMmaSeg * 4;           // ordered active rows of the segment
+  static constexpr int Q_BYTES = TQ * 7 * 4;              // centred and uncentred queries, counts
+  static constexpr int SMEM = F_BYTES + P_BYTES + A_BYTES + MASK_BYTES + ACT_BYTES + Q_BYTES + 64;
+  static_assert(SMEM <= kSmemPerBlock, "over the shared memory a block may use");
+  // 1 KB of each block's shared memory is the system's
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= kSmemPerSM, "the SM's 228 KB hold MIN_BLOCKS blocks");
+  // fp32 fragment registers a thread holds: at most half of its share when
+  // MIN_BLOCKS blocks share the SM, the rest for addresses and operands
+  static constexpr int ACC_REGS = 4 * (MA * NA + MO * NO);
+  static constexpr int REG_BUDGET = kRegsPerSM / (kMmaThreads * MIN_BLOCKS) / 2;
+  static_assert(ACC_REGS <= REG_BUDGET, "accumulator registers over budget");
+};
+
+// Queries a block takes in a band tile of `tile` queries: the largest power
+// of two at most the plan's TQ that divides the tile
+constexpr int mma_tq(int tile, int tq_max) {
+  int tq = 1;
+  while (tq * 2 <= tq_max && tile % (tq * 2) == 0) tq *= 2;
+  return tq;
+}
+
+}  // namespace cofii2p

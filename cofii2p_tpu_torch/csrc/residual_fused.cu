@@ -19,27 +19,36 @@
 // active-row list and counts are kept as per-query bitmasks in shared
 // memory, and the same block walks their set bits over the Cin-channel
 // features for the max before its K-sweep (see kpconv_fused.cuh).  Each
-// band row's membership is computed once for both halves.  No tensor cores
-// yet, as #1.
+// band row's membership is computed once for both halves.  In bf16 the
+// conv half is #1's tensor-core kernel in the same POOL mode
+// (kpconv_mma.cuh); fp32 stays on the CUDA-core template, as #1 does.
 //
 // Exactness: the conv half is #1's code at #1's TQ, so conv and count are
 // bit-equal to #1's; the shortcut is a select over the same membership
 // (centred, FMA-free d2 of common.cuh), bit-equal to #3 and to the plain
 // version in fp32 and in bf16.
 
-#include "kpconv_fused.cuh"
+#include "kpconv_mma.cuh"
 
 // q (B, M, 3) fp32, s (B, N, 3) fp32, a (B, N, Cmid) and f (B, N, Cin)
-// fp32 or bf16, W (K, Cmid, Dout) fp32 holding compute-dtype values,
-// kp (K, 3) fp32, starts (B, num_tiles) int32; out (B, M, Dout) fp32,
-// count (B, M) int32, shortcut (B, M, Cin) in f's dtype.  TQ divides tile,
-// TQ <= 128, TQ * pad(Cmid) and TQ * pad(Dout) <= 8192.
+// fp32 or bf16, kp (K, 3) fp32, starts (B, num_tiles) int32; out
+// (B, M, Dout) fp32, count (B, M) int32, shortcut (B, M, Cin) in f's
+// dtype.  W and TQ as kpconv_fused_launch takes them for (Cmid, Dout):
+// bf16 compute runs the tensor-core kernel with mma_weights' bf16 W at its
+// MmaPlan's queries (TQ is not read); fp32 compute W (K, Cmid, Dout) fp32,
+// TQ <= 128, TQ * pad(Cmid) and TQ * pad(Dout) <= 8192, TQ divides tile.
 extern "C" int residual_fused_launch(
     const void* q, const void* s, const void* a, int a_bf16, const void* f,
     int f_bf16, const void* W, const void* kp, const void* starts, void* out,
     void* count, void* shortcut, int B, int M, int N, int Cmid, int Dout,
     int Cin, int K, int tile, int num_tiles, int band, int TQ, int round,
     float r2, float sigma, void* stream) {
+  if (round && cofii2p::mma_widths(Cmid, Dout))
+    return launch_mma_widths<true>(B, static_cast<cudaStream_t>(stream), static_cast<const float*>(q),
+                                   static_cast<const float*>(s), a, a_bf16, W, static_cast<const float*>(kp),
+                                   static_cast<const int*>(starts), static_cast<float*>(out),
+                                   static_cast<int*>(count), M, N, Cmid, Dout, K, tile, num_tiles, band, r2, sigma,
+                                   f, f_bf16, Cin, shortcut);
   const int cs = log2_pad(Cmid), os = log2_pad(Dout);
   const int A = cs < 8 ? 0 : 1 << (cs - 8);
   const int AO = os < 8 ? 0 : 1 << (os - 8);

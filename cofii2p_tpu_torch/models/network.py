@@ -93,14 +93,21 @@ class CoFiI2P(nn.Module):
         if cfg.kpconv_impl not in ("banded", "banded_knn"):
             raise NotImplementedError(
                 f"kpconv_impl={cfg.kpconv_impl!r}: the port runs 'banded' and 'banded_knn'; the gather "
-                "formulation is ROADMAP queue 1 item 11 (alternate paths)"
+                "formulation is ROADMAP queue 1 item 4 (alternate paths)"
             )
         # rejecting the compacted plans here also keeps a k-NN window plan
         # from meeting them (the guard ADVICE r5 asks of knn_w)
         if cfg.maxpool_compact_plan or cfg.aggregate_compact_plan:
             raise NotImplementedError(
                 "maxpool_compact_plan / aggregate_compact_plan: the compacted formulations are ROADMAP "
-                "queue 1 item 11 (alternate paths)"
+                "queue 1 item 4 (alternate paths)"
+            )
+        # the point blocks build GroupNorm only; the JAX package's norm_factory
+        # builds TorchLayerNorm for 'ln' and refuses anything else
+        if cfg.norm != "gn":
+            raise NotImplementedError(
+                f"norm={cfg.norm!r}: the port's point blocks use GroupNorm ('gn') only; 'ln' is ROADMAP "
+                "queue 1 item 3 (the variants the network refuses)"
             )
         self.cfg = cfg
         dtype = compute_dtype(cfg)

@@ -55,6 +55,9 @@ def fused_attention(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
+        # the bf16 body reads k and v in 16-byte copies, q in 4-byte words
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for the bf16 kernel")
     out = torch.empty_like(q)
     bf16 = int(q.dtype == torch.bfloat16)
     err = cuda_lib.lib().attention_launch(

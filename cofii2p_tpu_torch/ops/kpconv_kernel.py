@@ -22,6 +22,11 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Seven kernels:
    :func:`banded_kpconv_transpose_tau_fused` (csrc/kpconv_transpose.cu in
    tau mode; replaces _transpose_agg_tau) is their feature gradient.
 
+In bf16 compute :func:`banded_kpconv_fused` runs the tensor-core kernel
+(csrc/kpconv_mma.cuh) on the weights :func:`mma_weights` lays out; the
+kernel takes its block plan from csrc/kpconv_mma_plan.cuh.  fp32 runs the
+CUDA-core template (csrc/kpconv_fused.cuh).
+
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor; there is no other fallback.  A wrapper returns
 no autograd history, so on the card it refuses inputs that require grad
@@ -56,7 +61,11 @@ from cofii2p_tpu_torch.ops.banded import (
 
 MAX_CHANNELS = 512  # Cin and Cout the kernels take
 _ACC_ELEMS = 8192  # per-block accumulator bound (csrc/kpconv_fused.cu, csrc/kpconv_transpose.cu)
-_MAX_TQ = 32  # queries (support rows in the transposed kernel) per block
+# queries (support rows in the transposed kernel) per block of the CUDA-core
+# kernels: a block's active rows are the union of its queries'
+# neighbourhoods, and each (query, active row) pair costs a product per
+# channel on the CUDA cores even where its influence is 0
+_MAX_TQ = 32
 
 banded_kpconv_aggregate_plain = banded_kpconv_aggregate
 banded_kpconv_transpose_plain = banded_kpconv_aggregate_transpose
@@ -79,6 +88,43 @@ def banded_kpconv_fused_plain(
 
 def _pad_shift(x: int) -> int:
     return max(int(x) - 1, 0).bit_length()
+
+
+def mma_pad(c: int) -> int:
+    """Cin or Cout as the tensor-core kernel pads it: a power of two >= 32
+    (csrc/kpconv_mma_plan.cuh::mma_pad)."""
+    return max(32, 1 << _pad_shift(c))
+
+
+def _mma_perm(ci: int) -> list:
+    """Cin order of :func:`mma_weights`: within each 32 channels, lane
+    group t's 16 bytes hold its B fragments of two k-steps, channels 2t,
+    2t+1, 8+2t, 9+2t of the first 16 and the same of the next 16."""
+    within = [o + 2 * t + e for t in range(4) for o in (0, 8, 16, 24) for e in (0, 1)]
+    return [g + c for g in range(0, ci, 32) for c in within]
+
+
+def mma_weights(weights, ci: int, co: int):
+    """W (K, Cin, Cout) as the tensor-core kernel reads it: rounded to
+    bf16 (the values the compute dtype gives), zero-padded to (CI, CO),
+    transposed to (K, CO, CI) and Cin permuted by :func:`_mma_perm`."""
+    k_num, cin, cout = weights.shape
+    w = torch.zeros(k_num, ci, co, dtype=torch.bfloat16, device=weights.device)
+    w[:, :cin, :cout] = weights.to(torch.bfloat16)
+    perm = torch.as_tensor(_mma_perm(ci), device=weights.device)
+    return w.index_select(1, perm).transpose(1, 2).contiguous()
+
+
+def fused_launch_plan(cin: int, cout: int, tile: int, dtype, weights):
+    """(W as the launcher takes it, queries per block) of one fused call.
+    bf16 compute runs the tensor-core kernel: W in :func:`mma_weights`'
+    layout, and 0 queries, for the kernel takes its own block plan
+    (csrc/kpconv_mma_plan.cuh).  fp32 runs the CUDA-core template: W fp32,
+    <= 32 queries within its accumulator bound."""
+    if dtype == torch.bfloat16 and max(cin, cout) <= MAX_CHANNELS:
+        return mma_weights(weights, mma_pad(cin), mma_pad(cout)), 0
+    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cin), _ACC_ELEMS >> _pad_shift(cout)))
+    return weights.to(dtype).float().contiguous(), tq
 
 
 def pick_tq(tile: int, limit: int) -> int:
@@ -163,13 +209,9 @@ def banded_kpconv_fused(
         raise ValueError(f"Cin, Cout <= {MAX_CHANNELS} supported, got {cin}, {cout}")
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     st = _starts_arg(m, n, tile, band, num_tiles, b, s_feats.device, starts)
-    w = weights.to(dtype).float().contiguous()
+    w, tq = fused_launch_plan(cin, cout, tile, dtype, weights)
     kp = _kernel_points(float(radius), int(kernel_size), s_feats.device)
     _check_cuda(s_feats=s_feats, q_points=q_points, s_points=s_points, weights=w, starts=st)
-    cs, os_ = _pad_shift(cin), _pad_shift(cout)
-    # a block's active rows are the union of its queries' neighborhoods, so
-    # more queries per block means more zero-influence products: <= 32
-    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> cs, _ACC_ELEMS >> os_))
     out = torch.empty(b, m, cout, dtype=torch.float32, device=s_feats.device)
     count = torch.empty(b, m, dtype=torch.int32, device=s_feats.device)
     r2 = float(np.float32(kernel_reach(radius, sigma, kernel_size) ** 2))

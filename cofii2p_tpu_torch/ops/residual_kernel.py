@@ -25,17 +25,14 @@ import torch
 from cofii2p_tpu_torch.ops import cuda_lib
 from cofii2p_tpu_torch.ops.banded import band_plan, kernel_reach
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
-    _ACC_ELEMS,
-    _MAX_TQ,
     MAX_CHANNELS,
     _check_cuda,
     _kernel_points,
-    _pad_shift,
     _starts_arg,
     banded_kpconv_apply,
     banded_kpconv_fused_plain,
     check_no_grad,
-    pick_tq,
+    fused_launch_plan,
 )
 from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_apply, banded_maxpool_plain
 
@@ -125,12 +122,11 @@ def banded_residual_fused(
         raise ValueError(f"Cin <= {MAX_POOL_CHANNELS} supported, got {cin}")
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     st = _starts_arg(m, n, tile, band, num_tiles, b, agg_feats.device, starts)
-    w = weights.to(dtype).float().contiguous()
+    # #1's weights and block size (ops/kpconv_kernel.py::banded_kpconv_fused),
+    # so the conv half sums in #1's order
+    w, tq = fused_launch_plan(cmid, dout, tile, dtype, weights)
     kp = _kernel_points(float(radius), int(kernel_size), agg_feats.device)
     _check_cuda(mp_feats=mp_feats, agg_feats=agg_feats, q_points=q_points, s_points=s_points, weights=w, starts=st)
-    # the block size of #1 (ops/kpconv_kernel.py::banded_kpconv_fused), so
-    # the conv half sums in #1's order
-    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cmid), _ACC_ELEMS >> _pad_shift(dout)))
     out = torch.empty(b, m, dout, dtype=torch.float32, device=agg_feats.device)
     count = torch.empty(b, m, dtype=torch.int32, device=agg_feats.device)
     shortcut = torch.empty(b, m, cin, dtype=mp_feats.dtype, device=agg_feats.device)

@@ -38,7 +38,7 @@ def build_dataset(name: str, cfg, mode: str, synthetic: bool, length: int = 64):
 
         return SyntheticDataset(cfg, mode, length=length)
     raise NotImplementedError(
-        f"the {name!r} dataset loaders are not ported yet (ROADMAP queue 1 item 10); use --synthetic"
+        f"the {name!r} dataset loaders are not ported yet (ROADMAP queue 1 item 2); use --synthetic"
     )
 
 

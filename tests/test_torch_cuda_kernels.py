@@ -8,7 +8,11 @@ only PyTorch (the repo's conftest.py imports JAX, hence ``--noconftest``):
 Tolerances: fp32 KPConv rel <= 1e-3 (rms-floored, summation order
 differs) with equal counts; bf16 KPConv rel <= 5e-2 against the fp32
 plain version; maxpool bit-equal (a select); attention fp32 <= 1e-5 abs,
-bf16 <= 2e-2 abs with the output in q's dtype.  Training kernels, fp32:
+bf16 <= 2e-2 abs with the output in q's dtype, also at ragged shapes on
+the tensor-core body, where each element also lies within bf16's rounding
+(2^-8 relative) of the fp32 plain version on the same bf16 inputs plus
+5e-4, with serving's normalised and with randn queries; the bf16 KPConv (tensor cores) at every width of the
+KITTI FPN on static bands, windows and two membership segments.  Training kernels, fp32:
 the aggregate rel <= 1e-3 with equal counts, the transposed aggregate
 rel <= 1e-4, tie counts bit-equal, the maxpool backward rel <= 1e-5, and
 the autograd Functions' gradients against autograd of the plain versions
@@ -155,6 +159,81 @@ def test_attention_kernel_matches_plain(cuda_device):
     out = fused_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert out.dtype == torch.bfloat16
     assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+def bf16_excess(out, ref) -> float:
+    """How far a bf16 output lies beyond bf16's rounding of an fp32 result:
+    max(|out - ref| - 2^-8 |ref|), 2^-8 being bf16's unit roundoff."""
+    ref = ref.double()
+    return ((out.double() - ref).abs() - ref.abs() * 2.0**-8).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("queries", ["normalised", "randn"])
+@pytest.mark.parametrize("b,l,s_len", [(2, 1, 1280), (2, 1000, 1100), (2, 1280, 40), (8, 1280, 1280)])
+def test_attention_tensor_core_kernel_matches_plain(cuda_device, b, l, s_len, queries):
+    """The bf16 tensor-core body at ragged shapes (one query, tails of L
+    and S, S under one 64-key chunk) and at the serving shape, with
+    serving's sequence-normalised queries (logits near 0, a near-uniform
+    softmax) and with plain randn queries (logit std ~1): abs <= 2e-2
+    against the fp32 plain version and each element within bf16's rounding
+    of the fp32 plain version on the same bf16 inputs plus 5e-4, output
+    bf16.  A kernel that dropped Q K^T, the 1/sqrt(D) or P V errs by more
+    than 4e-3."""
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(b, l, 4, 32, generator=g).to(cuda_device)
+    if queries == "normalised":
+        q = q / q.norm(dim=1, keepdim=True)
+    k, v = (torch.randn(b, s_len, 4, 32, generator=g).to(cuda_device) for _ in range(2))
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ref = fused_attention_plain(qb.float(), kb.float(), vb.float())
+    out = fused_attention(qb, kb, vb)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == qb.shape
+    assert (out.float() - fused_attention_plain(q, k, v)).abs().max().item() <= 2e-2
+    assert bf16_excess(out, ref) <= 5e-4
+
+
+@pytest.mark.gpu
+def test_attention_refuses_unaligned_bf16_inputs(cuda_device):
+    """The bf16 body reads k and v in 16-byte copies: a contiguous view that
+    starts off a 16-byte boundary is refused, not faulted on."""
+    base = torch.randn(1 + 64 * 4 * 32, device=cuda_device).bfloat16()
+    q = base[1:].view(1, 64, 4, 32)
+    ok = base[:-1].view(1, 64, 4, 32)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    for args in ((q, ok, ok), (ok, q, ok), (ok, ok, q)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fused_attention(*args)
+    assert fused_attention(ok, ok, ok).dtype == torch.bfloat16
+
+
+MMA_MODES = {"static": (1024, 2048, 256, False), "w192": (1024, 2048, 192, True),
+             "two_segments": (512, 4096, 1024, False)}  # a 3072-row band
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(MMA_MODES))
+@pytest.mark.parametrize("cin,cout", [(4, 64), (32, 32), (64, 64), (128, 128), (256, 256), (512, 512),
+                                      (32, 64), (512, 32), (64, 256)])
+def test_kpconv_tensor_core_kernel_matches_plain(cuda_device, cin, cout, mode):
+    """Kernel #1 in bf16 (csrc/kpconv_mma.cuh) at every (Cin, Cout) of the
+    KITTI FPN and three pairs outside it, on static bands, w192 windows and
+    a band of two membership segments: counts bit-equal to the plain
+    version, rel <= 5e-2 against the fp32 plain version.  Cin = 4 gets fp32
+    features, as encoder1_1 does in serving."""
+    m, n, width, dynamic = MMA_MODES[mode]
+    q, s = clouds(m, n, cuda_device, lone=4)
+    g = torch.Generator().manual_seed(cin)
+    f = torch.randn(2, n, cin, generator=g).to(cuda_device)
+    w = (torch.randn(15, cin, cout, generator=g) / cin**0.5).to(cuda_device)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, width, "best", 1) if dynamic else None
+    ref, ref_cnt = banded_kpconv_fused_plain(f, q, s, w, R, S, 15, 128, width, torch.float32, starts)
+    fb = f if cin == 4 else f.bfloat16()
+    out, cnt = banded_kpconv_fused(fb, q, s, w, R, S, 15, 128, width, torch.bfloat16, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, ref_cnt)
+    assert rel_err(out, ref) <= 5e-2
 
 
 def tied_features(s, c, device, seed=0):
@@ -386,6 +465,7 @@ def test_window_and_tau_functions_match_plain_autograd(cuda_device):
     (1024, 2048, 128, 32, 256, False),  # encoder2_1's widths, static band of 768 rows
     (1024, 2048, 1024, 256, 192, True),  # encoder5_1's widths on w192 windows
     (512, 4096, 256, 64, 1024, False),  # a 3072-row band: two membership segments
+    (1024, 2048, 512, 128, 192, True),  # encoder4_1's widths on w192 windows
 ])
 def test_residual_fused_kernel_matches_plain_and_the_pair(cuda_device, m, n, cin, cmid, width, dynamic):
     q, s = clouds(m, n, cuda_device, lone=8)

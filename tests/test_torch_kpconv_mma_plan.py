@@ -1,0 +1,203 @@
+"""The tensor-core KPConv's block plan (csrc/kpconv_mma_plan.cuh) on the CPU,
+so that a launch the card would refuse (too much shared memory, too many
+registers, a block that does not tile the band) shows here and not on the
+card.
+
+The plan is plain constexpr C++, the one the kernel is built with: the host
+compiler evaluates it here for every width pair the kernel is built for.
+Each pair's block takes a number of queries that divides the 128-query band
+tile, asks for at most 232,448 bytes of shared memory (and the blocks an SM
+must hold fit its 228 KB together), holds at most half its share of
+registers in fp32 accumulators, and its 8 warps tile the aggregate and the
+output exactly.  The pairs built are every padded width the wrapper sends
+to the kernel, so every KPConv of the KITTI FPN (serving's bf16 plan and
+the fp32 static plan) has one; the weight layout the wrapper ships gives
+each lane its B fragments.
+"""
+
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
+from cofii2p_tpu_torch.models.kpconv import KPConvFPN
+from cofii2p_tpu_torch.ops import cuda_lib
+from cofii2p_tpu_torch.ops.kpconv_kernel import MAX_CHANNELS, fused_launch_plan, mma_pad, mma_weights
+
+# the H100's budgets, stated here apart from the header's own static_asserts
+SMEM_PER_BLOCK, SMEM_PER_SM, REGS_PER_SM, THREADS = 232448, 233472, 65536, 256
+WIDTHS = (32, 64, 128, 256, 512)
+PAIRS = [(ci, co) for ci in WIDTHS for co in WIDTHS]
+FIELDS = ("ci", "co", "tq", "rb", "smem", "min_blocks", "acc_regs", "wma", "wna", "ma", "na", "wmo", "wno", "mo", "no")
+TILES = (1, 8, 16, 32, 64, 128)
+
+PLAN_DUMP = r"""
+#include <cstdio>
+#include "kpconv_mma_plan.cuh"
+
+template <int CI, int CO>
+void row() {
+  using P = cofii2p::MmaPlan<CI, CO>;
+  std::printf("plan %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d\n", CI, CO, P::TQ, P::RB, P::SMEM, P::MIN_BLOCKS,
+              P::ACC_REGS, P::WMA, P::WNA, P::MA, P::NA, P::WMO, P::WNO, P::MO, P::NO);
+}
+
+int main() {
+#define ROW(ci, co) row<ci, co>();
+  COFII2P_MMA_WIDTHS(ROW)
+  for (int c = 1; c <= 600; ++c)
+    std::printf("pad %d %d %d\n", c, cofii2p::mma_pad(c), cofii2p::mma_widths(c, 32) ? 1 : 0);
+  const int tiles[] = {1, 8, 16, 32, 64, 128}, plan_tqs[] = {32, 64};
+  for (int tile : tiles)
+    for (int tq : plan_tqs) std::printf("tq %d %d %d\n", tile, tq, cofii2p::mma_tq(tile, tq));
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def built(tmp_path_factory):
+    """What the host compiler makes of csrc/kpconv_mma_plan.cuh: the plan of
+    each pair built, mma_pad and mma_widths over widths 1..600, mma_tq."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a host C++ compiler evaluates the plan header"
+    d = tmp_path_factory.mktemp("mma_plan")
+    src, exe = d / "plan.cc", d / "plan"
+    src.write_text(PLAN_DUMP)
+    res = subprocess.run([cxx, "-std=c++17", "-I", cuda_lib.CSRC, "-o", str(exe), str(src)], capture_output=True,
+                         text=True)
+    assert res.returncode == 0, res.stderr  # a static_assert of the plan fails here
+    out = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout
+    plans, pads, tqs = {}, {}, {}
+    for line in out.splitlines():
+        kind, *vals = line.split()
+        vals = [int(v) for v in vals]
+        if kind == "plan":
+            plans[tuple(vals[:2])] = dict(zip(FIELDS, vals))
+        elif kind == "pad":
+            pads[vals[0]] = (vals[1], bool(vals[2]))
+        else:
+            tqs[tuple(vals[:2])] = vals[2]
+    return plans, pads, tqs
+
+
+def test_every_padded_width_pair_is_built(built):
+    plans, _, _ = built
+    assert sorted(plans) == sorted(PAIRS)
+
+
+@pytest.mark.parametrize("ci,co", PAIRS, ids=[f"{ci}x{co}" for ci, co in PAIRS])
+def test_block_plan_fits_the_card(built, ci, co):
+    p = built[0][(ci, co)]
+    assert 128 % p["tq"] == 0 and p["tq"] % 16 == 0
+    assert p["smem"] <= SMEM_PER_BLOCK
+    assert p["min_blocks"] * (p["smem"] + 1024) <= SMEM_PER_SM  # 1 KB of each block's is the system's
+    assert p["acc_regs"] <= REGS_PER_SM // (THREADS * p["min_blocks"]) // 2  # half the registers for the rest
+    assert p["rb"] % 16 == 0
+    # the 8 warps tile the (TQ, CI) aggregate and the (TQ, CO) output
+    # exactly, in 16 x 8 fragments
+    for wm, wn, mt, nt, width in ((p["wma"], p["wna"], p["ma"], p["na"], ci), (p["wmo"], p["wno"], p["mo"], p["no"], co)):
+        assert wm * wn == THREADS // 32
+        assert wm * mt * 16 == p["tq"] and wn * nt * 8 == width
+
+
+def test_pad_and_widths_agree_with_the_wrapper(built):
+    """The header pads as mma_pad does and takes every width the wrapper
+    sends it (bf16, <= MAX_CHANNELS); each padded width has its pairs."""
+    plans, pads, _ = built
+    for c, (pad, taken) in pads.items():
+        assert pad == mma_pad(c)
+        assert taken == (c <= MAX_CHANNELS)
+        if taken:
+            assert (pad, 32) in plans and (32, pad) in plans
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_queries_per_block_divide_the_tile(built, tile):
+    """The launcher's mma_tq: the largest power of two within the plan that
+    divides the band tile (128 in the FPN, less on a small level)."""
+    tqs = built[2]
+    for tq_max in (32, 64):
+        tq = tqs[(tile, tq_max)]
+        assert tile % tq == 0 and tq <= tq_max and (tq == tq_max or tile % (2 * tq) or 2 * tq > tq_max)
+
+
+PLANS = {
+    "serve": dict(dynamic_plan=SERVE_DYNAMIC_PLAN, dynamic_plan_self=SERVE_DYNAMIC_PLAN_SELF),
+    "fp32_static": dict(),
+}
+
+
+def fpn_convs(plan):
+    """(name, Cin, Cout) of the 14 KPConvs of the KITTI FPN under a band plan."""
+    cfg = KITTIConfig()
+    fpn = KPConvFPN(input_dim=cfg.kpconv_input_dim, init_dim=cfg.kpconv_init_dim, band_plan=cfg.kpconv_band_plan,
+                    **PLANS[plan])
+    return [(name, *mod.KPConv.weights.shape[1:]) for name, mod in fpn.named_children() if name.startswith("encoder")]
+
+
+CASES = [(plan, *conv) for plan in PLANS for conv in fpn_convs(plan)]
+
+
+def test_the_fpn_has_fourteen_convs():
+    for plan in PLANS:
+        convs = fpn_convs(plan)
+        assert len(convs) == 14
+        assert {(c[1], c[2]) for c in convs} == {(4, 64), (32, 32), (64, 64), (128, 128), (256, 256), (512, 512)}
+
+
+@pytest.mark.parametrize("plan,name,cin,cout", CASES, ids=[f"{c[0]}-{c[1]}" for c in CASES])
+def test_fpn_convs_take_the_tensor_core_kernel_in_bf16(built, plan, name, cin, cout):
+    """In bf16 each conv ships W in the tensor-core layout for a pair that
+    is built; in fp32 it keeps the CUDA-core template's fp32 W and <= 32
+    queries a block."""
+    w = torch.randn(15, cin, cout)
+    wk, tq = fused_launch_plan(cin, cout, 128, torch.bfloat16, w)
+    ci, co = mma_pad(cin), mma_pad(cout)
+    assert (ci, co) in built[0]
+    assert wk.dtype == torch.bfloat16 and wk.shape == (15, co, ci) and tq == 0
+    w32, tq32 = fused_launch_plan(cin, cout, 128, torch.float32, w)
+    assert w32.dtype == torch.float32 and torch.equal(w32, w) and 128 % tq32 == 0 and tq32 <= 32
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 64), (8, 8), (64, 128), (600, 64)])
+def test_bf16_widths_over_the_kernel_keep_the_cuda_core_template(cin, cout):
+    """Widths up to MAX_CHANNELS take the tensor-core layout in bf16; wider
+    ones (which the wrapper refuses) and every fp32 call the CUDA-core
+    template's fp32 weights and <= 32 queries a block."""
+    w = torch.randn(15, cin, cout)
+    wk, tq = fused_launch_plan(cin, cout, 128, torch.bfloat16, w)
+    if max(cin, cout) <= MAX_CHANNELS:
+        assert wk.dtype == torch.bfloat16 and wk.shape == (15, mma_pad(cout), mma_pad(cin)) and tq == 0
+    else:
+        assert wk.dtype == torch.float32 and wk.shape == w.shape and 0 < tq <= 32
+    w32, tq32 = fused_launch_plan(cin, cout, 128, torch.float32, w)
+    assert w32.dtype == torch.float32 and torch.equal(w32, w) and 0 < tq32 <= 32
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 64), (512, 512)])
+def test_weight_layout_gives_each_lane_its_b_fragments(cin, cout):
+    """One 16-byte load at (k, n, 32 * s + 8 * t) of mma_weights' layout
+    is lane group t's B fragments (b0, b1) of k-steps 2s and 2s + 1 for
+    output column n: channels 16 ks + 2t, 2t + 1, 8 + 2t, 9 + 2t of each."""
+    rng = np.random.default_rng(0)
+    w = torch.as_tensor(rng.standard_normal((15, cin, cout)).astype(np.float32))
+    ci, co = mma_pad(cin), mma_pad(cout)
+    wt = mma_weights(w, ci, co).float()
+    ref = torch.zeros(15, ci, co)
+    ref[:, :cin, :cout] = w.bfloat16().float()
+    for s in range(ci // 32):
+        for t in range(4):
+            chans = [16 * ks + o + 2 * t + e for ks in (2 * s, 2 * s + 1) for o in (0, 8) for e in (0, 1)]
+            got = wt[:, :, 32 * s + 8 * t: 32 * s + 8 * t + 8]
+            assert torch.equal(got, ref[:, chans, :].transpose(1, 2))
+
+
+def test_plan_header_stands_alone():
+    """The plan header includes nothing, so a host compiler reads it."""
+    with open(os.path.join(cuda_lib.CSRC, "kpconv_mma_plan.cuh")) as fh:
+        assert "#include" not in fh.read()

@@ -202,10 +202,10 @@ def test_knn_dispatch_follows_the_jax_package(monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(kpconv_impl="gather"), "queue 1 item 11"),
-    (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 11"),
+    (dict(kpconv_impl="gather"), "queue 1 item 4"),
+    (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 4"),
     (dict(kpconv_impl="banded_knn", kpconv_knn_window_plan=(0, 128, 0, 0, 0), aggregate_compact_plan=(0, 16, 0, 0, 0)),
-     "queue 1 item 11"),
+     "queue 1 item 4"),
 ])
 def test_network_refuses_unported_variants(override, match):
     """The gather and compacted formulations raise at construction,
@@ -215,6 +215,21 @@ def test_network_refuses_unported_variants(override, match):
 
     with pytest.raises(NotImplementedError, match=match):
         CoFiI2P(TinyConfig(**override))
+
+
+@pytest.mark.parametrize("norm", ["ln", "bogus", "gn"])
+def test_network_honours_cfg_norm(norm):
+    """cfg.norm is read: the point blocks are GroupNorm only, so 'gn'
+    builds and every other value raises (the JAX package builds
+    TorchLayerNorm for 'ln' and refuses the rest, models/layers.py:119-125),
+    instead of silently building a GroupNorm model."""
+    from cofii2p_tpu_torch.config import TinyConfig
+
+    if norm == "gn":
+        assert isinstance(CoFiI2P(TinyConfig(norm=norm)), CoFiI2P)
+        return
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        CoFiI2P(TinyConfig(norm=norm))
 
 
 @pytest.mark.parametrize("dtype,grad", [("float32", False), ("bfloat16", False), ("float32", True)])

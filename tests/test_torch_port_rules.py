@@ -9,7 +9,9 @@ Functions, too, take the plain versions for CPU tensors and never fall
 back for others; chip_smoke.py fails without a card."""
 
 import ast
+import ctypes
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 import cofii2p_tpu_torch
+from cofii2p_tpu_torch.ops import cuda_lib
 from cofii2p_tpu_torch.ops.attention_kernel import fused_attention
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
     BandedKPConvFn,
@@ -100,6 +103,13 @@ def _kpconv(device, dtype=torch.float32, grad=False):
     g, pts, f = _inputs(device, dtype, grad)
     w = torch.randn(15, 8, 8, generator=g).to(device)
     return lambda: banded_kpconv_fused(f, pts, pts, w, 0.85, 0.4, 15, 128, 64)
+
+
+def _kpconv_bf16(device, dtype=torch.bfloat16, grad=False):
+    """bf16 compute on the widths of the tensor-core kernel (8 pads to 32)."""
+    g, pts, f = _inputs(device, dtype, grad)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_kpconv_fused(f, pts, pts, w, 0.85, 0.4, 15, 128, 64, torch.bfloat16)
 
 
 def _aggregate(device, dtype=torch.float32, grad=False):
@@ -209,6 +219,12 @@ def _residual(device, dtype=torch.float32, grad=False):
     return lambda: banded_residual_fused(f, f, w, pts, pts, 0.85, 0.4, 15, 128, 64)
 
 
+def _residual_bf16(device, dtype=torch.bfloat16, grad=False):
+    g, pts, f = _inputs(device, dtype, grad)
+    w = torch.randn(15, 8, 8, generator=g).to(device)
+    return lambda: banded_residual_fused(f, f, w, pts, pts, 0.85, 0.4, 15, 128, 64, torch.bfloat16)
+
+
 def _attention(device, dtype=torch.float32, grad=False):
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 32, generator=g).to(device, dtype).requires_grad_(grad)
@@ -230,7 +246,10 @@ WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool
             "maxpool_count_tau": (banded_maxpool_tie_count_fused, _tie_count_tau),
             "maxpool_bwd_dyn": (banded_maxpool_backward_dyn_fused, _maxpool_bwd_dyn),
             "maxpool_bwd_tau": (banded_maxpool_backward_tau_fused, _maxpool_bwd_tau),
-            "residual_fused": (banded_residual_fused, _residual)}
+            "residual_fused": (banded_residual_fused, _residual),
+            "kpconv_bf16": (banded_kpconv_fused, _kpconv_bf16),
+            "residual_fused_bf16": (banded_residual_fused, _residual_bf16),
+            "attention_bf16": (fused_attention, lambda device, grad=False: _attention(device, torch.bfloat16, grad))}
 # tau is a function of coordinates only: it has no input to refuse
 GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau"})
 # the k-NN forward wrappers and the autograd Function each names
@@ -282,6 +301,35 @@ def test_tau_wrappers_name_their_missing_backward(name):
     with pytest.raises(RuntimeError, match=TAU_BACKWARDS[name]):
         make("meta", grad=True)()
     assert wrapper.launches == 0
+
+
+def _c_launchers() -> dict:
+    """Each ``extern "C"`` launcher of csrc/*.cu: its parameter list."""
+    found = {}
+    for f in sorted(os.listdir(cuda_lib.CSRC)):
+        if f.endswith(".cu"):
+            src = open(os.path.join(cuda_lib.CSRC, f)).read()
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+                found[m.group(1)] = [" ".join(a.split()) for a in m.group(2).split(",")]
+    return found
+
+
+def test_every_launcher_has_a_signature():
+    assert set(_c_launchers()) == set(cuda_lib.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(cuda_lib.SIGNATURES))
+def test_launcher_signature_matches_its_c_source(name):
+    """ctypes passes each argument as SIGNATURES types it: a pointer (and
+    the stream) as a void pointer, an int as an int, a float as a float,
+    so a launcher whose parameters changed in C fails here, not on the
+    card with a cut pointer."""
+    params = _c_launchers()[name]
+    sig = cuda_lib.SIGNATURES[name]
+    assert len(params) == len(sig)
+    for p, t in zip(params, sig):
+        want = ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float") else ctypes.c_int
+        assert t is want, f"{name}: {p!r} bound as {t.__name__}"
 
 
 def _fn_kpconv(device):
