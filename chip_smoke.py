@@ -25,7 +25,9 @@ the last line):
            tau KPConv fused and aggregate, tau maxpool) at the `.t7`
            path's fp32 shapes, B=8, on the same clouds, so that k-th and
            (k+1)-th distances and maxima tie: tau and the maxpool bit-equal,
-           the KPConvs with equal active-row counts; the backward kernels of
+           the KPConvs (tensor cores, fp32 by 3xTF32) at every width of the
+           FPN, on bands of one membership segment and of two (2176 and
+           2304 rows), with equal active-row counts; the backward kernels of
            `train --fast` (window transpose, window maxpool backward, the
            tie count on windows) on the w256 windows and of `banded_knn`
            training (tau transpose, tau maxpool backward, the tie count by
@@ -168,8 +170,8 @@ KERNELS = {
     "maxpool_count": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:315"),
     "maxpool_bwd": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:537"),
     "knn_tau": ("cofii2p_tpu_torch/csrc/knn_tau.cu", "cofii2p_tpu/ops/tau_kernel.py:110"),
-    "kpconv_aggregate_tau": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:691"),
-    "kpconv_fused_tau": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:1212"),
+    "kpconv_aggregate_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:691"),
+    "kpconv_fused_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1212"),
     "maxpool_tau": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:657"),
     "kpconv_transpose_dyn": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:442"),
     "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:826"),
@@ -550,8 +552,11 @@ def check_knn_kernels(device, gen, tally, cfg):
     (query level, support level) pair of the FPN, bit-equal (its
     library_ms is torch.topk over the same (tile, band) d2 blocks); the tau
     KPConvs with per-layer kernel points and features of both signs, equal
-    active-row counts, fp32 rel <= 1e-4 and bf16 rel <= 5e-2 (kernel #1's);
-    the tau maxpool bit-equal in fp32 and bf16."""
+    active-row counts, fp32 rel <= 1e-4 and bf16 rel <= 5e-2 (kernel #1's),
+    at every width of the FPN (#6 at Cin 512, where the FPN takes it, and
+    at lvl0's Cin 32, banded_knn training's largest write) and on bands of
+    over 2048 rows (encoder4_2's 2176, encoder5_1's 2304); the tau maxpool
+    bit-equal in fp32 and bf16."""
     import torch
 
     from cofii2p_tpu_torch.ops.banded import _load_kernel_points, _membership_d2, _tiles, band_plan
@@ -597,9 +602,12 @@ def check_knn_kernels(device, gen, tally, cfg):
 
     # --- #7 fused and #6 aggregate tau KPConvs -------------------------------
     kgen = torch.Generator().manual_seed(1)
-    cases = [("enc1_2 lvl0 C32", 0, 0, 32, 32, r0, s0), ("enc3_2 lvl2 C128", 2, 2, 128, 128, r0 * 4, s0 * 4),
-             ("enc5_1 lvl4<-lvl3 C256", 4, 3, 256, 256, r0 * 8, s0 * 8),
-             ("enc5_2 lvl4 C512, aggregate", 4, 4, 512, 0, r0 * 16, s0 * 16)]
+    cases = [("enc1_1 lvl0 C4->64", 0, 0, 4, 64, r0, s0), ("enc1_2 lvl0 C32", 0, 0, 32, 32, r0, s0),
+             ("enc2_2 lvl1 C64", 1, 1, 64, 64, r0 * 2, s0 * 2), ("enc3_2 lvl2 C128", 2, 2, 128, 128, r0 * 4, s0 * 4),
+             ("enc4_2 lvl3 C256 (two segments)", 3, 3, 256, 256, r0 * 8, s0 * 8),
+             ("enc5_1 lvl4<-lvl3 C256 (two segments)", 4, 3, 256, 256, r0 * 8, s0 * 8),
+             ("enc5_2 lvl4 C512, aggregate", 4, 4, 512, 0, r0 * 16, s0 * 16),
+             ("enc1_2 lvl0 C32, aggregate", 0, 0, 32, 0, r0, s0)]
     for name, ql, sl, cin, cout, r, sg in cases:
         q, s, bw, tau = levels[ql], levels[sl], plan[sl], taus[(ql, sl)]
         base = torch.randn(b, levels[0].shape[1], cin, generator=gen).to(device)
@@ -621,21 +629,25 @@ def check_knn_kernels(device, gen, tally, cfg):
         if not torch.equal(cnt, ref_cnt) or e32 > 1e-4:
             raise PhaseError(f"{kname} {name}: counts differ at {(cnt != ref_cnt).sum().item()} queries "
                              f"({near0} rows sum to within 1e-6 of 0), fp32 rel err {e32:.3e} (<= 1e-4)")
-        fb = f.to(torch.bfloat16)
-        args16 = (fb,) + args[1:] + (torch.bfloat16,)
-        out16, cnt16 = kern(*args16)
-        cnt16_ref = plain(*args16)[1]
-        torch.cuda.synchronize()
-        e16 = rel_err(out16, ref)
-        if not torch.equal(cnt16, cnt16_ref) or e16 > 5e-2:
-            raise PhaseError(f"{kname} {name}: bf16 counts differ at {(cnt16 != cnt16_ref).sum().item()} queries, "
-                             f"bf16 rel err {e16:.3e} (<= 5e-2)")
+        # bf16 on bf16 features; at Cin = 4 also on fp32 ones, as encoder1_1 takes them
+        e16 = 0.0
+        for fb in (f.to(torch.bfloat16), f) if cin == 4 else (f.to(torch.bfloat16),):
+            args16 = (fb,) + args[1:] + (torch.bfloat16,)
+            out16, cnt16 = kern(*args16)
+            cnt16_ref = plain(*args16)[1]
+            torch.cuda.synchronize()
+            e = rel_err(out16, ref)
+            if not torch.equal(cnt16, cnt16_ref) or e > 5e-2:
+                raise PhaseError(f"{kname} {name}: bf16 on {fb.dtype} features: counts differ at "
+                                 f"{(cnt16 != cnt16_ref).sum().item()} queries, bf16 rel err {e:.3e} (<= 5e-2)")
+            e16 = max(e16, e)
         k_ms = time_ms(lambda: kern(*args))
         p_ms = time_ms(lambda: plain(*args), 3)
         bd = call_bound(f"banded_{kname}", args)
         tally.add(kname, (out - ref).abs().max().item(), k_ms, p_ms, bd)
         active = float((sums > 0).float().mean())
-        say("kernels", f"{kname} {name} B={b} M={q.shape[1]} N={s.shape[1]}: counts equal (active rows "
+        band = band_plan(q.shape[1], s.shape[1], 128, bw)[2]
+        say("kernels", f"{kname} {name} B={b} M={q.shape[1]} N={s.shape[1]} band {band}: counts equal (active rows "
             f"{active:.2f}, {near0} sums within 1e-6 of 0), fp32 rel {e32:.2e}, bf16 rel {e16:.2e}; fp32 kernel "
             f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
         del base, f, fb, out, ref, out16

@@ -1,7 +1,7 @@
 // Launchers of the banded KPConv kernels: kernels #1 (fused) and #2
-// (aggregate), and under k-NN semantics #7 and #6, on the CUDA-core
-// template (kpconv_fused.cuh); #1 in bf16 on the tensor cores
-// (kpconv_mma.cuh).
+// (aggregate) on the CUDA-core template (kpconv_fused.cuh); #1 in bf16 on
+// the tensor cores (kpconv_mma.cuh).  The k-NN variants, #7 and #6, are
+// launched from kpconv_tau.cu.
 
 #include "kpconv_mma.cuh"
 
@@ -80,85 +80,6 @@ extern "C" int kpconv_aggregate_launch(
     launch<a, 0, false>(grid, st, qp, sp, f, f_bf16, nullptr, kpp, stp, wp, cp, \
                         M, N, Cin, 0, K, tile, num_tiles, band, TQ, cs, 0, r2, \
                         sigma, round);
-  COFII2P_LAUNCH(0)
-  COFII2P_LAUNCH(1)
-  COFII2P_LAUNCH(2)
-#undef COFII2P_LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The k-NN (tau) variants, kernels #7 (fused) and #6 (aggregate): the
-// arguments of kpconv_fused_launch / kpconv_aggregate_launch plus tau
-// (B, M) fp32 and active (B, N) int32 scratch; kp is the layer's own
-// (K, 3) kernel points and r2 the padded reach.
-extern "C" int kpconv_fused_tau_launch(
-    const void* q, const void* s, const void* f, int f_bf16, const void* W,
-    const void* kp, const void* starts, const void* tau, void* active,
-    void* out, void* count, int B, int M, int N, int Cin, int Cout, int K,
-    int tile, int num_tiles, int band, int TQ, int round, float r2,
-    float sigma, void* stream) {
-  const int cs = log2_pad(Cin), os = log2_pad(Cout);
-  const int A = cs < 8 ? 0 : 1 << (cs - 8);
-  const int AO = os < 8 ? 0 : 1 << (os - 8);
-  if (A > 2 || AO > 2 || TQ < 1 || TQ > kMaxTQ || tile % TQ || M % TQ ||
-      (TQ << cs) > kAccElems || (TQ << os) > kAccElems || band > N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(M / TQ, B);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto act = static_cast<int*>(active);
-  launch_active(st, f, f_bf16, B, N, Cin, act);
-  auto qp = static_cast<const float*>(q);
-  auto sp = static_cast<const float*>(s);
-  auto wp = static_cast<const float*>(W);
-  auto kpp = static_cast<const float*>(kp);
-  auto stp = static_cast<const int*>(starts);
-  auto tp = static_cast<const float*>(tau);
-  auto op = static_cast<float*>(out);
-  auto cp = static_cast<int*>(count);
-#define COFII2P_LAUNCH(a, ao)                                                   \
-  if (A == a && AO == ao)                                                       \
-    launch<a, ao, true, true>(grid, st, qp, sp, f, f_bf16, wp, kpp, stp, op,    \
-                              cp, M, N, Cin, Cout, K, tile, num_tiles, band,    \
-                              TQ, cs, os, r2, sigma, round, tp, act);
-  COFII2P_LAUNCH(0, 0)
-  COFII2P_LAUNCH(0, 1)
-  COFII2P_LAUNCH(0, 2)
-  COFII2P_LAUNCH(1, 0)
-  COFII2P_LAUNCH(1, 1)
-  COFII2P_LAUNCH(1, 2)
-  COFII2P_LAUNCH(2, 0)
-  COFII2P_LAUNCH(2, 1)
-  COFII2P_LAUNCH(2, 2)
-#undef COFII2P_LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int kpconv_aggregate_tau_launch(
-    const void* q, const void* s, const void* f, int f_bf16, const void* kp,
-    const void* starts, const void* tau, void* active, void* weighted,
-    void* count, int B, int M, int N, int Cin, int K, int tile, int num_tiles,
-    int band, int TQ, int round, float r2, float sigma, void* stream) {
-  const int cs = log2_pad(Cin);
-  const int A = cs < 8 ? 0 : 1 << (cs - 8);
-  if (A > 2 || TQ < 1 || TQ > kMaxTQ || tile % TQ || M % TQ ||
-      (TQ << cs) > kAccElems || band > N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(M / TQ, B);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto act = static_cast<int*>(active);
-  launch_active(st, f, f_bf16, B, N, Cin, act);
-  auto qp = static_cast<const float*>(q);
-  auto sp = static_cast<const float*>(s);
-  auto kpp = static_cast<const float*>(kp);
-  auto stp = static_cast<const int*>(starts);
-  auto tp = static_cast<const float*>(tau);
-  auto wp = static_cast<float*>(weighted);
-  auto cp = static_cast<int*>(count);
-#define COFII2P_LAUNCH(a)                                                       \
-  if (A == a)                                                                   \
-    launch<a, 0, false, true>(grid, st, qp, sp, f, f_bf16, nullptr, kpp, stp,   \
-                              wp, cp, M, N, Cin, 0, K, tile, num_tiles, band,   \
-                              TQ, cs, 0, r2, sigma, round, tp, act);
   COFII2P_LAUNCH(0)
   COFII2P_LAUNCH(1)
   COFII2P_LAUNCH(2)

@@ -25,7 +25,8 @@
 // block (an ordered list in shared memory), so the 15 passes only touch
 // rows that contribute.  This template runs on the CUDA cores; #1 in bf16
 // (every serving call, and #16's conv half in bf16) runs the tensor-core
-// kernel of kpconv_mma.cuh instead.  The aggregate variant is bound by
+// kernel of kpconv_mma.cuh instead, and the k-NN (tau) variants, #7 and #6,
+// run kpconv_tau_mma.cuh in both precisions.  The aggregate variant is bound by
 // writing its (B, M, 15, Cin) fp32 output (up to 315 MB a call at B = 8): each
 // thread writes acc_k straight from registers, one coalesced row of Cin
 // channels per query, instead of parking it; membership, influence and
@@ -43,18 +44,6 @@
 // bf16 rounding points follow the TPU kernel: influence and features are
 // rounded to the compute dtype before their product, the fp32 accumulator
 // is rounded before the contraction, W arrives already rounded.
-//
-// TAU (kernels #6 and #7): the k-NN semantics of a reference checkpoint,
-// replacing banded_kpconv_aggregate_tau_pallas (_agg_kernel_tau) and
-// banded_kpconv_fused_tau_pallas (_agg_fused_kernel_tau).  A band row j is
-// in query m's neighbourhood where d2 <= tau[m] (kernel #5's threshold),
-// and is aggregated where also d2 <= r2, the reach padded 10% for the
-// layer's own kernel points kp; the count is the reference's active-row
-// rule, max(#{d2 <= tau[m] and active[j]}, 1), active[j] = (sum_c f_j > 0
-// in fp32), taken once per support row by row_active_kernel (one warp a
-// row, a fixed summation order) before the main pass.  d2 stays centred
-// on the first query of the 128-row band tile, as tau's producer centres
-// it, so membership at exact ties is the producer's.
 //
 // POOL (kernel #16, csrc/residual_fused.cu): the strided ResidualBlock's
 // shortcut maxpool rides on the membership pass.  While the first kernel
@@ -169,12 +158,10 @@ __device__ __forceinline__ void pool_segment(const unsigned* mask, const void* f
 // same for the output width.
 // CONTRACT: out (B, M, Cout) = sum_k acc_k @ W_k; otherwise out is the
 // aggregate (B, M, K, Cin) and W is unused.
-// TAU: membership d2 <= tau[m] (and d2 <= r2 for the aggregate), count
-// over the rows flagged in ``active``.
-// POOL (radius membership only): also mp_out (B, M, Cmp) in mp_feats'
+// POOL: also mp_out (B, M, Cmp) in mp_feats'
 // dtype = the max of mp_feats (B, N, Cmp) over the in-reach band rows, 0
 // where there is none.
-template <int A, int AO, bool CONTRACT, bool TAU = false, bool POOL = false>
+template <int A, int AO, bool CONTRACT, bool POOL = false>
 __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const void* __restrict__ feats, int f_bf16, const float* __restrict__ W,
@@ -182,12 +169,9 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     float* __restrict__ out, int* __restrict__ count, int M, int N, int Cin,
     int Cout, int K, int tile, int num_tiles, int band, int TQ, int cin_shift,
     int cout_shift, float r2, float sigma, int round,
-    const float* __restrict__ tau, const int* __restrict__ active,
     const void* __restrict__ mp_feats, int mp_bf16, int Cmp,
     void* __restrict__ mp_out) {
-  static_assert(!(POOL && TAU), "the fused shortcut has radius membership");
   __shared__ float qc_s[kMaxTQ * 3];
-  __shared__ float thr_s[kMaxTQ];
   __shared__ float qa_s[kMaxTQ * 3];  // uncentred, for the influence
   __shared__ float pc_s[kRB * 3];
   __shared__ float pa_s[kRB * 3];
@@ -213,10 +197,7 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     qa_s[i] = q_pts[((long)b * M + m0) * 3 + i];
     qc_s[i] = __fsub_rn(qa_s[i], ref_p[i % 3]);
   }
-  for (int i = tid; i < TQ; i += kThreads) {
-    cnt_s[i] = 0;
-    if (TAU) thr_s[i] = tau[(long)b * M + m0 + i];
-  }
+  for (int i = tid; i < TQ; i += kThreads) cnt_s[i] = 0;
   __syncthreads();
 
   // thread -> (query, channel) maps of the accumulator and the output
@@ -248,28 +229,18 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
           const int j = r0 + tid;
           const bool valid = j < seg1;
           float px = 0.f, py = 0.f, pz = 0.f;
-          bool act_j = false;
           if (valid) {
             px = __fsub_rn(srow[j * 3], ref0);
             py = __fsub_rn(srow[j * 3 + 1], ref1);
             pz = __fsub_rn(srow[j * 3 + 2], ref2);
-            if (TAU) act_j = active[(long)b * N + start + j] != 0;
           }
           bool any = false;
           for (int q = 0; q < TQ; ++q) {
             const float d2 = cofii2p::membership_d2(qc_s + 3 * q, px, py, pz);
-            bool in, counted;
-            if (TAU) {
-              const bool wtau = valid && d2 <= thr_s[q];
-              in = wtau && d2 <= r2;
-              counted = wtau && act_j;
-            } else {
-              in = valid && d2 <= r2;
-              counted = in;
-            }
+            const bool in = valid && d2 <= r2;
             any |= in;
             if (k == 0) {
-              const unsigned bits = __ballot_sync(0xffffffffu, counted);
+              const unsigned bits = __ballot_sync(0xffffffffu, in);
               if (lane == 0 && bits) atomicAdd(&cnt_s[q], __popc(bits));
               if (POOL && lane == 0) mask[q * kWords + (r0 - seg0) / 32 + warp] = bits;
             }
@@ -326,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
             const float* qc = qc_s + 3 * q;
             const float* pc = pc_s + 3 * r;
             const float d2 = cofii2p::membership_d2(qc, pc[0], pc[1], pc[2]);
-            if (d2 <= r2 && (!TAU || d2 <= thr_s[q])) {
+            if (d2 <= r2) {
               const float* qa = qa_s + 3 * q;
               const float* pa = pa_s + 3 * r;
               const float dx = (pa[0] - qa[0]) - kx;
@@ -452,41 +423,18 @@ inline int log2_pad(int x) {
   return s;
 }
 
-// active[r] = (sum_c f[r, c] > 0) in fp32 over R rows of C channels: one
-// warp a row, lane-strided partial sums reduced in a fixed order.
-__global__ void __launch_bounds__(kThreads) row_active_kernel(
-    const void* __restrict__ feats, int f_bf16, long R, int C, int* __restrict__ active) {
-  const long row = (long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= R) return;
-  float sum = 0.f;
-  for (int c = lane; c < C; c += 32) sum += cofii2p::load_f(feats, row * C + c, f_bf16);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  if (lane == 0) active[row] = sum > 0.f;
-}
-
-template <int A, int AO, bool CONTRACT = true, bool TAU = false, bool POOL = false>
+template <int A, int AO, bool CONTRACT = true, bool POOL = false>
 void launch(dim3 grid, cudaStream_t st, const float* q, const float* s,
             const void* f, int f_bf16, const float* W, const float* kp,
             const int* starts, float* out, int* count, int M, int N, int Cin,
             int Cout, int K, int tile, int num_tiles, int band, int TQ,
             int cs, int os, float r2, float sigma, int round,
-            const float* tau = nullptr, const int* active = nullptr,
             const void* mp_feats = nullptr, int mp_bf16 = 0, int Cmp = 0,
             void* mp_out = nullptr) {
-  kpconv_fused_kernel<A, AO, CONTRACT, TAU, POOL><<<grid, kThreads, 0, st>>>(
+  kpconv_fused_kernel<A, AO, CONTRACT, POOL><<<grid, kThreads, 0, st>>>(
       q, s, f, f_bf16, W, kp, starts, out, count, M, N, Cin, Cout, K, tile,
-      num_tiles, band, TQ, cs, os, r2, sigma, round, tau, active, mp_feats,
-      mp_bf16, Cmp, mp_out);
-}
-
-// the active flags of every support row, ahead of a TAU pass
-inline void launch_active(cudaStream_t st, const void* f, int f_bf16, int B, int N, int C, int* active) {
-  const long rows = (long)B * N;
-  const int per_block = kThreads / 32;
-  row_active_kernel<<<static_cast<unsigned>((rows + per_block - 1) / per_block), kThreads, 0, st>>>(
-      f, f_bf16, rows, C, active);
+      num_tiles, band, TQ, cs, os, r2, sigma, round, mp_feats, mp_bf16, Cmp,
+      mp_out);
 }
 
 }  // namespace

@@ -28,6 +28,8 @@
 //    32-channel group, so one 16-byte load from L2 is a lane's B fragment
 //    pair for two k-steps: W is read once per block, half the bytes of the
 //    fp32 copy the CUDA-core template takes.
+// The row list, the chunk loader and both products are mma.cuh's, shared
+// with the k-NN (tau) kernel of kpconv_tau_mma.cuh.
 // Once the products are this cheap, a zero-influence pair costs a bit test
 // and a zero, so a block takes 64 queries (32 at 512 channels, MmaPlan),
 // not <= 32; up to 128 channels two blocks share an SM, so that one
@@ -163,7 +165,7 @@ __global__ void __launch_bounds__(kThreads, (MmaPlan<CI, CO>::MIN_BLOCKS)) kpcon
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[i][j][e] = 0.f;
 
-  const bool f_vec = f_bf16 && (Cin & 7) == 0 && (reinterpret_cast<uintptr_t>(feats) & 15) == 0;
+  const bool f_vec = cofii2p::stage_vec<__nv_bfloat16>(feats, f_bf16, Cin);
   const bool one_seg = band <= kSeg;
   for (int k = 0; k < K; ++k) {
     const float kx = kp[k * 3], ky = kp[k * 3 + 1], kz = kp[k * 3 + 2];
@@ -202,17 +204,7 @@ __global__ void __launch_bounds__(kThreads, (MmaPlan<CI, CO>::MIN_BLOCKS)) kpcon
               if (k == 0 && bits) atomicAdd(&cnt_s[q], __popc(bits));
             }
           }
-          const unsigned flags = __ballot_sync(0xffffffffu, any);
-          if (lane == 0) warp_tot[warp] = __popc(flags);
-          __syncthreads();
-          int off = base, total = 0;
-          for (int w = 0; w < kThreads / 32; ++w) {
-            if (w < warp) off += warp_tot[w];
-            total += warp_tot[w];
-          }
-          if (any) act[off + __popc(flags & ((1u << lane) - 1u))] = j - seg0;
-          base += total;
-          __syncthreads();
+          base = cofii2p::append_rows(any, j - seg0, act, base, warp_tot, lane, warp);
         }
         if (tid == 0) *n_act_s = base;
         __syncthreads();
@@ -242,27 +234,8 @@ __global__ void __launch_bounds__(kThreads, (MmaPlan<CI, CO>::MIN_BLOCKS)) kpcon
       // the features of active rows [c * RB, c * RB + RB) as bf16 into a
       // slot, zero past the list and past Cin
       auto load_chunk = [&](int c, int slot) {
-        __nv_bfloat16* dst = F_s + slot * P::RB * P::F_STRIDE;
-        const int a0 = c * P::RB;
-        if (f_vec) {
-          constexpr int kPieces = CI / 8;
-          for (int i = tid; i < P::RB * kPieces; i += kThreads) {
-            const int r = i / kPieces, col = (i % kPieces) * 8;
-            const bool live = a0 + r < n_act && col < Cin;
-            const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(feats) +
-                                       (live ? frow0 + (long)(seg0 + act[a0 + r]) * Cin + col : 0);
-            cofii2p::cp_async16(dst + r * P::F_STRIDE + col, src, live ? 16 : 0);
-          }
-        } else {
-          for (int i = tid; i < P::RB * CI; i += kThreads) {
-            const int r = i / CI, col = i % CI;
-            float v = 0.f;
-            if (a0 + r < n_act && col < Cin)
-              v = cofii2p::load_f(feats, frow0 + (long)(seg0 + act[a0 + r]) * Cin + col, f_bf16);
-            dst[r * P::F_STRIDE + col] = __float2bfloat16(v);
-          }
-        }
-        cofii2p::cp_async_commit();
+        cofii2p::stage_rows<P, CI>(F_s + slot * P::RB * P::F_STRIDE, feats, f_bf16, f_vec, Cin,
+                                   frow0 + (long)seg0 * Cin, act, c * P::RB, n_act, tid);
       };
 
       if (n_chunks > 0) load_chunk(0, 0);
@@ -294,83 +267,20 @@ __global__ void __launch_bounds__(kThreads, (MmaPlan<CI, CO>::MIN_BLOCKS)) kpcon
         __syncthreads();
 
         // acc_k += infl (TQ, RB) @ f (RB, CI)
-        const __nv_bfloat16* Fs = F_s + slot * P::RB * P::F_STRIDE;
-#pragma unroll
-        for (int ks = 0; ks < P::RB / 16; ++ks) {
-          uint32_t af[P::MA][4];
-#pragma unroll
-          for (int i = 0; i < P::MA; ++i)
-            cofii2p::ldsm_x4(af[i], A_s + ((wma * P::MA + i) * 16 + (lane & 15)) * P::A_STRIDE + ks * 16 +
-                                        (lane >> 4) * 8);
-#pragma unroll
-          for (int jn = 0; jn < P::NA; ++jn) {
-            uint32_t bf[2];
-            cofii2p::ldsm_x2_trans(bf, Fs + (ks * 16 + (lane & 15)) * P::F_STRIDE + (wna * P::NA + jn) * 8);
-#pragma unroll
-            for (int i = 0; i < P::MA; ++i) cofii2p::mma_bf16(acc[i][jn], af[i], bf[0], bf[1]);
-          }
-        }
+        cofii2p::aggregate_bf16<P>(acc, A_s, F_s + slot * P::RB * P::F_STRIDE, wma, wna, lane);
         __syncthreads();  // the next chunk's influence and load reuse A_s and this slot
       }
     }
 
-    // park acc_k rounded to bf16 as a (TQ, CI) matrix
-#pragma unroll
-    for (int i = 0; i < P::MA; ++i) {
-#pragma unroll
-      for (int jn = 0; jn < P::NA; ++jn) {
-        const int row = (wma * P::MA + i) * 16 + g, col = (wna * P::NA + jn) * 8 + 2 * t4;
-        *reinterpret_cast<uint32_t*>(P_s + row * P::P_STRIDE + col) = cofii2p::pack_bf16(acc[i][jn][0], acc[i][jn][1]);
-        *reinterpret_cast<uint32_t*>(P_s + (row + 8) * P::P_STRIDE + col) =
-            cofii2p::pack_bf16(acc[i][jn][2], acc[i][jn][3]);
-      }
-    }
-    __syncthreads();
-
+    // park acc_k rounded to bf16 as a (TQ, CI) matrix, then
     // out += acc_k (TQ, CI) @ W_k (CI, CO)
-    const __nv_bfloat16* Wk = Wt + (long)k * CO * CI;
-#pragma unroll 2
-    for (int ks2 = 0; ks2 < CI / 32; ++ks2) {
-      uint4 wf[P::NO];
-#pragma unroll
-      for (int jn = 0; jn < P::NO; ++jn) {
-        const int n = (wno * P::NO + jn) * 8 + g;
-        wf[jn] = *reinterpret_cast<const uint4*>(Wk + (long)n * CI + ks2 * 32 + t4 * 8);
-      }
-      uint32_t af[P::MO][2][4];
-#pragma unroll
-      for (int i = 0; i < P::MO; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          cofii2p::ldsm_x4(af[i][h], P_s + ((wmo * P::MO + i) * 16 + (lane & 15)) * P::P_STRIDE +
-                                         (ks2 * 2 + h) * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int jn = 0; jn < P::NO; ++jn) {
-#pragma unroll
-        for (int i = 0; i < P::MO; ++i) {
-          cofii2p::mma_bf16(o[i][jn], af[i][0], wf[jn].x, wf[jn].y);
-          cofii2p::mma_bf16(o[i][jn], af[i][1], wf[jn].z, wf[jn].w);
-        }
-      }
-    }
+    cofii2p::park_acc<P>(P_s, acc, wma, wna, g, t4);
+    __syncthreads();
+    cofii2p::contract_bf16<P, CI>(o, P_s, Wt + (long)k * CO * CI, wmo, wno, g, t4, lane);
     __syncthreads();  // P_s is rewritten after the next kernel point
   }
 
-#pragma unroll
-  for (int i = 0; i < P::MO; ++i) {
-#pragma unroll
-    for (int jn = 0; jn < P::NO; ++jn) {
-      const int col = (wno * P::NO + jn) * 8 + 2 * t4;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int q = (wmo * P::MO + i) * 16 + g + 8 * half;
-        if (q >= TQ) continue;
-        float* dst = out + ((long)b * M + m0 + q) * Cout;
-        if (col < Cout) dst[col] = o[i][jn][2 * half];
-        if (col + 1 < Cout) dst[col + 1] = o[i][jn][2 * half + 1];
-      }
-    }
-  }
+  cofii2p::store_out<P>(out + ((long)b * M + m0) * Cout, o, Cout, TQ, wmo, wno, g, t4);
   for (int q = tid; q < TQ; q += kThreads) count[(long)b * M + m0 + q] = max(cnt_s[q], 1);
 }
 

@@ -1,6 +1,6 @@
-// Block plan of the tensor-core KPConv (kpconv_mma.cuh): which widths are
-// built, how many queries a block takes, how its 8 warps tile the two
-// products, and what shared memory and registers that costs.
+// Block plans of the tensor-core KPConvs (kpconv_mma.cuh, kpconv_tau_mma.cuh):
+// which widths are built, how many queries a block takes, how its 8 warps
+// tile the two products, and what shared memory and registers that costs.
 //
 // Plain constexpr C++ with no CUDA in it, so that a host compiler can
 // evaluate the same plan the kernel is built with
@@ -71,6 +71,68 @@ struct MmaPlan {
   // fp32 fragment registers a thread holds: at most half of its share when
   // MIN_BLOCKS blocks share the SM, the rest for addresses and operands
   static constexpr int ACC_REGS = 4 * (MA * NA + MO * NO);
+  static constexpr int REG_BUDGET = kRegsPerSM / (kMmaThreads * MIN_BLOCKS) / 2;
+  static_assert(ACC_REGS <= REG_BUDGET, "accumulator registers over budget");
+};
+
+// ---------------------------------------------------------------------------
+// The k-NN (tau) KPConv on the tensor cores (kpconv_tau_mma.cuh): kernel #7
+// (CO > 0, the contraction fused in) and kernel #6 (CO = 0, the aggregate
+// written out), in fp32 by 3xTF32 (F32) or in bf16.
+
+constexpr int kTauSeg = 3072;                  // band rows a block keeps membership bits of at once
+constexpr int kTauWords = kTauSeg / 32;        // membership words per query
+
+// Every padded (CI, CO) pair up to 512 for #7 and every padded CI for #6
+// (CO = 0), each built for both precisions
+#define COFII2P_TAU_WIDTHS(X) COFII2P_MMA_WIDTHS(X) X(32, 0) X(64, 0) X(128, 0) X(256, 0) X(512, 0)
+
+constexpr bool tau_widths(int cin, int cout) { return cin >= 1 && cin <= kMmaMaxC && cout >= 0 && cout <= kMmaMaxC; }
+
+// Block plan of the tau kernel for padded widths CI, CO (0: no
+// contraction).  The queries, warp tiling and register budget follow
+// MmaPlan (acc_k and out are fp32 fragments in both precisions).  fp32
+// stages its operands at twice bf16's bytes and its influence tile split
+// into tf32 hi and lo, so its chunks take 32 rows (64 at 32 channels);
+// two blocks share an SM up to 64 channels in both precisions.  Unlike
+// MmaPlan's, the membership bits and the ordered active rows cover a slice
+// of kTauSeg rows, the whole band at every level of the FPN, so there
+// membership is computed once a block, not once a kernel point and segment.
+template <int CI, int CO, bool F32>
+struct TauPlan {
+  static constexpr bool CONTRACT = CO > 0;
+  static constexpr int ESZ = F32 ? 4 : 2;                          // bytes of a staged operand
+  static constexpr int kMaxC = CI > CO ? CI : CO;
+  static constexpr int TQ = kMaxC <= 256 ? 64 : 32;                // queries per block at most
+  static constexpr int RB = F32 ? (CI <= 32 ? 64 : 32) : (CI <= 64 ? 128 : (CI <= 256 ? 64 : 32));
+  static constexpr int MIN_BLOCKS = kMaxC <= 64 ? 2 : 1;
+  static constexpr int MT = TQ / 16;
+  static constexpr int COT = CONTRACT ? CO : 64;                   // output tiling (unused without CONTRACT)
+  static constexpr int WNA = CI / 8 < 8 ? CI / 8 : 8, WMA = 8 / WNA;
+  static constexpr int MA = MT / WMA, NA = CI / 8 / WNA;
+  static constexpr int WNO = COT / 8 < 8 ? COT / 8 : 8, WMO = 8 / WNO;
+  static constexpr int MO = MT / WMO, NO = COT / 8 / WNO;
+  static_assert(WMA * WNA * 32 == kMmaThreads && WMO * WNO * 32 == kMmaThreads, "TauPlan: 8 warps");
+  static_assert(WMA * MA * 16 == TQ && WNA * NA * 8 == CI, "TauPlan: the warps tile the aggregate exactly");
+  static_assert(WMO * MO * 16 == TQ && WNO * NO * 8 == COT, "TauPlan: the warps tile the output exactly");
+  static_assert(RB % 16 == 0 && CI % 32 == 0, "TauPlan tiling");
+  // shared rows in elements: fp32 rows padded by 4 words (A, acc_k) or 8
+  // (features), bf16 rows by 16 bytes, so that fragment loads miss bank
+  // conflicts and every row starts on 16 bytes
+  static constexpr int A_STRIDE = F32 ? RB + 4 : RB + 8;
+  static constexpr int F_STRIDE = CI + 8;
+  static constexpr int P_STRIDE = F32 ? CI + 4 : CI + 8;
+  static constexpr int F_BYTES = 2 * RB * F_STRIDE * ESZ;          // feature chunks, two slots
+  static constexpr int P_BYTES = CONTRACT ? TQ * P_STRIDE * ESZ : 0;  // acc_k for the contraction
+  static constexpr int A_BYTES = TQ * A_STRIDE * ESZ * (F32 ? 2 : 1);  // influence tile (fp32: tf32 hi and lo)
+  static constexpr int MASK_BYTES = TQ * kTauWords * 4;            // influence bits of a slice
+  static constexpr int ACT_BYTES = kTauSeg * 2;                    // ordered active rows (16-bit)
+  static constexpr int PA_BYTES = 2 * RB * 3 * 4;                  // the chunks' row positions, two slots
+  static constexpr int Q_BYTES = TQ * 8 * 4;                       // queries centred and not, tau, counts
+  static constexpr int SMEM = F_BYTES + P_BYTES + A_BYTES + MASK_BYTES + ACT_BYTES + PA_BYTES + Q_BYTES + 64;
+  static_assert(SMEM <= kSmemPerBlock, "over the shared memory a block may use");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= kSmemPerSM, "the SM's 228 KB hold MIN_BLOCKS blocks");
+  static constexpr int ACC_REGS = 4 * (MA * NA + (CONTRACT ? MO * NO : 0));
   static constexpr int REG_BUDGET = kRegsPerSM / (kMmaThreads * MIN_BLOCKS) / 2;
   static_assert(ACC_REGS <= REG_BUDGET, "accumulator registers over budget");
 };

@@ -52,10 +52,10 @@ SIGNATURES = {
     "maxpool_tau_launch": [_P, _P, _P, _I, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _P],
     "kpconv_fused_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _P],
     "kpconv_aggregate_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _F, _P],
     "kpconv_transpose_dyn_launch": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -15,17 +15,21 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Seven kernels:
    window mode, then csrc/band_scatter.cu; replaces _transpose_agg_dyn) on
    dynamic windows;
  - :func:`banded_kpconv_fused_tau` and :func:`banded_kpconv_aggregate_tau`
-   (csrc/kpconv_fused.cu in tau mode; replace banded_kpconv_fused_tau_pallas
-   and banded_kpconv_aggregate_tau_pallas) are the two under the k-NN
-   semantics of a reference checkpoint: membership d2 <= tau[m], the
-   layer's own kernel points, the active-row count;
+   (csrc/kpconv_tau.cu, the tensor-core kernel of csrc/kpconv_tau_mma.cuh;
+   replace banded_kpconv_fused_tau_pallas and
+   banded_kpconv_aggregate_tau_pallas) are the two under the k-NN semantics
+   of a reference checkpoint: membership d2 <= tau[m], the layer's own
+   kernel points, the active-row count;
    :func:`banded_kpconv_transpose_tau_fused` (csrc/kpconv_transpose.cu in
    tau mode; replaces _transpose_agg_tau) is their feature gradient.
 
 In bf16 compute :func:`banded_kpconv_fused` runs the tensor-core kernel
 (csrc/kpconv_mma.cuh) on the weights :func:`mma_weights` lays out; the
 kernel takes its block plan from csrc/kpconv_mma_plan.cuh.  fp32 runs the
-CUDA-core template (csrc/kpconv_fused.cuh).
+CUDA-core template (csrc/kpconv_fused.cuh).  The two tau kernels run on
+the tensor cores in both precisions: fp32 by 3xTF32 on the weights
+:func:`tf32_weights` lays out, bf16 on :func:`mma_weights`' (block plan
+``TauPlan`` of the same header).
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor; there is no other fallback.  A wrapper returns
@@ -112,6 +116,24 @@ def mma_weights(weights, ci: int, co: int):
     w = torch.zeros(k_num, ci, co, dtype=torch.bfloat16, device=weights.device)
     w[:, :cin, :cout] = weights.to(torch.bfloat16)
     perm = torch.as_tensor(_mma_perm(ci), device=weights.device)
+    return w.index_select(1, perm).transpose(1, 2).contiguous()
+
+
+def _tf32_perm(ci: int) -> list:
+    """Cin order of :func:`tf32_weights`: within each 8 channels, lane
+    group t's 8 bytes hold its B fragment (b0, b1) of the tf32 k-step,
+    channels t and t + 4."""
+    return [g + c for g in range(0, ci, 8) for c in (0, 4, 1, 5, 2, 6, 3, 7)]
+
+
+def tf32_weights(weights, ci: int, co: int):
+    """W (K, Cin, Cout) as the tau kernel reads it in fp32 (3xTF32): fp32,
+    zero-padded to (CI, CO), transposed to (K, CO, CI) and Cin permuted by
+    :func:`_tf32_perm`; the kernel splits each value into tf32 hi + lo."""
+    k_num, cin, cout = weights.shape
+    w = torch.zeros(k_num, ci, co, dtype=torch.float32, device=weights.device)
+    w[:, :cin, :cout] = weights.float()
+    perm = torch.as_tensor(_tf32_perm(ci), device=weights.device)
     return w.index_select(1, perm).transpose(1, 2).contiguous()
 
 
@@ -575,16 +597,16 @@ def banded_kpconv_fused_tau(
         raise ValueError("shape mismatch between features and weights")
     if cout > MAX_CHANNELS:
         raise ValueError(f"Cout <= {MAX_CHANNELS} supported, got {cout}")
-    w = weights.to(dtype).float().contiguous()
+    layout = mma_weights if dtype == torch.bfloat16 else tf32_weights
+    w = layout(weights, mma_pad(cin), mma_pad(cout))
     _check_cuda(weights=w)
-    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cin), _ACC_ELEMS >> _pad_shift(cout)))
     out = torch.empty(b, m, cout, dtype=torch.float32, device=s_feats.device)
     count = torch.empty(b, m, dtype=torch.int32, device=s_feats.device)
     err = cuda_lib.lib().kpconv_fused_tau_launch(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
         int(s_feats.dtype == torch.bfloat16), w.data_ptr(), kp32.data_ptr(), st.data_ptr(),
         tau.data_ptr(), active.data_ptr(), out.data_ptr(), count.data_ptr(),
-        b, m, n, cin, cout, k_num, tile, num_tiles, band, tq, int(dtype == torch.bfloat16),
+        b, m, n, cin, cout, k_num, tile, num_tiles, band, int(dtype == torch.bfloat16),
         float(np.float32(tau_reach2(radius, sigma, kernel_size))), float(sigma), cuda_lib.stream_of(s_feats),
     )
     cuda_lib.check(err, "kpconv_fused_tau")
@@ -611,14 +633,13 @@ def banded_kpconv_aggregate_tau(
         s_feats, q_points, s_points, tau, kp, kernel_size, tile, band_width, dtype, starts,
     )
     k_num = kernel_size
-    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cin)))
     weighted = torch.empty(b, m, k_num, cin, dtype=torch.float32, device=s_feats.device)
     count = torch.empty(b, m, dtype=torch.int32, device=s_feats.device)
     err = cuda_lib.lib().kpconv_aggregate_tau_launch(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
         int(s_feats.dtype == torch.bfloat16), kp32.data_ptr(), st.data_ptr(), tau.data_ptr(),
         active.data_ptr(), weighted.data_ptr(), count.data_ptr(), b, m, n, cin, k_num, tile,
-        num_tiles, band, tq, int(dtype == torch.bfloat16),
+        num_tiles, band, int(dtype == torch.bfloat16),
         float(np.float32(tau_reach2(radius, sigma, kernel_size))), float(sigma), cuda_lib.stream_of(s_feats),
     )
     cuda_lib.check(err, "kpconv_aggregate_tau")

@@ -1,7 +1,8 @@
 """Per-call times of the port's CUDA kernels on the serving, training or
 `.t7` eval path.
 
-    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|resfuse|train|fast|knn_train|t7] [--batch 8] [--reps 10]
+    python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|resfuse|train|fast|knn_train|t7|val|val_resfuse]
+        [--batch 8] [--reps 10]
 
 ``serve`` runs one forward of bench.py's serving config (bf16 w192,
 fused attention); ``resfuse`` the same with ``kpconv_residual_fused=True``
@@ -13,14 +14,20 @@ with ``train --fast``'s w256 dynamic windows (config.with_fast_windows);
 ``knn_train`` the step under ``kpconv_impl=banded_knn`` with per-layer
 kernel points; ``t7`` one fp32 forward of the configuration a reference
 checkpoint is evaluated with (evaluation/eval_all.py::reference_ckpt_config:
-k-NN semantics, static bands, per-layer kernel points, fused attention).
-All use seeded random
+k-NN semantics, static bands, per-layer kernel points, fused attention);
+``val`` one fp32 forward of the static-band trainer's validation step
+(train_lib.make_eval_step: the fp32 KPConvs #1 and #2, #3, full
+attention), ``val_resfuse`` the same with ``kpconv_residual_fused=True``
+(#16 for the strided blocks it admits).  All use seeded random
 weights and synthetic KITTI-shaped frames.  Every call of a kernel wrapper
 is recorded with its arguments, then replayed on its own: the kernel and
 its plain PyTorch version are timed with CUDA events, and the call's bound
 is computed from its inputs (the least time the card could take: the
 larger of the bytes moved over the HBM rate and the operations over the
-peak rate of their type).  One line per call, then per-kernel totals.
+peak rate of their type).  Where one PyTorch call computes the same
+function (the fused attention: ``scaled_dot_product_attention``), it is
+timed beside them as a yardstick.  One line per call, then per-kernel
+totals.
 Needs a CUDA device.
 """
 
@@ -34,8 +41,12 @@ import subprocess
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; fp32 outside the
-# tensor cores, which every non-matmul operation is counted at; bf16 matmul
-HBM_BPS, FP32_OPS, BF16_MMA_OPS = 3.35e12, 67e12, 989e12
+# tensor cores, which every non-matmul operation is counted at; bf16 matmul;
+# an fp32 product by 3xTF32 (three TF32 products at 495 TFLOP/s), the rate
+# of the fp32 products of the kernels that take that route (#7, #6)
+HBM_BPS, FP32_OPS, BF16_MMA_OPS, TF32X3_OPS = 3.35e12, 67e12, 989e12, 495e12 / 3
+# kernels whose fp32 products run by 3xTF32 on the tensor cores
+TF32X3_KERNELS = ("banded_kpconv_fused_tau", "banded_kpconv_aggregate_tau")
 INFL_OPS = 15  # operations of one kernel point's influence on one (query, row) pair
 
 
@@ -52,11 +63,12 @@ def time_ms(fn, reps=10):
     return t0.elapsed_time(t1) / reps
 
 
-def bound_ms(nbytes, ops32=0.0, ops16=0.0):
+def bound_ms(nbytes, ops32=0.0, ops16=0.0, ops_tf32x3=0.0):
     """(ms, 'bytes' | 'operations'): the larger of the bytes over the HBM
-    rate and the operations over the peak rate of their type."""
+    rate and the operations over the peak rate of their type (fp32 on the
+    CUDA cores, bf16 or 3xTF32 on the tensor cores)."""
     t_bytes = nbytes / HBM_BPS
-    t_ops = ops32 / FP32_OPS + ops16 / BF16_MMA_OPS
+    t_ops = ops32 / FP32_OPS + ops16 / BF16_MMA_OPS + ops_tf32x3 / TF32X3_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -155,6 +167,14 @@ def call_bound(name: str, args, kwargs=None):
         else:  # the aggregated pairs: within tau and the padded reach
             pairs = _pairs(q, s, tau_reach2(a["radius"], a["sigma"], ks) ** 0.5, tile, bw, starts, tau)
         mma16 = a["dtype"] == torch.bfloat16
+
+        def ops(infl, prod):  # the influence math on the CUDA cores, the products at their route's rate
+            if mma16:
+                return dict(ops32=infl, ops16=prod)
+            if name in TF32X3_KERNELS:
+                return dict(ops32=infl, ops_tf32x3=prod)
+            return dict(ops32=infl + prod)
+
         if tau is not None:
             pts += tau.numel() * 4 + ks * 3 * 4
         if starts is not None:
@@ -169,7 +189,7 @@ def call_bound(name: str, args, kwargs=None):
         agg = 2.0 * pairs * ks * cin
         if name in ("banded_kpconv_aggregate_fused", "banded_kpconv_aggregate_tau"):
             io = pts + f.numel() * f.element_size() + b * m * (ks * cin + 1) * 4
-            return bound_ms(io, ops32=infl + (0 if mma16 else agg), ops16=agg if mma16 else 0.0)
+            return bound_ms(io, **ops(infl, agg))
         w = a["weights"]
         cout = w.shape[-1]
         mma = agg + 2.0 * b * m * ks * cin * cout
@@ -179,7 +199,7 @@ def call_bound(name: str, args, kwargs=None):
             mp = a["mp_feats"]
             io += (mp.numel() + b * m * mp.shape[-1]) * mp.element_size()
             infl += pairs * mp.shape[-1]
-        return bound_ms(io, ops32=infl + (0 if mma16 else mma), ops16=mma if mma16 else 0.0)
+        return bound_ms(io, **ops(infl, mma))
     f = a["s_feats"]
     c = f.shape[-1]
     fbytes = f.numel() * f.element_size()
@@ -289,6 +309,37 @@ def record_t7(batch, seed, dev):
     return calls
 
 
+def record_val(batch, seed, dev, residual_fused=False):
+    """One fp32 forward of the static-band trainer's validation step
+    (train_lib.make_eval_step's model call), with or without the fused
+    residual band pass."""
+    from cofii2p_tpu_torch import train_lib
+    from cofii2p_tpu_torch.config import KITTIConfig
+
+    cfg = KITTIConfig(kpconv_residual_fused=residual_fused)
+    model = train_model(cfg, seed, dev)
+    hb = _frames(cfg, batch, dev)
+    draws = train_lib.make_train_draws(cfg, batch, torch.Generator(dev).manual_seed(seed), dev)
+    calls = []
+    with torch.no_grad():
+        b = train_lib.prepare_batch(cfg, hb, draws)
+        with recording(calls):
+            model(b, mode="val", train=False)
+    return calls
+
+
+def library_call(name, args, kwargs):
+    """One PyTorch call that computes the same function as the kernel
+    wrapper ``name`` on these arguments, or None where there is none: the
+    fused attention's ``scaled_dot_product_attention`` (heads second)."""
+    if name != "fused_attention":
+        return None
+    fn = kernel_wrappers()[name][1]
+    a = inspect.signature(fn).bind(*args, **kwargs).arguments
+    q, k, v = (a[x].transpose(1, 2) for x in ("q", "k", "v"))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
 def train_config(path: str):
     """The fp32 KITTI training configuration of a kernel_bench path (and of
     chip_smoke.py's train phases): 'train' static bands, 'fast' train
@@ -341,7 +392,8 @@ def _frames(cfg, batch, dev):
 
 def main():
     ap = argparse.ArgumentParser(description="time the port's kernels on the serving or training path")
-    ap.add_argument("--path", choices=("serve", "resfuse", "train", "fast", "knn_train", "t7"), default="serve")
+    ap.add_argument("--path", choices=("serve", "resfuse", "train", "fast", "knn_train", "t7", "val", "val_resfuse"),
+                    default="serve")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -355,6 +407,8 @@ def main():
         calls = record_train(args.batch, args.seed, dev, args.path)
     elif args.path == "resfuse":
         calls = record_serve(args.batch, args.seed, dev, residual_fused=True)
+    elif args.path in ("val", "val_resfuse"):
+        calls = record_val(args.batch, args.seed, dev, residual_fused=args.path == "val_resfuse")
     else:
         calls = {"serve": record_serve, "t7": record_t7}[args.path](args.batch, args.seed, dev)
     torch.cuda.synchronize()
@@ -369,19 +423,24 @@ def main():
             b_ms, by = call_bound(name, a, kw)
             # kernel #16 beside the pair it fuses, on the same inputs
             pair_ms = time_ms(lambda: unfused_pair(*a, **kw), args.reps) if name == "banded_residual_fused" else None
-            t = totals.setdefault(name, [0, 0.0, 0.0, 0.0, 0.0])
+            lib = library_call(name, a, kw)
+            lib_ms = None if lib is None else time_ms(lib, args.reps)
+            t = totals.setdefault(name, [0, 0.0, 0.0, 0.0, 0.0, 0.0])
             t[0] += 1
             t[1] += k_ms
             t[2] += p_ms
             t[3] += b_ms
             t[4] += pair_ms or 0.0
+            t[5] += lib_ms or 0.0
             pair = "" if pair_ms is None else f"  pair #1+#3 {pair_ms:8.3f} ms"
+            library = "" if lib_ms is None else f"  library {lib_ms:8.3f} ms"
             print(f"{name:32s} {_describe(name, a, kw):52s} kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
-                  f"bound {b_ms:7.3f} ms ({by}){pair}", flush=True)
-    for name, (n, k_ms, p_ms, b_ms, pair_ms) in totals.items():
+                  f"bound {b_ms:7.3f} ms ({by}){pair}{library}", flush=True)
+    for name, (n, k_ms, p_ms, b_ms, pair_ms, lib_ms) in totals.items():
         pair = f"  pair #1+#3 {pair_ms:8.3f} ms" if name == "banded_residual_fused" else ""
+        library = f"  library {lib_ms:8.3f} ms" if name == "fused_attention" else ""
         print(f"TOTAL {name:32s} {n:3d} calls  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  bound {b_ms:8.3f} ms"
-              f"{pair}")
+              f"{pair}{library}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"{args.path} path, B={args.batch}; {torch.cuda.get_device_name(0)}; nvidia-smi: {smi or 'unavailable'}")

@@ -18,7 +18,9 @@ rel <= 1e-4, tie counts bit-equal, the maxpool backward rel <= 1e-5, and
 the autograd Functions' gradients against autograd of the plain versions
 rel <= 1e-4 (KPConv) and 1e-5 (maxpool).  The k-NN (tau) kernels: tau and
 the k-NN maxpool bit-equal (exact order statistics; a select), the tau
-KPConvs with equal active-row counts and fp32 rel <= 1e-4, bf16 <= 5e-2.
+KPConvs (tensor cores, fp32 by 3xTF32) with equal active-row counts and
+fp32 rel <= 1e-4, bf16 <= 5e-2, at every width of the `.t7` FPN and on
+bands over 2048 and over 3072 rows.
 The backward kernels of the dynamic windows (#10, #14) and of the k-NN
 semantics (#11, #15) and the tie count's window and tau modes (#12): tie
 counts bit-equal, #10/#11 rel <= 1e-4, #14/#15 rel <= 1e-5, and the
@@ -331,30 +333,54 @@ def test_maxpool_tau_kernel_bitequal_to_plain(cuda_device):
         assert torch.equal(out, banded_maxpool_tau_plain(f, q, s, tau, 128, 256))
 
 
+# (M, N, band width, k): a 768-row band; encoder4_2's self band of 128 +
+# 2 * 1024 = 2176 rows and encoder5_1's 256 + 2048 = 2304 (lvl4 <- lvl3),
+# both over 2048 rows, as the `.t7` FPN has them; and a band of 128 + 2 *
+# 1536 = 3200 rows, over the 3072 a block keeps membership bits of at once
+TAU_MODES = {"band768": (1024, 2048, 256, 32), "band2176": (2560, 2560, 1024, 128),
+             "band2304": (1280, 2560, 1024, 128), "band3200": (3328, 3328, 1536, 128)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("cin,cout", [(4, 64), (64, 64), (512, 512)])
-def test_kpconv_tau_kernels_match_plain(cuda_device, cin, cout):
-    """Per-layer kernel points; features of both signs, so the active-row
-    count differs from the in-tau count."""
-    q, s = clouds(1024, 2048, cuda_device, lone=4)
+@pytest.mark.parametrize("mode", sorted(TAU_MODES))
+@pytest.mark.parametrize("cin,cout", [(4, 64), (32, 32), (64, 64), (128, 128), (256, 256), (512, 512)])
+def test_kpconv_tau_kernels_match_plain(cuda_device, cin, cout, mode):
+    """Kernels #7 and #6 (csrc/kpconv_tau_mma.cuh) at every width of the
+    `.t7` FPN, on a band of one membership segment, on two of over 2048
+    rows, and on one walked in two slices of kept membership bits, with
+    per-layer kernel points and duplicated support points, so that k-th and
+    (k+1)-th distances tie at tau; features of both signs, so the
+    active-row count differs from the in-tau count.  Counts equal to the
+    plain version's, fp32 (3xTF32) rel <= 1e-4, bf16 rel <= 5e-2 against
+    the fp32 plain version, on bf16 features and, at Cin = 4, also on fp32
+    features, as encoder1_1 takes them."""
+    m, n, width, k = TAU_MODES[mode]
+    q, s = clouds(m, n, cuda_device, lone=4)
+    s, _ = tied_features(s, 1, cuda_device)
+    if m == n:
+        q = s
+    elif mode == "band2304":
+        q = s[:, ::2].contiguous()  # a Morton subset, as the pyramid's next level
     g = torch.Generator().manual_seed(5)
-    f = torch.randn(2, 2048, cin, generator=g).to(cuda_device)
+    f = torch.randn(2, n, cin, generator=g).to(cuda_device)
+    f[:, 1::2] = f[:, 0::2]
     w = (torch.randn(15, cin, cout, generator=g) / cin**0.5).to(cuda_device)
     kp = jittered_kernel_points(torch.tensor(_load_kernel_points(R, 15), dtype=torch.float32), g).to(cuda_device)
-    tau = banded_knn_tau_plain(q, s, 32, 128, 256)
-    ref, ref_cnt = banded_kpconv_fused_tau_plain(f, q, s, w, tau, kp, R, S, 15, 128, 256)
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
-        fd = f.to(dtype)
-        out, cnt = banded_kpconv_fused_tau(fd, q, s, w, tau, kp, R, S, 15, 128, 256, dtype)
-        torch.cuda.synchronize()
+    tau = banded_knn_tau_plain(q, s, k, 128, width)
+    ref, _ = banded_kpconv_fused_tau_plain(f, q, s, w, tau, kp, R, S, 15, 128, width)
+    ref_w, _ = banded_kpconv_aggregate_tau_plain(f, q, s, tau, kp, R, S, 15, 128, width)
+    runs = [(f, torch.float32, 1e-4), (f.bfloat16(), torch.bfloat16, 5e-2)]
+    if cin == 4:
+        runs.append((f, torch.bfloat16, 5e-2))
+    for fd, dtype, tol in runs:
         # the active rows are those of the features as given, rounded or not
-        assert torch.equal(cnt, banded_kpconv_fused_tau_plain(fd, q, s, w, tau, kp, R, S, 15, 128, 256, dtype)[1])
+        want_cnt = banded_kpconv_fused_tau_plain(fd, q, s, w, tau, kp, R, S, 15, 128, width, dtype)[1]
+        out, cnt = banded_kpconv_fused_tau(fd, q, s, w, tau, kp, R, S, 15, 128, width, dtype)
+        got_w, cnt_w = banded_kpconv_aggregate_tau(fd, q, s, tau, kp, R, S, 15, 128, width, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, want_cnt) and torch.equal(cnt_w, want_cnt)
         assert rel_err(out, ref) <= tol
-    ref_w, _ = banded_kpconv_aggregate_tau_plain(f, q, s, tau, kp, R, S, 15, 128, 256)
-    got_w, cnt = banded_kpconv_aggregate_tau(f, q, s, tau, kp, R, S, 15, 128, 256)
-    torch.cuda.synchronize()
-    assert torch.equal(cnt, ref_cnt)
-    assert rel_err(got_w, ref_w) <= 1e-4
+        assert rel_err(got_w, ref_w) <= tol
 
 
 @pytest.mark.gpu

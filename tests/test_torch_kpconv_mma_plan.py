@@ -1,4 +1,4 @@
-"""The tensor-core KPConv's block plan (csrc/kpconv_mma_plan.cuh) on the CPU,
+"""The tensor-core KPConvs' block plans (csrc/kpconv_mma_plan.cuh) on the CPU,
 so that a launch the card would refuse (too much shared memory, too many
 registers, a block that does not tile the band) shows here and not on the
 card.
@@ -12,7 +12,10 @@ registers in fp32 accumulators, and its 8 warps tile the aggregate and the
 output exactly.  The pairs built are every padded width the wrapper sends
 to the kernel, so every KPConv of the KITTI FPN (serving's bf16 plan and
 the fp32 static plan) has one; the weight layout the wrapper ships gives
-each lane its B fragments.
+each lane its B fragments.  The same for the k-NN (tau) kernel's plan
+(``TauPlan``, kernels #7 and #6, fp32 by 3xTF32 and bf16): every width
+pair in both precisions, the kept membership bits of the `.t7` FPN's
+bands (one slice each), the fp32 weight layout.
 """
 
 import os
@@ -26,7 +29,17 @@ import torch
 from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
 from cofii2p_tpu_torch.models.kpconv import KPConvFPN
 from cofii2p_tpu_torch.ops import cuda_lib
-from cofii2p_tpu_torch.ops.kpconv_kernel import MAX_CHANNELS, fused_launch_plan, mma_pad, mma_weights
+from cofii2p_tpu_torch.ops.banded import band_plan
+from cofii2p_tpu_torch.ops.kpconv_kernel import (
+    MAX_CHANNELS,
+    banded_kpconv_aggregate_tau,
+    banded_kpconv_fused_tau,
+    fused_contraction_fits,
+    fused_launch_plan,
+    mma_pad,
+    mma_weights,
+    tf32_weights,
+)
 
 # the H100's budgets, stated here apart from the header's own static_asserts
 SMEM_PER_BLOCK, SMEM_PER_SM, REGS_PER_SM, THREADS = 232448, 233472, 65536, 256
@@ -34,6 +47,12 @@ WIDTHS = (32, 64, 128, 256, 512)
 PAIRS = [(ci, co) for ci in WIDTHS for co in WIDTHS]
 FIELDS = ("ci", "co", "tq", "rb", "smem", "min_blocks", "acc_regs", "wma", "wna", "ma", "na", "wmo", "wno", "mo", "no")
 TILES = (1, 8, 16, 32, 64, 128)
+TAU_FIELDS = ("ci", "co", "f32", "tq", "rb", "smem", "min_blocks", "acc_regs", "wma", "wna", "ma", "na", "wmo", "wno",
+              "mo", "no", "mask_bytes")
+# the tau kernel's plans, filled by the ``built`` fixture: (CI, CO, F32) ->
+# plan, "band" -> (kTauSeg, kTauWords), ("widths", c) -> tau_widths
+TAU_BUILT = {}
+TAU_PAIRS = [(ci, co, f32) for ci in WIDTHS for co in (0, *WIDTHS) for f32 in (1, 0)]
 
 PLAN_DUMP = r"""
 #include <cstdio>
@@ -46,9 +65,21 @@ void row() {
               P::ACC_REGS, P::WMA, P::WNA, P::MA, P::NA, P::WMO, P::WNO, P::MO, P::NO);
 }
 
+template <int CI, int CO, bool F32>
+void tau_row() {
+  using P = cofii2p::TauPlan<CI, CO, F32>;
+  std::printf("tau %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d\n", CI, CO, F32 ? 1 : 0, P::TQ, P::RB, P::SMEM,
+              P::MIN_BLOCKS, P::ACC_REGS, P::WMA, P::WNA, P::MA, P::NA, P::WMO, P::WNO, P::MO, P::NO, P::MASK_BYTES);
+}
+
 int main() {
 #define ROW(ci, co) row<ci, co>();
   COFII2P_MMA_WIDTHS(ROW)
+#define TAU_ROW(ci, co) tau_row<ci, co, true>(); tau_row<ci, co, false>();
+  COFII2P_TAU_WIDTHS(TAU_ROW)
+  std::printf("band %d %d\n", cofii2p::kTauSeg, cofii2p::kTauWords);
+  for (int c = 0; c <= 600; c += 8)
+    std::printf("tauw %d %d\n", c, cofii2p::tau_widths(c ? c : 1, c) ? 1 : 0);
   for (int c = 1; c <= 600; ++c)
     std::printf("pad %d %d %d\n", c, cofii2p::mma_pad(c), cofii2p::mma_widths(c, 32) ? 1 : 0);
   const int tiles[] = {1, 8, 16, 32, 64, 128}, plan_tqs[] = {32, 64};
@@ -80,8 +111,14 @@ def built(tmp_path_factory):
             plans[tuple(vals[:2])] = dict(zip(FIELDS, vals))
         elif kind == "pad":
             pads[vals[0]] = (vals[1], bool(vals[2]))
-        else:
+        elif kind == "tq":
             tqs[tuple(vals[:2])] = vals[2]
+        elif kind == "tau":
+            TAU_BUILT[tuple(vals[:3])] = dict(zip(TAU_FIELDS, vals))
+        elif kind == "band":
+            TAU_BUILT["band"] = vals
+        else:
+            TAU_BUILT[("widths", vals[0])] = bool(vals[1])
     return plans, pads, tqs
 
 
@@ -201,3 +238,103 @@ def test_plan_header_stands_alone():
     """The plan header includes nothing, so a host compiler reads it."""
     with open(os.path.join(cuda_lib.CSRC, "kpconv_mma_plan.cuh")) as fh:
         assert "#include" not in fh.read()
+
+
+def test_every_tau_width_is_built(built):
+    """Kernels #7 (every padded (CI, CO) pair) and #6 (CO = 0, every padded
+    CI) are built in fp32 (3xTF32) and in bf16; tau_widths takes 1..512."""
+    assert sorted(k for k in TAU_BUILT if len(k) == 3) == sorted(TAU_PAIRS)
+    for c in range(0, 601, 8):
+        assert TAU_BUILT[("widths", c)] == (c <= MAX_CHANNELS)
+
+
+@pytest.mark.parametrize("ci,co,f32", TAU_PAIRS, ids=[f"{'f32' if f else 'bf16'}-{ci}x{co}" for ci, co, f in TAU_PAIRS])
+def test_tau_plan_fits_the_card(built, ci, co, f32):
+    """The tau kernel's plan: TQ divides the band tile, shared memory within
+    the block's and (MIN_BLOCKS blocks) the SM's, fp32 accumulators within
+    half the registers, the 8 warps tile the aggregate (and the output)
+    exactly; fp32 at 64 queries where no width is 512, as bf16."""
+    p = TAU_BUILT[(ci, co, f32)]
+    assert 128 % p["tq"] == 0 and p["tq"] % 16 == 0
+    assert p["tq"] == (64 if max(ci, co) <= 256 else 32)
+    assert p["smem"] <= SMEM_PER_BLOCK
+    assert p["min_blocks"] * (p["smem"] + 1024) <= SMEM_PER_SM
+    assert p["acc_regs"] <= REGS_PER_SM // (THREADS * p["min_blocks"]) // 2
+    assert p["rb"] % 16 == 0
+    tilings = [(p["wma"], p["wna"], p["ma"], p["na"], ci)]
+    if co:
+        tilings.append((p["wmo"], p["wno"], p["mo"], p["no"], co))
+    for wm, wn, mt, nt, width in tilings:
+        assert wm * wn == THREADS // 32
+        assert wm * mt * 16 == p["tq"] and wn * nt * 8 == width
+
+
+def test_tau_masks_cover_the_fpn_bands(built):
+    """The kept membership bits cover a slice of kTauSeg rows, kTauWords
+    words a query, and every static band of the KITTI FPN fits one slice,
+    so there membership runs once a block: the `.t7` FPN's largest band,
+    encoder5_1's 256 + 2 * 1024 = 2304 rows (lvl4 <- lvl3), takes 72 of
+    its words."""
+    seg, words = TAU_BUILT["band"]
+    assert words * 32 == seg and seg % THREADS == 0  # a membership pass of 256 rows fills whole words
+    assert seg <= 1 << 16  # the ordered rows of a slice are 16-bit
+    cfg = KITTIConfig()
+    sizes, plan = cfg.pyramid_sizes, cfg.kpconv_band_plan
+    pairs = [(lvl, lvl) for lvl in range(5)] + [(lvl, lvl - 1) for lvl in range(1, 5)]
+    bands = {(ql, sl): band_plan(sizes[ql], sizes[sl], 128, plan[sl])[2] for ql, sl in pairs}
+    assert bands[(4, 3)] == 2304 and bands[(3, 3)] == 2176 and -(-bands[(4, 3)] // 32) == 72
+    assert max(bands.values()) <= seg
+    for ci, co, f32 in TAU_PAIRS:
+        p = TAU_BUILT[(ci, co, f32)]
+        assert p["mask_bytes"] == p["tq"] * words * 4
+
+
+@pytest.mark.parametrize("wbytes", [4, 2])
+def test_tau_builds_cover_the_fused_fit_rule(built, wbytes):
+    """Every (Cin, Cout) that the model sends to the fused tau kernel
+    (fused_contraction_fits, fp32 and bf16 weights) has its padded pair
+    built in that precision."""
+    f32 = int(wbytes == 4)
+    for cin in range(1, MAX_CHANNELS + 1, 7):
+        for cout in range(1, MAX_CHANNELS + 1, 7):
+            if fused_contraction_fits(15, cin, cout, 128, wbytes):
+                assert (mma_pad(cin), mma_pad(cout), f32) in TAU_BUILT
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 64), (256, 256)])
+def test_tf32_weight_layout_gives_each_lane_its_b_fragments(cin, cout):
+    """One 8-byte load at (k, n, 8 * ks + 2 * t) of tf32_weights' layout is
+    lane group t's B fragment (b0, b1) of tf32 k-step ks for output column
+    n: channels 8 ks + t and 8 ks + t + 4, in fp32."""
+    rng = np.random.default_rng(1)
+    w = torch.as_tensor(rng.standard_normal((15, cin, cout)).astype(np.float32))
+    ci, co = mma_pad(cin), mma_pad(cout)
+    wt = tf32_weights(w, ci, co)
+    assert wt.dtype == torch.float32 and wt.shape == (15, co, ci)
+    ref = torch.zeros(15, ci, co)
+    ref[:, :cin, :cout] = w
+    for ks in range(ci // 8):
+        for t in range(4):
+            got = wt[:, :, 8 * ks + 2 * t: 8 * ks + 2 * t + 2]
+            assert torch.equal(got, ref[:, [8 * ks + t, 8 * ks + t + 4], :].transpose(1, 2))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_tau_wrappers_take_bands_over_one_mask_slice(fused):
+    """A band wider than one slice of kept membership bits (3200 rows: the
+    kernel walks it in two slices) passes the wrappers' checks as the
+    FPN's 2176-row band does, up to the launch (meta tensors: nothing
+    runs)."""
+    dev = torch.device("meta")
+    m = n = 8192
+    q = torch.empty(1, m, 3, device=dev)
+    f = torch.empty(1, n, 32, device=dev)
+    tau = torch.empty(1, m, device=dev)
+    kp = torch.empty(15, 3, device=dev)
+    w = torch.empty(15, 32, 32, device=dev)
+    for width in (1536, 1024):  # bands of 3200 and 2176 rows
+        assert band_plan(m, n, 128, width)[2] == 128 + 2 * width
+        args = (f, q, q, w, tau, kp, 1.7, 0.8, 15, 128, width) if fused else (f, q, q, tau, kp, 1.7, 0.8, 15, 128, width)
+        call = banded_kpconv_fused_tau if fused else banded_kpconv_aggregate_tau
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call(*args)
