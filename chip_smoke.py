@@ -21,7 +21,9 @@ the last line):
            same inputs plus 5e-4); the training
            kernels (aggregate, transposed aggregate, tie count, maxpool
            backward) at the trainer's fp32 shapes, B=8, on clouds with
-           duplicated points so that maxima tie; the k-NN kernels (tau,
+           duplicated points so that maxima tie, the aggregate (tensor
+           cores, fp32 by 3xTF32) also on encoder4_2's 2176-row band; the
+           k-NN kernels (tau,
            tau KPConv fused and aggregate, tau maxpool) at the `.t7`
            path's fp32 shapes, B=8, on the same clouds, so that k-th and
            (k+1)-th distances and maxima tie: tau and the maxpool bit-equal,
@@ -30,10 +32,11 @@ the last line):
            2304 rows), with equal active-row counts; the backward kernels of
            `train --fast` (window transpose, window maxpool backward, the
            tie count on windows) on the w256 windows and of `banded_knn`
-           training (tau transpose, tau maxpool backward, the tie count by
-           tau) on the k-NN pairs' static bands: tie counts bit-equal,
-           transposes rel <= 1e-4, maxpool backwards rel <= 1e-5, the window
-           scatter bit-equal on the kernel's own stack; the fused residual
+           training (tau transpose on the tensor cores, tau maxpool
+           backward, the tie count by tau) on the k-NN pairs' static bands:
+           tie counts bit-equal, transposes rel <= 1e-4, the tau transpose
+           the same bits on two launches, maxpool backwards rel <= 1e-5,
+           the window scatter bit-equal on the kernel's own stack; the fused residual
            band pass (#16) at the four strided blocks' serving shapes (bf16,
            w192) and the three fp32 static ones it takes, on clouds with
            duplicated points: counts equal and shortcuts bit-equal to the
@@ -165,7 +168,7 @@ KERNELS = {
     "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
     "maxpool": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:208"),
     "attention": ("cofii2p_tpu_torch/csrc/attention.cu", "cofii2p_tpu/ops/attention_kernel.py:53"),
-    "kpconv_aggregate": ("cofii2p_tpu_torch/csrc/kpconv_fused.cu", "cofii2p_tpu/ops/kpconv_kernel.py:228"),
+    "kpconv_aggregate": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:228"),
     "kpconv_transpose": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:516"),
     "maxpool_count": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:315"),
     "maxpool_bwd": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:537"),
@@ -174,7 +177,8 @@ KERNELS = {
     "kpconv_fused_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1212"),
     "maxpool_tau": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:657"),
     "kpconv_transpose_dyn": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:442"),
-    "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose.cu", "cofii2p_tpu/ops/kpconv_kernel.py:826"),
+    "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh",
+                             "cofii2p_tpu/ops/kpconv_kernel.py:826"),
     "maxpool_bwd_dyn": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:452"),
     "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
     "residual_fused": ("cofii2p_tpu_torch/csrc/residual_fused.cu", "cofii2p_tpu/ops/residual_kernel.py:386"),
@@ -447,7 +451,9 @@ def check_kernels(device, gen, tally):
 
 def check_training_kernels(device, gen, tally, cfg):
     """The four kernels of the training backward path against their plain
-    versions, fp32, B=8, at the trainer's shapes."""
+    versions, fp32, B=8, at the trainer's shapes; the aggregate (#2) also on
+    encoder4_2's 2176-row band, where the CUDA-core template it replaced
+    redid its membership for every kernel point."""
     import torch
 
     from cofii2p_tpu_torch.ops.banded import kernel_reach
@@ -473,11 +479,16 @@ def check_training_kernels(device, gen, tally, cfg):
     # --- #2 aggregate and #9 transposed aggregate -----------------------------
     cases = [("lvl0 C32 band 128", 0, 0, 32, r0, s0, plan[0]),
              ("lvl1<-lvl0 strided C32", 1, 0, 32, r0, s0, plan[0]),
+             ("lvl3 C256 band 2176", 3, 3, 256, r0 * 8, s0 * 8, plan[3]),
              ("lvl4 C512 full band", 4, 4, 512, r0 * 16, s0 * 16, plan[4])]
+    # the 2176-row case draws from a generator of its own, so that every
+    # check after it keeps the inputs it is gated on
+    own_gen = {"lvl3 C256 band 2176": torch.Generator().manual_seed(3)}
     for name, ql, sl, c, r, sg, bw in cases:
         q, s = levels[ql], levels[sl]
         m, n = q.shape[1], s.shape[1]
-        f = torch.randn(b, n, c, generator=gen).to(device)
+        cgen = own_gen.get(name, gen)
+        f = torch.randn(b, n, c, generator=cgen).to(device)
         ref, ref_cnt = banded_kpconv_aggregate_plain(f, q, s, r, sg, 15, 128, bw)
         out, cnt = banded_kpconv_aggregate_fused(f, q, s, r, sg, 15, 128, bw)
         torch.cuda.synchronize()
@@ -492,7 +503,7 @@ def check_training_kernels(device, gen, tally, cfg):
         say("kernels", f"kpconv_aggregate {name} B={b} M={m} N={n}: counts equal, rel {e2:.2e}; "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
         del out, ref
-        g = torch.randn(b, m, 15, c, generator=gen).to(device)
+        g = torch.randn(b, m, 15, c, generator=cgen).to(device)
         ref = banded_kpconv_transpose_plain(g, q, s, r, sg, 15, 128, bw)
         out = banded_kpconv_transpose_fused(g, q, s, r, sg, 15, 128, bw)
         torch.cuda.synchronize()
@@ -682,8 +693,8 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
     (tau transpose) and #15 (tau maxpool backward) on the k-NN pairs'
     static bands (up to 2304 rows), with #12 by tau and per-layer kernel
     points.  Tie counts bit-equal, #10/#11 rel <= 1e-4, #14/#15 rel <=
-    1e-5, and #10's and #14's scatter bit-equal to its plain version on the
-    kernel's own stack."""
+    1e-5, #10's and #14's scatter bit-equal to its plain version on the
+    kernel's own stack, and #11 the same bits on two launches."""
     import torch
 
     from cofii2p_tpu_torch.ops.banded import _load_kernel_points, dynamic_band_starts, kernel_reach
@@ -800,15 +811,18 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
         args = (g, q, s, tau, kp, r, sg, 15, 128, bw)
         ref = banded_kpconv_transpose_tau_plain(*args)
         out = banded_kpconv_transpose_tau_fused(*args)
+        out2 = banded_kpconv_transpose_tau_fused(*args)
         torch.cuda.synchronize()
         e11 = rel_err(out, ref)
-        if e11 > 1e-4:
-            raise PhaseError(f"kpconv_transpose_tau {name}: rel err {e11:.3e} > 1e-4")
+        if e11 > 1e-4 or not torch.equal(out, out2):
+            raise PhaseError(f"kpconv_transpose_tau {name}: rel err {e11:.3e} (<= 1e-4), the same bits on two "
+                             f"launches {torch.equal(out, out2)}")
         band = min(128 * s.shape[1] // q.shape[1] + 2 * bw, s.shape[1])
         timed("kpconv_transpose_tau", banded_kpconv_transpose_tau_fused, banded_kpconv_transpose_tau_plain, args,
               (out - ref).abs().max().item(),
-              f"kpconv_transpose_tau {name} band {band} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e11:.2e}")
-        del g, ref, out
+              f"kpconv_transpose_tau {name} band {band} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e11:.2e}, "
+              "the same bits on two launches")
+        del g, ref, out, out2
 
     # --- #12 by tau and #15: the tau shortcuts of encoder3_1 and 5_1 ----------
     for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):

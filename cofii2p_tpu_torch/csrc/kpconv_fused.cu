@@ -1,7 +1,7 @@
-// Launchers of the banded KPConv kernels: kernels #1 (fused) and #2
-// (aggregate) on the CUDA-core template (kpconv_fused.cuh); #1 in bf16 on
-// the tensor cores (kpconv_mma.cuh).  The k-NN variants, #7 and #6, are
-// launched from kpconv_tau.cu.
+// Launcher of the banded KPConv kernel #1 (fused): fp32 on the CUDA-core
+// template (kpconv_fused.cuh), bf16 on the tensor cores (kpconv_mma.cuh).
+// The aggregate, #2, is launched from kpconv_aggregate.cu, the k-NN
+// variants, #7 and #6, from kpconv_tau.cu.
 
 #include "kpconv_mma.cuh"
 
@@ -50,39 +50,6 @@ extern "C" int kpconv_fused_launch(
   COFII2P_LAUNCH(2, 0)
   COFII2P_LAUNCH(2, 1)
   COFII2P_LAUNCH(2, 2)
-#undef COFII2P_LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The aggregate (training forward): q, s, f, kp, starts as above; weighted
-// (B, M, K, Cin) fp32, count (B, M) int32.  TQ divides tile, TQ <= 128,
-// TQ * pad(Cin) <= 8192.
-extern "C" int kpconv_aggregate_launch(
-    const void* q, const void* s, const void* f, int f_bf16, const void* kp,
-    const void* starts, void* weighted, void* count, int B, int M, int N,
-    int Cin, int K, int tile, int num_tiles, int band, int TQ, int round,
-    float r2, float sigma, void* stream) {
-  const int cs = log2_pad(Cin);
-  const int A = cs < 8 ? 0 : 1 << (cs - 8);
-  if (A > 2 || TQ < 1 || TQ > kMaxTQ || tile % TQ || M % TQ ||
-      (TQ << cs) > kAccElems || band > N)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(M / TQ, B);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const float*>(q);
-  auto sp = static_cast<const float*>(s);
-  auto kpp = static_cast<const float*>(kp);
-  auto stp = static_cast<const int*>(starts);
-  auto wp = static_cast<float*>(weighted);
-  auto cp = static_cast<int*>(count);
-#define COFII2P_LAUNCH(a)                                                      \
-  if (A == a)                                                                  \
-    launch<a, 0, false>(grid, st, qp, sp, f, f_bf16, nullptr, kpp, stp, wp, cp, \
-                        M, N, Cin, 0, K, tile, num_tiles, band, TQ, cs, 0, r2, \
-                        sigma, round);
-  COFII2P_LAUNCH(0)
-  COFII2P_LAUNCH(1)
-  COFII2P_LAUNCH(2)
 #undef COFII2P_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

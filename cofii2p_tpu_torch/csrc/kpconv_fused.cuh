@@ -1,16 +1,15 @@
-// Banded KPConv for Hopper: neighbor aggregation, with the kernel-weight
-// contraction fused in (CONTRACT) or the per-kernel-point aggregate written
-// out (the training forward).
+// Banded KPConv for Hopper on the CUDA cores: neighbor aggregation with the
+// kernel-weight contraction fused in.  Kernel #1 in fp32 and #16's fp32
+// POOL mode run it; #1 in bf16 and #16 in bf16 run kpconv_mma.cuh, and the
+// aggregate (#2) and the k-NN variants (#6, #7) kpconv_tau_mma.cuh, all on
+// the tensor cores.
 //
 // Replaces: cofii2p_tpu/ops/kpconv_kernel.py::banded_kpconv_fused_pallas
-// (body _agg_fused_kernel) and, with CONTRACT off,
-// banded_kpconv_aggregate_pallas (body _agg_kernel).  Fused: for each query m,
+// (body _agg_fused_kernel).  For each query m,
 //   out[m, :] = sum_k ( sum_j infl_k(q_m, s_j) f_j ) @ W_k
 // over the band rows j of m's 128-query tile that lie within kernel reach,
 // plus count[m] = max(#in-reach band rows, 1).  The output is fp32 and
-// unnormalised; the caller divides by count and adds the bias.  Aggregate:
-// weighted[m, k, :] = sum_j infl_k(q_m, s_j) f_j in fp32, the residual the
-// weight gradient needs, and the same count.
+// unnormalised; the caller divides by count and adds the bias.
 //
 // What bounds it on the H100: at the deep levels (Cin = Cout = 512) the
 // contraction (15 * Cin * Cout MACs per query) and the weight reads; at the
@@ -23,15 +22,7 @@
 // (W_k read from global memory, where L2 keeps it hot across blocks).
 // Band rows with no in-reach query of the block are compacted out once per
 // block (an ordered list in shared memory), so the 15 passes only touch
-// rows that contribute.  This template runs on the CUDA cores; #1 in bf16
-// (every serving call, and #16's conv half in bf16) runs the tensor-core
-// kernel of kpconv_mma.cuh instead, and the k-NN (tau) variants, #7 and #6,
-// run kpconv_tau_mma.cuh in both precisions.  The aggregate variant is bound by
-// writing its (B, M, 15, Cin) fp32 output (up to 315 MB a call at B = 8): each
-// thread writes acc_k straight from registers, one coalesced row of Cin
-// channels per query, instead of parking it; membership, influence and
-// counts are the same code as the fused variant's, so the two agree on
-// every count by construction.
+// rows that contribute.
 //
 // Exactness: membership d2 is computed as the JAX package computes it,
 // centred on the first query of the 128-row band tile (also when the block
@@ -155,13 +146,11 @@ __device__ __forceinline__ void pool_segment(const unsigned* mask, const void* f
 // A = 0: Cin padded to a power of two below 256, so a thread owns one
 // channel and the queries q0 + R * i.  A >= 1: Cin padded to 256 * A, so a
 // thread owns channels tid + 256 * a (a < A) of queries i / A.  AO is the
-// same for the output width.
-// CONTRACT: out (B, M, Cout) = sum_k acc_k @ W_k; otherwise out is the
-// aggregate (B, M, K, Cin) and W is unused.
+// same for the output width.  out (B, M, Cout) = sum_k acc_k @ W_k.
 // POOL: also mp_out (B, M, Cmp) in mp_feats'
 // dtype = the max of mp_feats (B, N, Cmp) over the in-reach band rows, 0
 // where there is none.
-template <int A, int AO, bool CONTRACT, bool POOL = false>
+template <int A, int AO, bool POOL = false>
 __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const void* __restrict__ feats, int f_bf16, const float* __restrict__ W,
@@ -340,22 +329,6 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
       }
     }
 
-    if constexpr (!CONTRACT) {
-      // the aggregate acc_k, unrounded fp32, straight to weighted[b, m, k, :]
-#pragma unroll
-      for (int i = 0; i < kE; ++i) {
-        int q, c;
-        if (A == 0) {
-          q = q0 + R * i;
-          c = tid & cin_mask;
-        } else {
-          q = i / (A > 0 ? A : 1);
-          c = tid + kThreads * (i % (A > 0 ? A : 1));
-        }
-        if (q < TQ && c < Cin) out[(((long)b * M + m0 + q) * K + k) * Cin + c] = acc[i];
-      }
-      continue;
-    }
     // park acc_k (rounded to the compute dtype) as a (TQ, Cin) matrix
 #pragma unroll
     for (int i = 0; i < kE; ++i) {
@@ -400,19 +373,17 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     __syncthreads();
   }
 
-  if constexpr (CONTRACT) {
 #pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      int q, d;
-      if (AO == 0) {
-        q = qo0 + RO * i;
-        d = tid & cout_mask;
-      } else {
-        q = i / (AO > 0 ? AO : 1);
-        d = tid + kThreads * (i % (AO > 0 ? AO : 1));
-      }
-      if (q < TQ && d < Cout) out[((long)b * M + m0 + q) * Cout + d] = o[i];
+  for (int i = 0; i < kE; ++i) {
+    int q, d;
+    if (AO == 0) {
+      q = qo0 + RO * i;
+      d = tid & cout_mask;
+    } else {
+      q = i / (AO > 0 ? AO : 1);
+      d = tid + kThreads * (i % (AO > 0 ? AO : 1));
     }
+    if (q < TQ && d < Cout) out[((long)b * M + m0 + q) * Cout + d] = o[i];
   }
   for (int q = tid; q < TQ; q += kThreads) count[(long)b * M + m0 + q] = max(cnt_s[q], 1);
 }
@@ -423,7 +394,7 @@ inline int log2_pad(int x) {
   return s;
 }
 
-template <int A, int AO, bool CONTRACT = true, bool POOL = false>
+template <int A, int AO, bool POOL = false>
 void launch(dim3 grid, cudaStream_t st, const float* q, const float* s,
             const void* f, int f_bf16, const float* W, const float* kp,
             const int* starts, float* out, int* count, int M, int N, int Cin,
@@ -431,7 +402,7 @@ void launch(dim3 grid, cudaStream_t st, const float* q, const float* s,
             int cs, int os, float r2, float sigma, int round,
             const void* mp_feats = nullptr, int mp_bf16 = 0, int Cmp = 0,
             void* mp_out = nullptr) {
-  kpconv_fused_kernel<A, AO, CONTRACT, POOL><<<grid, kThreads, 0, st>>>(
+  kpconv_fused_kernel<A, AO, POOL><<<grid, kThreads, 0, st>>>(
       q, s, f, f_bf16, W, kp, starts, out, count, M, N, Cin, Cout, K, tile,
       num_tiles, band, TQ, cs, os, r2, sigma, round, mp_feats, mp_bf16, Cmp,
       mp_out);

@@ -3,7 +3,7 @@
 //
 // Replaces: cofii2p_tpu/ops/kpconv_kernel.py::banded_kpconv_fused_pallas
 // (body _agg_fused_kernel) for the calls that compute in bf16, every
-// serving call.  The function is kpconv_fused.cuh's CONTRACT mode:
+// serving call.  The function is kpconv_fused.cuh's:
 //   out[m, :] = sum_k ( sum_j infl_k(q_m, s_j) f_j ) @ W_k,
 //   count[m]  = max(#in-reach band rows, 1),
 // over the band rows j of m's 128-query tile within kernel reach; out is
@@ -234,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, (MmaPlan<CI, CO>::MIN_BLOCKS)) kpcon
       // the features of active rows [c * RB, c * RB + RB) as bf16 into a
       // slot, zero past the list and past Cin
       auto load_chunk = [&](int c, int slot) {
-        cofii2p::stage_rows<P, CI>(F_s + slot * P::RB * P::F_STRIDE, feats, f_bf16, f_vec, Cin,
+        cofii2p::stage_rows<P, CI>(F_s + slot * P::RB * P::F_STRIDE, feats, f_bf16, f_vec, Cin, Cin,
                                    frow0 + (long)seg0 * Cin, act, c * P::RB, n_act, tid);
       };
 

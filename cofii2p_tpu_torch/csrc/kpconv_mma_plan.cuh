@@ -1,6 +1,7 @@
-// Block plans of the tensor-core KPConvs (kpconv_mma.cuh, kpconv_tau_mma.cuh):
-// which widths are built, how many queries a block takes, how its 8 warps
-// tile the two products, and what shared memory and registers that costs.
+// Block plans of the tensor-core KPConvs (kpconv_mma.cuh, kpconv_tau_mma.cuh,
+// kpconv_transpose_mma.cuh): which widths are built, how many queries (or
+// support rows) a block takes, how its 8 warps tile the products, and what
+// shared memory and registers that costs.
 //
 // Plain constexpr C++ with no CUDA in it, so that a host compiler can
 // evaluate the same plan the kernel is built with
@@ -78,7 +79,8 @@ struct MmaPlan {
 // ---------------------------------------------------------------------------
 // The k-NN (tau) KPConv on the tensor cores (kpconv_tau_mma.cuh): kernel #7
 // (CO > 0, the contraction fused in) and kernel #6 (CO = 0, the aggregate
-// written out), in fp32 by 3xTF32 (F32) or in bf16.
+// written out), in fp32 by 3xTF32 (F32) or in bf16; under radius
+// membership (CO = 0) the same kernel is #2.
 
 constexpr int kTauSeg = 3072;                  // band rows a block keeps membership bits of at once
 constexpr int kTauWords = kTauSeg / 32;        // membership words per query
@@ -133,6 +135,61 @@ struct TauPlan {
   static_assert(SMEM <= kSmemPerBlock, "over the shared memory a block may use");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= kSmemPerSM, "the SM's 228 KB hold MIN_BLOCKS blocks");
   static constexpr int ACC_REGS = 4 * (MA * NA + (CONTRACT ? MO * NO : 0));
+  static constexpr int REG_BUDGET = kRegsPerSM / (kMmaThreads * MIN_BLOCKS) / 2;
+  static_assert(ACC_REGS <= REG_BUDGET, "accumulator registers over budget");
+};
+
+// The radius-membership aggregate (kernel #2) runs the same kernel with
+// CO = 0 and the plan above: every padded CI, each in both precisions
+#define COFII2P_RADIUS_WIDTHS(X) X(32) X(64) X(128) X(256) X(512)
+
+// ---------------------------------------------------------------------------
+// The transposed KPConv aggregation on the tensor cores
+// (kpconv_transpose_mma.cuh): kernel #11, the feature gradient under the
+// k-NN semantics, in fp32 by 3xTF32 (F32) or in bf16.  A block owns TS
+// support rows and a range of CB channels (C padded as mma_pad pads it, at
+// most 256: C = 512 takes two blocks), and accumulates
+// (TS, CB) += influence (TS, RB listed queries) @ g (RB, CB) in fp32
+// fragments over every kernel point and query tile of its window.
+
+constexpr int kTransposeQSeg = 4096;   // window queries a block keeps membership bits of at once
+constexpr int kTransposeMaxCB = 256;   // channels a block takes at most
+
+#define COFII2P_TRANSPOSE_WIDTHS(X) X(32) X(64) X(128) X(256)
+
+constexpr int transpose_cb(int c) { return mma_pad(c) < kTransposeMaxCB ? mma_pad(c) : kTransposeMaxCB; }
+
+// Block plan for channel range CB.  64 support rows a block, so each
+// listed query's g row (15 * C fp32) is read by band / 64 support blocks;
+// the chunk rows, warp tiling, strides and register budget follow
+// TauPlan's with the support rows in the queries' place.  A support row's
+// membership in one query's neighbourhood is one bit of a 64-bit word.
+template <int CB, bool F32>
+struct TransposePlan {
+  static constexpr int TS = 64;                                    // support rows per block at most
+  static constexpr int ESZ = F32 ? 4 : 2;                          // bytes of a staged operand
+  static constexpr int RB = F32 ? (CB <= 32 ? 64 : 32) : (CB <= 64 ? 128 : 64);  // listed queries per chunk
+  static constexpr int MIN_BLOCKS = CB <= 64 ? 2 : 1;
+  static constexpr int MT = TS / 16;
+  static constexpr int WNA = CB / 8 < 8 ? CB / 8 : 8, WMA = 8 / WNA;
+  static constexpr int MA = MT / WMA, NA = CB / 8 / WNA;
+  static_assert(TS == 64, "TransposePlan: a support row's bit in a 64-bit word");
+  static_assert(WMA * WNA * 32 == kMmaThreads, "TransposePlan: 8 warps");
+  static_assert(WMA * MA * 16 == TS && WNA * NA * 8 == CB, "TransposePlan: the warps tile the sums exactly");
+  static_assert(RB % 16 == 0 && CB % 32 == 0 && CB <= kTransposeMaxCB, "TransposePlan tiling");
+  static_assert(kMmaThreads % RB == 0, "TransposePlan: a thread keeps one listed query of a chunk");
+  static constexpr int A_STRIDE = F32 ? RB + 4 : RB + 8;           // as TauPlan's
+  static constexpr int F_STRIDE = CB + 8;
+  static constexpr int F_BYTES = 2 * RB * F_STRIDE * ESZ;          // g chunks, two slots
+  static constexpr int A_BYTES = TS * A_STRIDE * ESZ * (F32 ? 2 : 1);  // influence tile (fp32: tf32 hi and lo)
+  static constexpr int BITS_BYTES = kTransposeQSeg * 8;            // a 64-bit membership word per window query
+  static constexpr int LIST_BYTES = kTransposeQSeg * 2;            // ordered listed queries (16-bit)
+  static constexpr int PQ_BYTES = 2 * RB * 3 * 4;                  // the chunks' query positions, two slots
+  static constexpr int S_BYTES = TS * 6 * 4;                       // support rows, uncentred and centred
+  static constexpr int SMEM = F_BYTES + A_BYTES + BITS_BYTES + LIST_BYTES + PQ_BYTES + S_BYTES + 64;
+  static_assert(SMEM <= kSmemPerBlock, "over the shared memory a block may use");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= kSmemPerSM, "the SM's 228 KB hold MIN_BLOCKS blocks");
+  static constexpr int ACC_REGS = 4 * MA * NA;
   static constexpr int REG_BUDGET = kRegsPerSM / (kMmaThreads * MIN_BLOCKS) / 2;
   static_assert(ACC_REGS <= REG_BUDGET, "accumulator registers over budget");
 };

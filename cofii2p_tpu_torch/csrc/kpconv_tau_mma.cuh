@@ -1,5 +1,7 @@
-// The k-NN (tau) KPConv on the tensor cores: kernels #7 (contraction fused
-// in) and #6 (the aggregate written out), fp32 by 3xTF32 and bf16.
+// The tensor-core KPConv of the k-NN (tau) semantics, kernels #7
+// (contraction fused in) and #6 (the aggregate written out), and, under
+// radius membership, kernel #2 (the aggregate of the training forward);
+// fp32 by 3xTF32 and bf16.
 //
 // Replaces: cofii2p_tpu/ops/kpconv_kernel.py::banded_kpconv_fused_tau_pallas
 // (body _agg_fused_kernel_tau) and banded_kpconv_aggregate_tau_pallas
@@ -11,6 +13,14 @@
 // r2 = the reach padded 10% for the layer's own kernel points kp (K, 3);
 // #7 writes out[m, :] = sum_k weighted[m, k, :] @ W_k (fp32, unnormalised),
 // #6 writes weighted (B, M, K, Cin) fp32.
+//
+// With TAU off it replaces banded_kpconv_aggregate_pallas (body _agg_kernel,
+// kernel #2): the band rows with d2 <= r2 (the kernel reach of the
+// canonical kernel points) are both the influence's and the count's,
+//   weighted[m, k, :] = sum_{d2 <= r2} infl_k(q_m, s_j) f_j,
+//   count[m] = max(#{d2 <= r2}, 1),
+// over static bands or the caller's window starts; there are no active
+// flags, so nothing runs ahead of it.
 //
 // What bounds it on the H100: #6 is bound by its (B, M, 15, Cin) fp32 write
 // (315 MB a call at lvl0 with Cin = 32 and B = 8); #7 by the two products,
@@ -74,9 +84,10 @@
 
 namespace cofii2p {
 
-// One tau launch: #7 with Cout > 0 (W in the fragment layout: fp32
+// One launch: #7 with Cout > 0 (W in the fragment layout: fp32
 // ops/kpconv_kernel.py::tf32_weights, bf16 mma_weights), #6 with Cout = 0
-// (out is weighted, W unused).  active (B, N) is filled by row_active_kernel.
+// (out is weighted, W unused); active (B, N) is filled by
+// row_active_kernel.  #2 (radius membership) reads neither tau nor active.
 struct TauArgs {
   const float* q;
   const float* s;
@@ -96,6 +107,7 @@ struct TauArgs {
 
 int tau_launch_f32(const TauArgs& a);   // kpconv_tau_f32.cu
 int tau_launch_bf16(const TauArgs& a);  // kpconv_tau.cu
+int radius_launch(const TauArgs& a, int round);  // kpconv_aggregate.cu: #2, both precisions
 
 }  // namespace cofii2p
 
@@ -127,11 +139,13 @@ inline void launch_active(cudaStream_t st, const void* f, int f_bf16, int B, int
 
 // grid (M / TQ, B), kTauThreads threads, TauPlan<CI, CO, F32>::SMEM bytes
 // of dynamic shared memory.  TQ (runtime) divides the band tile and is at
-// most the plan's; Cin <= CI, Cout <= CO.
-template <int CI, int CO, bool F32>
+// most the plan's; Cin <= CI, Cout <= CO.  TAU: k-NN membership (#7, #6);
+// otherwise radius membership, the aggregate only (#2).
+template <int CI, int CO, bool F32, bool TAU>
 __global__ void __launch_bounds__(kTauThreads, (cofii2p::TauPlan<CI, CO, F32>::MIN_BLOCKS))
     kpconv_tau_mma_kernel(const cofii2p::TauArgs a, int TQ) {
   using P = cofii2p::TauPlan<CI, CO, F32>;
+  static_assert(TAU || !P::CONTRACT, "radius membership runs the aggregate (#2) only");
   using E = typename std::conditional<F32, float, __nv_bfloat16>::type;  // a staged operand
   constexpr int kWords = cofii2p::kTauWords;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -161,7 +175,7 @@ __global__ void __launch_bounds__(kTauThreads, (cofii2p::TauPlan<CI, CO, F32>::M
   const float* ref_p = a.q + ((long)b * a.M + (long)t * a.tile) * 3;
   const float ref0 = ref_p[0], ref1 = ref_p[1], ref2 = ref_p[2];
   const float* srow = a.s + ((long)b * a.N + start) * 3;
-  const int* act_row = a.active + (long)b * a.N + start;
+  const int* act_row = TAU ? a.active + (long)b * a.N + start : nullptr;
   const int Cin = a.Cin;
   const long frow0 = ((long)b * a.N + start) * Cin;
 
@@ -171,7 +185,7 @@ __global__ void __launch_bounds__(kTauThreads, (cofii2p::TauPlan<CI, CO, F32>::M
   }
   for (int i = tid; i < P::TQ; i += kTauThreads) {
     cnt_s[i] = 0;
-    thr_s[i] = i < TQ ? a.tau[(long)b * a.M + m0 + i] : 0.f;
+    if constexpr (TAU) thr_s[i] = i < TQ ? a.tau[(long)b * a.M + m0 + i] : 0.f;
   }
   __syncthreads();
 
@@ -218,16 +232,18 @@ __global__ void __launch_bounds__(kTauThreads, (cofii2p::TauPlan<CI, CO, F32>::M
             px = __fsub_rn(srow[j * 3], ref0);
             py = __fsub_rn(srow[j * 3 + 1], ref1);
             pz = __fsub_rn(srow[j * 3 + 2], ref2);
-            act_j = act_row[j] != 0;
+            if constexpr (TAU) act_j = act_row[j] != 0;
           }
           bool any = false;
           for (int q = 0; q < TQ; ++q) {
             const float d2 = cofii2p::membership_d2(qc_s + 3 * q, px, py, pz);
-            const bool wtau = valid && d2 <= thr_s[q];
+            // k-NN: within tau and the padded reach, counted where active;
+            // radius: within reach, which is also what the count counts
+            const bool wtau = TAU ? valid && d2 <= thr_s[q] : valid;
             const bool in = wtau && d2 <= a.r2;
             any |= in;
             const unsigned bits = __ballot_sync(0xffffffffu, in);
-            const unsigned counted = __ballot_sync(0xffffffffu, wtau && act_j);
+            const unsigned counted = TAU ? __ballot_sync(0xffffffffu, wtau && act_j) : bits;
             if (lane == 0) {
               mask[q * kWords + (r0 - seg0) / 32 + warp] = bits;
               if (k == 0 && counted) atomicAdd(&cnt_s[q], __popc(counted));
@@ -248,7 +264,7 @@ __global__ void __launch_bounds__(kTauThreads, (cofii2p::TauPlan<CI, CO, F32>::M
         const int a0 = c * P::RB;
         for (int i = tid; i < P::RB * 3; i += kTauThreads)
           pa_s[slot * P::RB * 3 + i] = a0 + i / 3 < n_act ? spts[act[a0 + i / 3] * 3 + i % 3] : 0.f;
-        cofii2p::stage_rows<P, CI>(F_s + slot * P::RB * P::F_STRIDE, a.f, a.f_bf16, f_vec, Cin,
+        cofii2p::stage_rows<P, CI>(F_s + slot * P::RB * P::F_STRIDE, a.f, a.f_bf16, f_vec, Cin, Cin,
                                    frow0 + (long)seg0 * Cin, act, a0, n_act, tid);
       };
 
@@ -348,12 +364,12 @@ __global__ void __launch_bounds__(kTauThreads, (cofii2p::TauPlan<CI, CO, F32>::M
   for (int q = tid; q < TQ; q += kTauThreads) a.count[(long)b * a.M + m0 + q] = max(cnt_s[q], 1);
 }
 
-template <int CI, int CO, bool F32>
+template <int CI, int CO, bool F32, bool TAU>
 int launch_tau_mma(const cofii2p::TauArgs& a) {
   using P = cofii2p::TauPlan<CI, CO, F32>;
   const int TQ = cofii2p::mma_tq(a.tile, P::TQ);
   if (a.M % TQ) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = kpconv_tau_mma_kernel<CI, CO, F32>;
+  auto kern = kpconv_tau_mma_kernel<CI, CO, F32, TAU>;
   const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   kern<<<dim3(a.M / TQ, a.B), kTauThreads, P::SMEM, a.st>>>(a, TQ);
@@ -365,9 +381,20 @@ template <bool F32>
 int launch_tau_widths(const cofii2p::TauArgs& a) {
   const int ci = cofii2p::mma_pad(a.Cin), co = a.Cout ? cofii2p::mma_pad(a.Cout) : 0;
 #define COFII2P_TAU_LAUNCH(ci_, co_) \
-  if (ci == ci_ && co == co_) return launch_tau_mma<ci_, co_, F32>(a);
+  if (ci == ci_ && co == co_) return launch_tau_mma<ci_, co_, F32, true>(a);
   COFII2P_TAU_WIDTHS(COFII2P_TAU_LAUNCH)
 #undef COFII2P_TAU_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// #2's kernel for a's padded Cin (every width of COFII2P_RADIUS_WIDTHS)
+template <bool F32>
+int launch_radius_widths(const cofii2p::TauArgs& a) {
+  const int ci = cofii2p::mma_pad(a.Cin);
+#define COFII2P_RADIUS_LAUNCH(ci_) \
+  if (ci == ci_) return launch_tau_mma<ci_, 0, F32, false>(a);
+  COFII2P_RADIUS_WIDTHS(COFII2P_RADIUS_LAUNCH)
+#undef COFII2P_RADIUS_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

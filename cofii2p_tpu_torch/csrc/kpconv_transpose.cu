@@ -1,6 +1,7 @@
 // Transposed banded KPConv aggregation for Hopper: the feature gradient of
-// the banded aggregation, on static bands, on dynamic windows and under
-// the k-NN (tau) semantics.
+// the banded aggregation, on static bands and on dynamic windows on the
+// CUDA cores (kernels #9, #10), and under the k-NN (tau) semantics on the
+// tensor cores (kernel #11, kpconv_transpose_mma.cuh, launched here).
 //
 // Replaces: cofii2p_tpu/ops/kpconv_kernel.py::_transpose_agg (body
 // _agg_bwd_kernel).  Same function: for each support row j,
@@ -31,18 +32,14 @@
 // every element once; band_scatter.cu then adds the overlapping windows
 // in tile order, as the TPU's _scatter_band_stacks does.  No atomics.
 //
-// With TAU it replaces kpconv_kernel.py::_transpose_agg_tau (body
-// _agg_bwd_kernel_tau, kernel #11): membership is (d2 <= r2) & (d2 <=
-// tau[m]) with r2 the padded reach of ops/banded.py::tau_reach2, and kp
-// is the layer's own kernel points.
-//
 // Exactness: membership is bit-identical to the forward's (same centring,
-// the round-to-nearest intrinsics of common.cuh, the same band mask, the
-// same per-query tau), so no pair is dropped or added; the influence takes
+// the round-to-nearest intrinsics of common.cuh, the same band mask), so
+// no pair is dropped or added; the influence takes
 // its offset from the uncentred coordinates, as the forward kernel does;
 // sums are fp32 in another order than the plain version's.
 
 #include "common.cuh"
+#include "kpconv_transpose_mma.cuh"
 
 namespace {
 
@@ -58,14 +55,13 @@ constexpr int kAccElems = kThreads * kE;
 // channels tid + 256 * a of rows i / A (the forward kernel's layout).
 //
 // DYN: blockIdx.x = t * (band / TS) + chunk, the block owns rows chunk * TS
-// .. of tile t's window and writes them to the stack ``out``.  TAU: a
-// query's members also need d2 <= tau[m].
-template <int A, bool DYN, bool TAU>
+// .. of tile t's window and writes them to the stack ``out``.
+template <int A, bool DYN>
 __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const float* __restrict__ g, const float* __restrict__ kp,
     const int* __restrict__ starts, const int* __restrict__ qstart_blk,
-    const float* __restrict__ tau, float* __restrict__ out, int M, int N,
+    float* __restrict__ out, int M, int N,
     int C, int K, int tile, int num_tiles, int band, int TS, int n_qtiles,
     int c_shift, float r2, float sigma, int round) {
   __shared__ float sp_s[kMaxTS * 3];   // the block's support rows
@@ -73,7 +69,6 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
   __shared__ float qa_s[kMaxTile * 3]; // listed queries, centred
   __shared__ float qr_s[kMaxTile * 3]; // ... uncentred, for the influence
   __shared__ int act[kMaxTile];        // listed queries, absolute index
-  __shared__ float tau_s[kMaxTile];    // ... their thresholds (TAU)
   __shared__ int warp_tot[kThreads / 32];
   __shared__ float work[kMaxTS * kRB]; // influence of a chunk on the rows
 
@@ -111,17 +106,15 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
     // ordered list of the tile's queries with an in-reach row in lo..hi
     bool any = false;
     float qc[3] = {0.f, 0.f, 0.f}, qr[3] = {0.f, 0.f, 0.f};
-    float thr = r2;
     const int m = t * tile + tid;
     if (tid < tile) {
       for (int d = 0; d < 3; ++d) {
         qr[d] = q_pts[((long)b * M + m) * 3 + d];
         qc[d] = __fsub_rn(qr[d], ref_p[d]);
       }
-      if (TAU) thr = tau[(long)b * M + m];
       for (int r = lo; r < hi && !any; ++r) {
         const float d2 = cofii2p::membership_d2(qc, pc_s[3 * r], pc_s[3 * r + 1], pc_s[3 * r + 2]);
-        any = d2 <= r2 && (!TAU || d2 <= thr);
+        any = d2 <= r2;
       }
     }
     const unsigned flags = __ballot_sync(0xffffffffu, any);
@@ -135,7 +128,6 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
     if (any) {
       const int idx = off + __popc(flags & ((1u << lane) - 1u));
       act[idx] = m;
-      tau_s[idx] = thr;
       for (int d = 0; d < 3; ++d) {
         qa_s[3 * idx + d] = qc[d];
         qr_s[3 * idx + d] = qr[d];
@@ -154,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) kpconv_transpose_kernel(
             const float* q = qa_s + 3 * (a0 + r);
             const float* p = pc_s + 3 * s;
             const float d2 = cofii2p::membership_d2(q, p[0], p[1], p[2]);
-            if (d2 <= r2 && (!TAU || d2 <= tau_s[a0 + r])) {
+            if (d2 <= r2) {
               const float* qa = qr_s + 3 * (a0 + r);
               const float* pa = sp_s + 3 * s;
               const float dx = (pa[0] - qa[0]) - kx;
@@ -221,10 +213,10 @@ int log2_pad(int x) {
   return s;
 }
 
-// The three modes' checks and launch; DYN ignores qstart_blk and n_qtiles.
-template <bool DYN, bool TAU>
+// The two modes' checks and launch; DYN ignores qstart_blk and n_qtiles.
+template <bool DYN>
 int launch(const void* q, const void* s, const void* g, const void* kp,
-           const void* starts, const void* qstart_blk, const void* tau,
+           const void* starts, const void* qstart_blk,
            void* out, int B, int M, int N, int C, int K, int tile,
            int num_tiles, int band, int TS, int n_qtiles, int round, float r2,
            float sigma, void* stream) {
@@ -238,12 +230,12 @@ int launch(const void* q, const void* s, const void* g, const void* kp,
   auto st = static_cast<cudaStream_t>(stream);
 #define COFII2P_LAUNCH(a)                                                       \
   if (A == a)                                                                   \
-    kpconv_transpose_kernel<a, DYN, TAU><<<grid, kThreads, 0, st>>>(            \
+    kpconv_transpose_kernel<a, DYN><<<grid, kThreads, 0, st>>>(                 \
         static_cast<const float*>(q), static_cast<const float*>(s),             \
         static_cast<const float*>(g), static_cast<const float*>(kp),            \
         static_cast<const int*>(starts), static_cast<const int*>(qstart_blk),   \
-        static_cast<const float*>(tau), static_cast<float*>(out), M, N, C, K,   \
-        tile, num_tiles, band, TS, n_qtiles, cs, r2, sigma, round);
+        static_cast<float*>(out), M, N, C, K, tile, num_tiles, band, TS,        \
+        n_qtiles, cs, r2, sigma, round);
   COFII2P_LAUNCH(0)
   COFII2P_LAUNCH(1)
   COFII2P_LAUNCH(2)
@@ -262,8 +254,8 @@ extern "C" int kpconv_transpose_launch(
     const void* starts, const void* qstart_blk, void* out, int B, int M,
     int N, int C, int K, int tile, int num_tiles, int band, int TS,
     int n_qtiles, int round, float r2, float sigma, void* stream) {
-  return launch<false, false>(q, s, g, kp, starts, qstart_blk, nullptr, out, B, M, N, C, K, tile,
-                              num_tiles, band, TS, n_qtiles, round, r2, sigma, stream);
+  return launch<false>(q, s, g, kp, starts, qstart_blk, out, B, M, N, C, K, tile, num_tiles, band, TS, n_qtiles,
+                       round, r2, sigma, stream);
 }
 
 // Kernel #10's stack: q, s, g, kp as above, starts (B, num_tiles) int32
@@ -275,18 +267,27 @@ extern "C" int kpconv_transpose_dyn_launch(
     const void* starts, void* stack, int B, int M, int N, int C, int K,
     int tile, int num_tiles, int band, int TS, int round, float r2,
     float sigma, void* stream) {
-  return launch<true, false>(q, s, g, kp, starts, nullptr, nullptr, stack, B, M, N, C, K, tile,
-                             num_tiles, band, TS, 1, round, r2, sigma, stream);
+  return launch<true>(q, s, g, kp, starts, nullptr, stack, B, M, N, C, K, tile, num_tiles, band, TS, 1, round, r2,
+                      sigma, stream);
 }
 
-// Kernel #11: as kpconv_transpose_launch with tau (B, M) fp32 the
-// per-query squared k-NN thresholds, kp the layer's own kernel points and
-// r2 the padded reach.
+// Kernel #11 on the tensor cores (kpconv_transpose_mma.cuh): as
+// kpconv_transpose_launch with tau (B, M) fp32 the per-query squared k-NN
+// thresholds, kp the layer's own kernel points and r2 the padded reach.
+// TS divides N, TS <= 64 (TransposePlan), tile <= 128, C <= 512; fp32
+// compute (round = 0) by 3xTF32, bf16 (round = 1) rounds the influence
+// and g to bf16 before their product.
 extern "C" int kpconv_transpose_tau_launch(
     const void* q, const void* s, const void* g, const void* kp,
     const void* starts, const void* qstart_blk, const void* tau, void* out,
     int B, int M, int N, int C, int K, int tile, int num_tiles, int band,
     int TS, int n_qtiles, int round, float r2, float sigma, void* stream) {
-  return launch<false, true>(q, s, g, kp, starts, qstart_blk, tau, out, B, M, N, C, K, tile,
-                             num_tiles, band, TS, n_qtiles, round, r2, sigma, stream);
+  const cofii2p::TransposeArgs a{static_cast<const float*>(q), static_cast<const float*>(s),
+                                 static_cast<const float*>(g), static_cast<const float*>(kp),
+                                 static_cast<const int*>(starts), static_cast<const int*>(qstart_blk),
+                                 static_cast<const float*>(tau), static_cast<float*>(out),
+                                 B, M, N, C, K, tile, num_tiles, band, TS, n_qtiles, r2, sigma,
+                                 static_cast<cudaStream_t>(stream)};
+  const TauMember member{static_cast<const float*>(tau)};
+  return round ? launch_transpose_widths<false>(a, member) : launch_transpose_widths<true>(a, member);
 }

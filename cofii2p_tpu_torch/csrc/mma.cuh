@@ -2,9 +2,10 @@
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and m16n8k8 (tf32 in, fp32
 // accumulate; three of them make one fp32 product, 3xTF32), ldmatrix and
 // cp.async; and the pieces that the tensor-core KPConvs (kpconv_mma.cuh,
-// kpconv_tau_mma.cuh) share: the ordered list of a band's active rows, the
-// feature chunk loader, the aggregation (influence tile x feature chunk)
-// and the contraction (acc_k x W_k), each in bf16 and in 3xTF32.
+// kpconv_tau_mma.cuh, kpconv_transpose_mma.cuh) share: the ordered list of
+// a band's active rows, the chunk loader, the aggregation (influence tile
+// x row chunk) and the contraction (acc_k x W_k), each in bf16 and in
+// 3xTF32.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16"), lane = 4 * g + t:
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 8+2t..), a3 = (g+8, 8+2t..)
@@ -137,7 +138,8 @@ __device__ __forceinline__ int append_rows(bool keep, int j, Idx* rows, int base
 }
 
 // Whether stage_rows may copy f by 16-byte cp.async into E elements: f is
-// already E, a row is whole 16-byte pieces, and f is aligned
+// already E, a row (and every row stride and offset of the caller's, a
+// multiple of Cin) is whole 16-byte pieces, and f is aligned
 template <typename E>
 __device__ __forceinline__ bool stage_vec(const void* f, int f_bf16, int Cin) {
   constexpr bool kBf16 = std::is_same<E, __nv_bfloat16>::value;
@@ -145,27 +147,29 @@ __device__ __forceinline__ bool stage_vec(const void* f, int f_bf16, int Cin) {
          (reinterpret_cast<uintptr_t>(f) & 15) == 0;
 }
 
-// The features of listed rows [a0, a0 + RB) into a shared slot dst (RB
-// rows of P::F_STRIDE elements, CI used): slot row r is row rows[a0 + r] of
-// f (rows of Cin channels from element frow0), zero past n_act and past
-// Cin; E is bf16 (fp32 features rounded) or fp32.  One cp.async group.
+// The rows listed at [a0, a0 + RB) into a shared slot dst (RB rows of
+// P::F_STRIDE elements, CI used): slot row r is row rows[a0 + r] of f (rows
+// `stride` elements apart from element frow0, `ncols` of them taken), zero
+// past n_act and past ncols; E is bf16 (fp32 values rounded) or fp32.  The
+// features of a band take stride = ncols = Cin; the transposed kernel's
+// cotangent rows stride = K * C.  One cp.async group.
 template <class P, int CI, typename E, typename Idx>
-__device__ __forceinline__ void stage_rows(E* dst, const void* f, int f_bf16, bool vec, int Cin, long frow0,
-                                           const Idx* rows, int a0, int n_act, int tid) {
+__device__ __forceinline__ void stage_rows(E* dst, const void* f, int f_bf16, bool vec, int ncols, long stride,
+                                           long frow0, const Idx* rows, int a0, int n_act, int tid) {
   if (vec) {
     constexpr int kVec = 16 / sizeof(E);
     constexpr int kPieces = CI / kVec;
     for (int i = tid; i < P::RB * kPieces; i += kMmaThreads) {
       const int r = i / kPieces, col = (i % kPieces) * kVec;
-      const bool live = a0 + r < n_act && col < Cin;
-      const E* src = static_cast<const E*>(f) + (live ? frow0 + (long)rows[a0 + r] * Cin + col : 0);
+      const bool live = a0 + r < n_act && col < ncols;
+      const E* src = static_cast<const E*>(f) + (live ? frow0 + (long)rows[a0 + r] * stride + col : 0);
       cp_async16(dst + r * P::F_STRIDE + col, src, live ? 16 : 0);
     }
   } else {
     for (int i = tid; i < P::RB * CI; i += kMmaThreads) {
       const int r = i / CI, col = i % CI;
       float v = 0.f;
-      if (a0 + r < n_act && col < Cin) v = load_f(f, frow0 + (long)rows[a0 + r] * Cin + col, f_bf16);
+      if (a0 + r < n_act && col < ncols) v = load_f(f, frow0 + (long)rows[a0 + r] * stride + col, f_bf16);
       if constexpr (std::is_same<E, float>::value)
         dst[r * P::F_STRIDE + col] = v;
       else

@@ -66,10 +66,9 @@ extern "C" int residual_fused_launch(
   auto cp = static_cast<int*>(count);
 #define COFII2P_LAUNCH(a_, ao)                                                   \
   if (A == a_ && AO == ao)                                                       \
-    launch<a_, ao, true, true>(grid, st, qp, sp, a, a_bf16, wp, kpp, stp, op,   \
-                               cp, M, N, Cmid, Dout, K, tile, num_tiles, band,   \
-                               TQ, cs, os, r2, sigma, round, f, f_bf16, Cin,     \
-                               shortcut);
+    launch<a_, ao, true>(grid, st, qp, sp, a, a_bf16, wp, kpp, stp, op, cp, M, \
+                         N, Cmid, Dout, K, tile, num_tiles, band, TQ, cs, os, \
+                         r2, sigma, round, f, f_bf16, Cin, shortcut);
   COFII2P_LAUNCH(0, 0)
   COFII2P_LAUNCH(0, 1)
   COFII2P_LAUNCH(0, 2)

@@ -36,7 +36,7 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P],
     "kpconv_aggregate_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _P],
     "kpconv_transpose_launch": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

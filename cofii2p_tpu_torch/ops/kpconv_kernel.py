@@ -6,9 +6,10 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Seven kernels:
    banded_kpconv_fused_pallas) aggregates the in-reach band rows of each
    query and contracts with the (K, Cin, Cout) weights in one pass; the
    (B, M, K, Cin) aggregate never reaches device memory;
- - :func:`banded_kpconv_aggregate_fused` (the same source, contraction
-   off; replaces banded_kpconv_aggregate_pallas) writes that aggregate,
-   the residual the weight gradient needs;
+ - :func:`banded_kpconv_aggregate_fused` (csrc/kpconv_aggregate.cu, the
+   tensor-core kernel of csrc/kpconv_tau_mma.cuh under radius membership;
+   replaces banded_kpconv_aggregate_pallas) writes that aggregate, the
+   residual the weight gradient needs;
  - :func:`banded_kpconv_transpose_fused` (csrc/kpconv_transpose.cu;
    replaces _transpose_agg) is the aggregate's feature gradient on static
    bands, :func:`banded_kpconv_transpose_dyn_fused` (the same source in
@@ -20,16 +21,20 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Seven kernels:
    banded_kpconv_aggregate_tau_pallas) are the two under the k-NN semantics
    of a reference checkpoint: membership d2 <= tau[m], the layer's own
    kernel points, the active-row count;
-   :func:`banded_kpconv_transpose_tau_fused` (csrc/kpconv_transpose.cu in
-   tau mode; replaces _transpose_agg_tau) is their feature gradient.
+   :func:`banded_kpconv_transpose_tau_fused` (csrc/kpconv_transpose.cu,
+   the tensor-core kernel of csrc/kpconv_transpose_mma.cuh; replaces
+   _transpose_agg_tau) is their feature gradient.
 
 In bf16 compute :func:`banded_kpconv_fused` runs the tensor-core kernel
 (csrc/kpconv_mma.cuh) on the weights :func:`mma_weights` lays out; the
 kernel takes its block plan from csrc/kpconv_mma_plan.cuh.  fp32 runs the
-CUDA-core template (csrc/kpconv_fused.cuh).  The two tau kernels run on
-the tensor cores in both precisions: fp32 by 3xTF32 on the weights
-:func:`tf32_weights` lays out, bf16 on :func:`mma_weights`' (block plan
-``TauPlan`` of the same header).
+CUDA-core template (csrc/kpconv_fused.cuh).  The aggregate (#2), the two
+tau kernels and the tau transpose (#11) run on the tensor cores in both
+precisions, fp32 by 3xTF32 (the fused tau kernel on the weights
+:func:`tf32_weights` lays out, bf16 on :func:`mma_weights`'), with block
+plans ``TauPlan`` and ``TransposePlan`` of the same header.  The
+transposed passes on static bands and windows (#9, #10) stay on the CUDA
+cores.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor; there is no other fallback.  A wrapper returns
@@ -65,6 +70,10 @@ from cofii2p_tpu_torch.ops.banded import (
 
 MAX_CHANNELS = 512  # Cin and Cout the kernels take
 _ACC_ELEMS = 8192  # per-block accumulator bound (csrc/kpconv_fused.cu, csrc/kpconv_transpose.cu)
+# support rows per block of the tensor-core transposed kernel, #11
+# (csrc/kpconv_mma_plan.cuh TransposePlan::TS): the host plans each support
+# tile's window of query tiles for blocks of this size
+TRANSPOSE_TS = 64
 # queries (support rows in the transposed kernel) per block of the CUDA-core
 # kernels: a block's active rows are the union of its queries'
 # neighbourhoods, and each (query, active row) pair costs a product per
@@ -270,8 +279,9 @@ def banded_kpconv_aggregate_fused(
 ):
     """Banded aggregation (kernel #2): weighted (B, M, K, Cin) fp32, the
     in-reach influence-weighted feature sums per kernel point, and count
-    (B, M) int32 = max(#in-reach band rows, 1); plain version
-    ops/banded.py::banded_kpconv_aggregate."""
+    (B, M) int32 = max(#in-reach band rows, 1), over static bands or
+    ``starts`` windows; fp32 compute by 3xTF32 on the tensor cores, bf16 on
+    bf16 products.  Plain version ops/banded.py::banded_kpconv_aggregate."""
     if s_feats.device.type == "cpu":
         return banded_kpconv_aggregate_plain(
             s_feats, q_points, s_points, radius, sigma, kernel_size, tile, band_width, dtype, starts,
@@ -287,15 +297,15 @@ def banded_kpconv_aggregate_fused(
     st = _starts_arg(m, n, tile, band, num_tiles, b, s_feats.device, starts)
     kp = _kernel_points(float(radius), int(kernel_size), s_feats.device)
     k_num = kp.shape[0]
-    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cin)))
     weighted = torch.empty(b, m, k_num, cin, dtype=torch.float32, device=s_feats.device)
     count = torch.empty(b, m, dtype=torch.int32, device=s_feats.device)
     r2 = float(np.float32(kernel_reach(radius, sigma, kernel_size) ** 2))
+    # the block takes its TauPlan's queries (csrc/kpconv_mma_plan.cuh)
     err = cuda_lib.lib().kpconv_aggregate_launch(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
         int(s_feats.dtype == torch.bfloat16), kp.data_ptr(), st.data_ptr(),
         weighted.data_ptr(), count.data_ptr(), b, m, n, cin, k_num, tile,
-        num_tiles, band, tq, int(dtype == torch.bfloat16), r2, float(sigma),
+        num_tiles, band, int(dtype == torch.bfloat16), r2, float(sigma),
         cuda_lib.stream_of(s_feats),
     )
     cuda_lib.check(err, "kpconv_aggregate")
@@ -331,16 +341,16 @@ def _check_transpose(g_weighted, q_points, s_points, kernel_size):
     return g, (b, m, k_num, c, s_points.shape[1])
 
 
-def _transpose_static(launcher, g_weighted, q_points, s_points, kp, r2, sigma, kernel_size, tile, band_width, dtype,
-                      *tau):
+def _transpose_static(launcher, ts_max, g_weighted, q_points, s_points, kp, r2, sigma, kernel_size, tile, band_width,
+                      dtype, *tau):
     """Launch a transposed pass on static bands (kernel #9, or #11 with
-    ``tau``) through the library's ``launcher``; returns (B, N, C) fp32."""
+    ``tau``) through the library's ``launcher``, each block taking the
+    largest power of two <= ``ts_max`` support rows that divides N;
+    returns (B, N, C) fp32."""
     g, (b, m, k_num, c, n) = _check_transpose(g_weighted, q_points, s_points, kernel_size)
     tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
     st = static_starts(m, n, tile, band, num_tiles, b, g.device).contiguous()
-    ts, qstart_blk, n_qtiles = _transpose_plan(
-        m, n, tile, band, num_tiles, pick_tq(n, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(c))), g.device
-    )
+    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, ts_max), g.device)
     out = torch.empty(b, n, c, dtype=torch.float32, device=g.device)
     err = getattr(cuda_lib.lib(), launcher)(
         q_points.data_ptr(), s_points.data_ptr(), g.data_ptr(), kp.data_ptr(),
@@ -366,7 +376,8 @@ def banded_kpconv_transpose_fused(
         )
     check_no_grad("banded_kpconv_transpose_fused", g_weighted)
     out = _transpose_static(
-        "kpconv_transpose_launch", g_weighted, q_points, s_points,
+        "kpconv_transpose_launch", min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(g_weighted.shape[-1])), g_weighted,
+        q_points, s_points,
         _kernel_points(float(radius), int(kernel_size), g_weighted.device),
         float(np.float32(kernel_reach(radius, sigma, kernel_size) ** 2)), sigma, kernel_size, tile, band_width, dtype,
     )
@@ -667,7 +678,8 @@ def banded_kpconv_transpose_tau_fused(
     """Transposed banded aggregation under k-NN semantics (kernel #11): the
     feature gradient (B, N, C) fp32 of :func:`banded_kpconv_aggregate_tau`
     on static bands, membership (d2 <= tau_reach2) & (d2 <= tau[m]) and the
-    layer's own kernel points ``kp`` (K, 3); plain version
+    layer's own kernel points ``kp`` (K, 3); on the tensor cores, blocks of
+    :data:`TRANSPOSE_TS` support rows, fp32 by 3xTF32.  Plain version
     ops/banded.py::banded_kpconv_aggregate_transpose with ``tau`` and
     ``kp``."""
     if g_weighted.device.type == "cpu":
@@ -683,7 +695,7 @@ def banded_kpconv_transpose_tau_fused(
     kp32 = kp.float().contiguous()
     _check_cuda(tau=tau, kernel_points=kp32)
     out = _transpose_static(
-        "kpconv_transpose_tau_launch", g_weighted, q_points, s_points, kp32,
+        "kpconv_transpose_tau_launch", TRANSPOSE_TS, g_weighted, q_points, s_points, kp32,
         float(np.float32(tau_reach2(radius, sigma, kernel_size))), sigma, kernel_size, tile, band_width, dtype, tau,
     )
     banded_kpconv_transpose_tau_fused.launches += 1

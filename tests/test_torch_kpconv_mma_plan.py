@@ -15,9 +15,16 @@ the fp32 static plan) has one; the weight layout the wrapper ships gives
 each lane its B fragments.  The same for the k-NN (tau) kernel's plan
 (``TauPlan``, kernels #7 and #6, fp32 by 3xTF32 and bf16): every width
 pair in both precisions, the kept membership bits of the `.t7` FPN's
-bands (one slice each), the fp32 weight layout.
+bands (one slice each), the fp32 weight layout.  The same kernel under
+radius membership (kernel #2, CO = 0) is built for every padded Cin the
+trainer's aggregate calls take, and its wrapper leaves the block size to
+the plan.  The tensor-core transposed kernel's plan (``TransposePlan``,
+kernel #11): every channel range in both precisions, 64 support rows a
+block as the wrapper plans its windows, and every window of the k-NN
+trainer's transposes within one segment of kept membership bits.
 """
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -29,15 +36,18 @@ import torch
 from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
 from cofii2p_tpu_torch.models.kpconv import KPConvFPN
 from cofii2p_tpu_torch.ops import cuda_lib
-from cofii2p_tpu_torch.ops.banded import band_plan
+from cofii2p_tpu_torch.ops.banded import _band_starts_np, band_plan, bwd_geometry
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
     MAX_CHANNELS,
+    TRANSPOSE_TS,
+    banded_kpconv_aggregate_fused,
     banded_kpconv_aggregate_tau,
     banded_kpconv_fused_tau,
     fused_contraction_fits,
     fused_launch_plan,
     mma_pad,
     mma_weights,
+    pick_tq,
     tf32_weights,
 )
 
@@ -53,6 +63,12 @@ TAU_FIELDS = ("ci", "co", "f32", "tq", "rb", "smem", "min_blocks", "acc_regs", "
 # plan, "band" -> (kTauSeg, kTauWords), ("widths", c) -> tau_widths
 TAU_BUILT = {}
 TAU_PAIRS = [(ci, co, f32) for ci in WIDTHS for co in (0, *WIDTHS) for f32 in (1, 0)]
+TR_FIELDS = ("cb", "f32", "ts", "rb", "smem", "min_blocks", "acc_regs", "wma", "wna", "ma", "na")
+# the transposed kernel's plans and the radius builds, filled by ``built``:
+# (CB, F32) -> plan, "radius" -> [CI], "qseg" -> (kTransposeQSeg,
+# kTransposeMaxCB), ("cb", c) -> transpose_cb(c)
+TR_BUILT = {}
+TR_CBS = [(cb, f32) for cb in (32, 64, 128, 256) for f32 in (1, 0)]
 
 PLAN_DUMP = r"""
 #include <cstdio>
@@ -72,11 +88,24 @@ void tau_row() {
               P::MIN_BLOCKS, P::ACC_REGS, P::WMA, P::WNA, P::MA, P::NA, P::WMO, P::WNO, P::MO, P::NO, P::MASK_BYTES);
 }
 
+template <int CB, bool F32>
+void tr_row() {
+  using P = cofii2p::TransposePlan<CB, F32>;
+  std::printf("tr %d %d %d %d %d %d %d %d %d %d %d\n", CB, F32 ? 1 : 0, P::TS, P::RB, P::SMEM, P::MIN_BLOCKS,
+              P::ACC_REGS, P::WMA, P::WNA, P::MA, P::NA);
+}
+
 int main() {
 #define ROW(ci, co) row<ci, co>();
   COFII2P_MMA_WIDTHS(ROW)
 #define TAU_ROW(ci, co) tau_row<ci, co, true>(); tau_row<ci, co, false>();
   COFII2P_TAU_WIDTHS(TAU_ROW)
+#define TR_ROW(cb) tr_row<cb, true>(); tr_row<cb, false>();
+  COFII2P_TRANSPOSE_WIDTHS(TR_ROW)
+#define RADIUS_ROW(ci) std::printf("radius %d\n", ci);
+  COFII2P_RADIUS_WIDTHS(RADIUS_ROW)
+  std::printf("qseg %d %d\n", cofii2p::kTransposeQSeg, cofii2p::kTransposeMaxCB);
+  for (int c = 1; c <= 512; ++c) std::printf("cb %d %d\n", c, cofii2p::transpose_cb(c));
   std::printf("band %d %d\n", cofii2p::kTauSeg, cofii2p::kTauWords);
   for (int c = 0; c <= 600; c += 8)
     std::printf("tauw %d %d\n", c, cofii2p::tau_widths(c ? c : 1, c) ? 1 : 0);
@@ -117,6 +146,14 @@ def built(tmp_path_factory):
             TAU_BUILT[tuple(vals[:3])] = dict(zip(TAU_FIELDS, vals))
         elif kind == "band":
             TAU_BUILT["band"] = vals
+        elif kind == "tr":
+            TR_BUILT[tuple(vals[:2])] = dict(zip(TR_FIELDS, vals))
+        elif kind == "radius":
+            TR_BUILT.setdefault("radius", []).append(vals[0])
+        elif kind == "qseg":
+            TR_BUILT["qseg"] = vals
+        elif kind == "cb":
+            TR_BUILT[("cb", vals[0])] = vals[1]
         else:
             TAU_BUILT[("widths", vals[0])] = bool(vals[1])
     return plans, pads, tqs
@@ -338,3 +375,86 @@ def test_tau_wrappers_take_bands_over_one_mask_slice(fused):
         call = banded_kpconv_fused_tau if fused else banded_kpconv_aggregate_tau
         with pytest.raises(ValueError, match="CUDA tensor"):
             call(*args)
+
+
+def fpn_aggregate_widths():
+    """Cin of every aggregate (#2) call the KITTI trainer makes: the 14
+    differentiated convs of a train step, and the val forward's convs that
+    the fused-fit rule sends to the aggregate in fp32."""
+    convs = fpn_convs("fp32_static")
+    train = {cin for _, cin, _ in convs}
+    val = {cin for _, cin, cout in convs if not fused_contraction_fits(15, cin, cout, 128, 4)}
+    return train, val
+
+
+def test_radius_builds_cover_the_trainers_aggregate_calls(built):
+    """Kernel #2 is the tau kernel's CO = 0 build under radius membership:
+    every padded Cin of the FPN's aggregate calls (the train step's 14, the
+    val forward's Cin = 512 pair) and every Cin the wrapper admits has its
+    build, in fp32 (3xTF32) and in bf16."""
+    radius = TR_BUILT["radius"]
+    assert radius == list(WIDTHS)
+    train, val = fpn_aggregate_widths()
+    assert val == {512} and train == {4, 32, 64, 128, 256, 512}
+    for cin in sorted(train | val | set(range(1, MAX_CHANNELS + 1))):
+        assert mma_pad(cin) in radius
+        for f32 in (1, 0):
+            assert (mma_pad(cin), 0, f32) in TAU_BUILT  # the plan it launches with
+
+
+def test_aggregate_wrapper_leaves_the_block_to_the_plan():
+    """banded_kpconv_aggregate_fused computes no queries per block: the
+    kernel takes its TauPlan's, so the launcher has no TQ parameter."""
+    src = inspect.getsource(banded_kpconv_aggregate_fused)
+    assert "pick_tq" not in src and "tq" not in src
+    with open(os.path.join(cuda_lib.CSRC, "kpconv_aggregate.cu")) as fh:
+        launcher = fh.read().split('extern "C" int kpconv_aggregate_launch(')[1].split(")")[0]
+    assert "TQ" not in launcher
+    assert len(cuda_lib.SIGNATURES["kpconv_aggregate_launch"]) == launcher.count(",") + 1
+
+
+def test_every_transpose_width_is_built(built):
+    """Kernel #11 is built for every channel range, 32..256, in fp32
+    (3xTF32) and bf16, and every C the wrapper admits (1..512) maps to one
+    (C = 512 takes two blocks of 256)."""
+    assert sorted(k for k in TR_BUILT if len(k) == 2 and k[0] != "cb") == sorted(TR_CBS)
+    _, max_cb = TR_BUILT["qseg"]
+    for c in range(1, MAX_CHANNELS + 1):
+        cb = TR_BUILT[("cb", c)]
+        assert cb == min(mma_pad(c), max_cb) and (cb, 1) in TR_BUILT and (cb, 0) in TR_BUILT
+        assert -(-c // cb) * cb >= c
+
+
+@pytest.mark.parametrize("cb,f32", TR_CBS, ids=[f"{'f32' if f else 'bf16'}-{cb}" for cb, f in TR_CBS])
+def test_transpose_plan_fits_the_card(built, cb, f32):
+    """The transposed kernel's plan: 64 support rows a block (the wrapper's
+    TRANSPOSE_TS, which the host plans the windows for), shared memory
+    within the block's and (MIN_BLOCKS blocks) the SM's, fp32 accumulators
+    within half the registers, the 8 warps tile the (TS, CB) sums exactly,
+    a thread keeps one listed query of a chunk."""
+    p = TR_BUILT[(cb, f32)]
+    assert p["ts"] == TRANSPOSE_TS == 64
+    assert p["smem"] <= SMEM_PER_BLOCK
+    assert p["min_blocks"] * (p["smem"] + 1024) <= SMEM_PER_SM
+    assert p["acc_regs"] <= REGS_PER_SM // (THREADS * p["min_blocks"]) // 2
+    assert p["rb"] % 16 == 0 and THREADS % p["rb"] == 0
+    assert p["wma"] * p["wna"] == THREADS // 32
+    assert p["wma"] * p["ma"] * 16 == p["ts"] and p["wna"] * p["na"] * 8 == cb
+
+
+def test_transpose_windows_fit_one_membership_segment(built):
+    """Every transposed pass of the k-NN trainer (13 a step: each (query,
+    support) level pair of the FPN but encoder1_1's) plans windows of query
+    tiles that fit one segment of kept membership bits, so a block computes
+    each pair's membership once; the 16-bit list holds a segment."""
+    qseg, _ = TR_BUILT["qseg"]
+    assert qseg <= 1 << 16
+    cfg = KITTIConfig()
+    sizes, plan = cfg.pyramid_sizes, cfg.kpconv_band_plan
+    for ql, sl in [(lvl, lvl) for lvl in range(5)] + [(lvl, lvl - 1) for lvl in range(1, 5)]:
+        m, n = sizes[ql], sizes[sl]
+        tile, num_tiles, band = band_plan(m, n, 128, plan[sl])
+        ts = pick_tq(n, TRANSPOSE_TS)
+        assert ts == TRANSPOSE_TS
+        _, _, q_win, _ = bwd_geometry(m, n, tile, band, _band_starts_np(m, n, tile, band, num_tiles), ts)
+        assert q_win <= qseg, (ql, sl, q_win)
