@@ -145,10 +145,11 @@ struct TauPlan {
 
 // ---------------------------------------------------------------------------
 // The transposed KPConv aggregation on the tensor cores
-// (kpconv_transpose_mma.cuh): kernel #11, the feature gradient under the
-// k-NN semantics, in fp32 by 3xTF32 (F32) or in bf16.  A block owns TS
-// support rows and a range of CB channels (C padded as mma_pad pads it, at
-// most 256: C = 512 takes two blocks), and accumulates
+// (kpconv_transpose_mma.cuh): the feature gradient on static bands (kernel
+// #9), on windows (#10) and under the k-NN semantics (#11), in fp32 by
+// 3xTF32 (F32) or in bf16.  A block owns TS support rows (#10: TS rows of
+// one query tile's window) and a range of CB channels (C padded as
+// mma_pad pads it, at most 256: C = 512 takes two blocks), and accumulates
 // (TS, CB) += influence (TS, RB listed queries) @ g (RB, CB) in fp32
 // fragments over every kernel point and query tile of its window.
 

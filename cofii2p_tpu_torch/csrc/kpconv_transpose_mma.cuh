@@ -1,32 +1,46 @@
-// The transposed banded KPConv aggregation on the tensor cores: kernel #11,
-// the feature gradient of the k-NN (tau) KPConv, fp32 by 3xTF32 and bf16.
+// The transposed banded KPConv aggregation on the tensor cores, fp32 by
+// 3xTF32 and bf16: the feature gradient of the banded aggregation on static
+// bands (kernel #9), on dynamic windows (kernel #10) and under the k-NN
+// (tau) semantics (kernel #11), launched from kpconv_transpose.cu.
 //
-// Replaces: cofii2p_tpu/ops/kpconv_kernel.py::_transpose_agg_tau (body
-// _agg_bwd_kernel_tau).  For each support row j:
+// Replaces: cofii2p_tpu/ops/kpconv_kernel.py::_transpose_agg (body
+// _agg_bwd_kernel), _transpose_agg_dyn (_agg_bwd_dyn_kernel) and
+// _transpose_agg_tau (_agg_bwd_kernel_tau).  For each support row j:
 //   g_feats[j, :] = sum_m sum_k infl_k(q_m, s_j) g[m, k, :]
-// over the queries m whose static band holds j (start(tile(m)) <= j <
-// start(tile(m)) + band) and for which d2 <= r2 and d2 <= tau[m], d2
-// centred on the first query of m's 128-row band tile exactly as the
-// forward computes it, r2 the padded reach of ops/banded.py::tau_reach2,
-// kp the layer's own kernel points (K, 3).
+// over the queries m whose band holds j (start(tile(m)) <= j <
+// start(tile(m)) + band) and whose membership test holds, d2 centred on the
+// first query of m's 128-row band tile exactly as the forward computes it:
+//  - RadiusMember (#9, #10): d2 <= r2, r2 the squared kernel reach, kp the
+//    shared kernel points;
+//  - TauMember (#11): d2 <= r2 and d2 <= tau[m], r2 the padded reach of
+//    ops/banded.py::tau_reach2, kp the layer's own kernel points.
 //
 // What bounds it on the H100: reading g, the (B, M, 15, C) fp32 cotangent
 // of the aggregate (up to 315 MB a call at B = 8), and the product, 2 * 15
-// * C multiply-adds per in-tau (query, support) pair.  It is the forward
+// * C multiply-adds per member (query, support) pair.  It is the forward
 // aggregation with the roles swapped: the A operand is the (support rows,
 // listed queries) influence tile, the B operand the listed queries' g rows
-// at kernel point k (row stride K * C).  On the TPU kernel's plan (a block
-// owns support rows and a channel range and walks the contiguous window of
-// query tiles whose bands touch its rows, ops/banded.py::bwd_geometry,
-// computed on the host; no atomics):
-//  - a block owns TS = 64 support rows and at most 256 channels
-//    (TransposePlan), so a g row is read by band / 64 blocks;
+// at kernel point k (row stride K * C).  On the TPU kernel's plan (no
+// atomics):
+//  - static bands (WINDOW off; #9, #11): a block owns TS = 64 support rows
+//    and at most 256 channels (TransposePlan), and walks the contiguous
+//    window of query tiles whose bands touch its rows
+//    (ops/banded.py::bwd_geometry, computed on the host), so a g row is
+//    read by band / 64 blocks; the sums go to (B, N, C);
+//  - windows (WINDOW on; #10): under per-tile data-dependent starts there
+//    is no static plan from support rows to query tiles, so a block owns
+//    TS rows of ONE query tile t's window (blockIdx.x = t * (band / TS) +
+//    chunk, rows starts[b, t] + chunk * TS ..) and writes their sums to
+//    the tile's slice of a (B, num_tiles, band, C) stack, every element
+//    once; band_scatter.cu then adds the overlapping windows in tile
+//    order, as the TPU's _scatter_band_stacks does;
 //  - membership runs once a block and query tile: each (query, row) pair's
-//    d2 and tau test, centred with the _rn intrinsics, kept as one 64-bit
-//    word a query (a bit a support row); the queries with any bit form one
-//    ordered list over the tiles of kTransposeQSeg window queries (every
-//    window of the FPN), kept across the 15 kernel points, so the influence
-//    pass tests a bit and recomputes nothing;
+//    d2 and member test, centred with the _rn intrinsics, kept as one
+//    64-bit word a query (a bit a support row); the queries with any bit
+//    form one ordered list over the tiles of kTransposeQSeg window queries
+//    (every window of the FPN; a longer one is walked in segments), kept
+//    across the 15 kernel points, so the influence pass tests a bit and
+//    recomputes nothing;
 //  - the product runs on mma.sync (mma.cuh's aggregate_tf32x3 and
 //    aggregate_bf16): for kernel point k and a chunk of RB listed queries
 //    the (TS, RB) influence tile, computed in fp32 from the uncentred
@@ -44,14 +58,11 @@
 // by one block, so the result is the same bits from run to run.
 //
 // Exactness: membership is bit-identical to the forward's (the same
-// centring, cofii2p::membership_d2, the same band and tau), so no pair is
-// dropped or added; the influence takes its offset from the uncentred
-// coordinates, as the forward kernels do; only the order of the fp32 sums
-// differs from the plain version's.
-//
-// The membership test is a policy (TauMember), so that the radius and
-// window modes of the transposed pass (#9, #10, kpconv_transpose.cu) can
-// take this kernel with a policy of their own.
+// centring, cofii2p::membership_d2, the same band, reach and tau), so no
+// pair is dropped or added; the influence takes its offset from the
+// uncentred coordinates, as the forward kernels do, and its distance as
+// d2 * rsqrtf(d2) (a few ulps from the plain version's sqrt); the fp32
+// sums run in another order than the plain version's.
 #pragma once
 
 #include <cstdint>
@@ -64,9 +75,11 @@
 namespace cofii2p {
 
 // q (B, M, 3), s (B, N, 3), g (B, M, K, C) fp32, kp (K, 3) fp32, starts
-// (B, num_tiles) int32 static band starts, qstart_blk (N / TS) int32 each
-// support tile's first query tile of its window of n_qtiles tiles, tau
-// (B, M) fp32; out (B, N, C) fp32.
+// (B, num_tiles) int32 band starts (static) or window starts; static bands:
+// qstart_blk (N / TS) int32 each support tile's first query tile of its
+// window of n_qtiles tiles, out (B, N, C) fp32; windows: qstart_blk unused,
+// out the (B, num_tiles, band, C) fp32 stack.  tau (B, M) fp32 for
+// TauMember, else unused.
 struct TransposeArgs {
   const float* q;
   const float* s;
@@ -87,18 +100,26 @@ namespace {
 
 constexpr int kTrThreads = cofii2p::kMmaThreads;
 
-// k-NN membership of a (query, support row) pair: within the padded reach
-// and within the query's tau
+// Radius membership of a (query, support row) pair (#9, #10): within the
+// kernel reach; no per-query threshold
+struct RadiusMember {
+  __device__ __forceinline__ float threshold(long) const { return 0.f; }
+  __device__ __forceinline__ bool member(float d2, float r2, float) const { return d2 <= r2; }
+};
+
+// k-NN membership of a (query, support row) pair (#11): within the padded
+// reach and within the query's tau
 struct TauMember {
   const float* tau;
   __device__ __forceinline__ float threshold(long bm) const { return tau[bm]; }
   __device__ __forceinline__ bool member(float d2, float r2, float thr) const { return d2 <= r2 && d2 <= thr; }
 };
 
-// grid (N / TS, B, ceil(C / CB)), kTrThreads threads, TransposePlan<CB,
-// F32>::SMEM bytes of dynamic shared memory.  a.TS (runtime) divides N and
-// is at most the plan's; a.tile <= 128.
-template <int CB, bool F32, class Member>
+// grid (N / TS, B, ceil(C / CB)) on static bands, (num_tiles * band / TS,
+// B, ceil(C / CB)) in WINDOW mode; kTrThreads threads, TransposePlan<CB,
+// F32>::SMEM bytes of dynamic shared memory.  a.TS (runtime) divides N
+// (band in WINDOW mode) and is at most the plan's; a.tile <= 128.
+template <int CB, bool F32, bool WINDOW, class Member>
 __global__ void __launch_bounds__(kTrThreads, (cofii2p::TransposePlan<CB, F32>::MIN_BLOCKS))
     kpconv_transpose_mma_kernel(const cofii2p::TransposeArgs a, const Member member) {
   using P = cofii2p::TransposePlan<CB, F32>;
@@ -123,12 +144,17 @@ __global__ void __launch_bounds__(kTrThreads, (cofii2p::TransposePlan<CB, F32>::
   const int g = lane >> 2, t4 = lane & 3;  // fragment row group and column
   const int b = blockIdx.y;
   const int TS = a.TS;
-  const int s0 = blockIdx.x * TS;
   const int c0 = blockIdx.z * CB;
   const int ncols = min(a.C - c0, CB);
   const int tile = a.tile;
-  const int t_first = a.qstart_blk[blockIdx.x];
-  const int t_end = min(t_first + a.n_qtiles, a.num_tiles);
+  // static bands: support rows s0 .. s0 + TS of (B, N) and the query tiles
+  // t_first .. t_end whose bands touch them; WINDOW: rows row0 .. row0 + TS
+  // of tile t_first's window, and that tile alone
+  const int per_tile = WINDOW ? a.band / TS : 1;
+  const int t_first = WINDOW ? blockIdx.x / per_tile : a.qstart_blk[blockIdx.x];
+  const int row0 = WINDOW ? (blockIdx.x % per_tile) * TS : 0;
+  const int s0 = WINDOW ? a.starts[b * a.num_tiles + t_first] + row0 : blockIdx.x * TS;
+  const int t_end = WINDOW ? t_first + 1 : min(t_first + a.n_qtiles, a.num_tiles);
   const long KC = (long)a.K * a.C;
 
   for (int i = tid; i < P::TS * 3; i += kTrThreads) sp_s[i] = i < TS * 3 ? a.s[((long)b * a.N + s0) * 3 + i] : 0.f;
@@ -153,7 +179,8 @@ __global__ void __launch_bounds__(kTrThreads, (cofii2p::TransposePlan<CB, F32>::
     int n_list = 0;
     for (int t = tseg; t < tseg_end; ++t) {
       const int start = a.starts[b * a.num_tiles + t];
-      // rows lo..hi of the block lie in tile t's band
+      // rows lo..hi of the block lie in tile t's band (WINDOW: all TS rows,
+      // since the block's rows are a slice of that window)
       const int lo = max(start - s0, 0), hi = min(start + a.band - s0, TS);
       if (lo >= hi) continue;
       const float* ref_p = a.q + ((long)b * a.M + (long)t * tile) * 3;
@@ -253,8 +280,10 @@ __global__ void __launch_bounds__(kTrThreads, (cofii2p::TransposePlan<CB, F32>::
     }
   }
 
-  // the sums to out[b, s0 + row, c0 + col]: every element of the block's
-  // (TS, ncols) range once, zero where no pair reached the row
+  // the sums to out[b, s0 + row, c0 + col] (WINDOW: stack[b, t, row0 +
+  // row, c0 + col]): every element of the block's (TS, ncols) range once,
+  // zero where no pair reached the row
+  const long orow0 = WINDOW ? ((long)b * a.num_tiles + t_first) * a.band + row0 : (long)b * a.N + s0;
   const bool pairs = (a.C & 1) == 0;
 #pragma unroll
   for (int i = 0; i < P::MA; ++i) {
@@ -266,7 +295,7 @@ __global__ void __launch_bounds__(kTrThreads, (cofii2p::TransposePlan<CB, F32>::
       for (int half = 0; half < 2; ++half) {
         const int row = (wm * P::MA + i) * 16 + g + 8 * half;
         if (row >= TS) continue;
-        float* dst = a.out + ((long)b * a.N + s0 + row) * a.C + c0 + col;
+        float* dst = a.out + (orow0 + row) * a.C + c0 + col;
         if (pairs) {
           *reinterpret_cast<float2*>(dst) = make_float2(acc[i][jn][2 * half], acc[i][jn][2 * half + 1]);
         } else {
@@ -278,27 +307,32 @@ __global__ void __launch_bounds__(kTrThreads, (cofii2p::TransposePlan<CB, F32>::
   }
 }
 
-template <int CB, bool F32, class Member>
+template <int CB, bool F32, bool WINDOW, class Member>
 int launch_transpose_mma(const cofii2p::TransposeArgs& a, const Member& member) {
   using P = cofii2p::TransposePlan<CB, F32>;
-  auto kern = kpconv_transpose_mma_kernel<CB, F32, Member>;
+  auto kern = kpconv_transpose_mma_kernel<CB, F32, WINDOW, Member>;
   const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3(a.N / a.TS, a.B, (a.C + CB - 1) / CB), kTrThreads, P::SMEM, a.st>>>(a, member);
+  const int blocks = WINDOW ? a.num_tiles * (a.band / a.TS) : a.N / a.TS;
+  kern<<<dim3(blocks, a.B, (a.C + CB - 1) / CB), kTrThreads, P::SMEM, a.st>>>(a, member);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The built kernel for a's channel range (every CB of
 // COFII2P_TRANSPOSE_WIDTHS); shapes the plan does not take are refused
-// before anything runs
-template <bool F32, class Member>
+// before anything runs.  WINDOW: TS divides the window width band <= N,
+// so that a block's rows stay inside its window, which lies in [0, N) for
+// starts in [0, N - band] (ops/banded.py::dynamic_band_starts clips them).
+template <bool F32, bool WINDOW, class Member>
 int launch_transpose_widths(const cofii2p::TransposeArgs& a, const Member& member) {
-  if (a.C < 1 || a.C > cofii2p::kMmaMaxC || a.TS < 1 || a.TS > cofii2p::TransposePlan<32, F32>::TS || a.N % a.TS ||
-      a.tile < 1 || a.tile > 128 || a.M % a.tile || a.M / a.tile != a.num_tiles || a.band > a.N || a.n_qtiles < 1)
+  const int rows = WINDOW ? a.band : a.N;
+  if (a.C < 1 || a.C > cofii2p::kMmaMaxC || a.TS < 1 || a.TS > cofii2p::TransposePlan<32, F32>::TS || rows % a.TS ||
+      a.tile < 1 || a.tile > 128 || a.M % a.tile || a.M / a.tile != a.num_tiles || a.band < 1 || a.band > a.N ||
+      a.n_qtiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cb = cofii2p::transpose_cb(a.C);
 #define COFII2P_TRANSPOSE_LAUNCH(cb_) \
-  if (cb == cb_) return launch_transpose_mma<cb_, F32>(a, member);
+  if (cb == cb_) return launch_transpose_mma<cb_, F32, WINDOW>(a, member);
   COFII2P_TRANSPOSE_WIDTHS(COFII2P_TRANSPOSE_LAUNCH)
 #undef COFII2P_TRANSPOSE_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -10,11 +10,12 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Seven kernels:
    tensor-core kernel of csrc/kpconv_tau_mma.cuh under radius membership;
    replaces banded_kpconv_aggregate_pallas) writes that aggregate, the
    residual the weight gradient needs;
- - :func:`banded_kpconv_transpose_fused` (csrc/kpconv_transpose.cu;
-   replaces _transpose_agg) is the aggregate's feature gradient on static
-   bands, :func:`banded_kpconv_transpose_dyn_fused` (the same source in
-   window mode, then csrc/band_scatter.cu; replaces _transpose_agg_dyn) on
-   dynamic windows;
+ - :func:`banded_kpconv_transpose_fused` (csrc/kpconv_transpose.cu, the
+   tensor-core kernel of csrc/kpconv_transpose_mma.cuh under radius
+   membership; replaces _transpose_agg) is the aggregate's feature
+   gradient on static bands, :func:`banded_kpconv_transpose_dyn_fused`
+   (the same kernel in its window mode, then csrc/band_scatter.cu;
+   replaces _transpose_agg_dyn) on dynamic windows;
  - :func:`banded_kpconv_fused_tau` and :func:`banded_kpconv_aggregate_tau`
    (csrc/kpconv_tau.cu, the tensor-core kernel of csrc/kpconv_tau_mma.cuh;
    replace banded_kpconv_fused_tau_pallas and
@@ -29,12 +30,10 @@ In bf16 compute :func:`banded_kpconv_fused` runs the tensor-core kernel
 (csrc/kpconv_mma.cuh) on the weights :func:`mma_weights` lays out; the
 kernel takes its block plan from csrc/kpconv_mma_plan.cuh.  fp32 runs the
 CUDA-core template (csrc/kpconv_fused.cuh).  The aggregate (#2), the two
-tau kernels and the tau transpose (#11) run on the tensor cores in both
-precisions, fp32 by 3xTF32 (the fused tau kernel on the weights
-:func:`tf32_weights` lays out, bf16 on :func:`mma_weights`'), with block
-plans ``TauPlan`` and ``TransposePlan`` of the same header.  The
-transposed passes on static bands and windows (#9, #10) stay on the CUDA
-cores.
+tau kernels and the three transposed passes (#9, #10, #11) run on the
+tensor cores in both precisions, fp32 by 3xTF32 (the fused tau kernel on
+the weights :func:`tf32_weights` lays out, bf16 on :func:`mma_weights`'),
+with block plans ``TauPlan`` and ``TransposePlan`` of the same header.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor; there is no other fallback.  A wrapper returns
@@ -69,15 +68,16 @@ from cofii2p_tpu_torch.ops.banded import (
 )
 
 MAX_CHANNELS = 512  # Cin and Cout the kernels take
-_ACC_ELEMS = 8192  # per-block accumulator bound (csrc/kpconv_fused.cu, csrc/kpconv_transpose.cu)
-# support rows per block of the tensor-core transposed kernel, #11
-# (csrc/kpconv_mma_plan.cuh TransposePlan::TS): the host plans each support
-# tile's window of query tiles for blocks of this size
+_ACC_ELEMS = 8192  # per-block accumulator bound of the CUDA-core template (csrc/kpconv_fused.cuh)
+# support rows per block of the tensor-core transposed kernel, #9, #10 and
+# #11 (csrc/kpconv_mma_plan.cuh TransposePlan::TS): the host plans each
+# support tile's window of query tiles (static bands), or slices each
+# window (#10), for blocks of this size
 TRANSPOSE_TS = 64
-# queries (support rows in the transposed kernel) per block of the CUDA-core
-# kernels: a block's active rows are the union of its queries'
-# neighbourhoods, and each (query, active row) pair costs a product per
-# channel on the CUDA cores even where its influence is 0
+# queries per block of the CUDA-core template (#1 and #16 in fp32): a
+# block's active rows are the union of its queries' neighbourhoods, and
+# each (query, active row) pair costs a product per channel on the CUDA
+# cores even where its influence is 0
 _MAX_TQ = 32
 
 banded_kpconv_aggregate_plain = banded_kpconv_aggregate
@@ -341,16 +341,16 @@ def _check_transpose(g_weighted, q_points, s_points, kernel_size):
     return g, (b, m, k_num, c, s_points.shape[1])
 
 
-def _transpose_static(launcher, ts_max, g_weighted, q_points, s_points, kp, r2, sigma, kernel_size, tile, band_width,
+def _transpose_static(launcher, g_weighted, q_points, s_points, kp, r2, sigma, kernel_size, tile, band_width,
                       dtype, *tau):
     """Launch a transposed pass on static bands (kernel #9, or #11 with
     ``tau``) through the library's ``launcher``, each block taking the
-    largest power of two <= ``ts_max`` support rows that divides N;
-    returns (B, N, C) fp32."""
+    largest power of two <= :data:`TRANSPOSE_TS` support rows that divides
+    N; returns (B, N, C) fp32."""
     g, (b, m, k_num, c, n) = _check_transpose(g_weighted, q_points, s_points, kernel_size)
     tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
     st = static_starts(m, n, tile, band, num_tiles, b, g.device).contiguous()
-    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, ts_max), g.device)
+    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, TRANSPOSE_TS), g.device)
     out = torch.empty(b, n, c, dtype=torch.float32, device=g.device)
     err = getattr(cuda_lib.lib(), launcher)(
         q_points.data_ptr(), s_points.data_ptr(), g.data_ptr(), kp.data_ptr(),
@@ -368,7 +368,8 @@ def banded_kpconv_transpose_fused(
 ):
     """Transposed banded aggregation on static bands (kernel #9): the
     feature gradient (B, N, C) fp32 of the aggregate from its cotangent
-    g_weighted (B, M, K, C); plain version
+    g_weighted (B, M, K, C); on the tensor cores, blocks of
+    :data:`TRANSPOSE_TS` support rows, fp32 by 3xTF32.  Plain version
     ops/banded.py::banded_kpconv_aggregate_transpose."""
     if g_weighted.device.type == "cpu":
         return banded_kpconv_transpose_plain(
@@ -376,8 +377,7 @@ def banded_kpconv_transpose_fused(
         )
     check_no_grad("banded_kpconv_transpose_fused", g_weighted)
     out = _transpose_static(
-        "kpconv_transpose_launch", min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(g_weighted.shape[-1])), g_weighted,
-        q_points, s_points,
+        "kpconv_transpose_launch", g_weighted, q_points, s_points,
         _kernel_points(float(radius), int(kernel_size), g_weighted.device),
         float(np.float32(kernel_reach(radius, sigma, kernel_size) ** 2)), sigma, kernel_size, tile, band_width, dtype,
     )
@@ -403,9 +403,10 @@ def transpose_dyn_with_stack(
     band_width=256, dtype=torch.float32,
 ):
     """Kernel #10's two launches on CUDA tensors: the window stack
-    (B, num_tiles, band, C) fp32, then its scatter; returns (g_feats
-    (B, N, C) fp32, stack).  Counts nothing: the wrapper
-    :func:`banded_kpconv_transpose_dyn_fused` does."""
+    (B, num_tiles, band, C) fp32, each block taking the largest power of two
+    <= :data:`TRANSPOSE_TS` rows that divides the window width, then its
+    scatter; returns (g_feats (B, N, C) fp32, stack).  Counts nothing: the
+    wrapper :func:`banded_kpconv_transpose_dyn_fused` does."""
     g, (b, m, k_num, c, n) = _check_transpose(g_weighted, q_points, s_points, kernel_size)
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     st = _starts_arg(m, n, tile, band, num_tiles, b, g.device, starts)
@@ -416,7 +417,7 @@ def transpose_dyn_with_stack(
     err = cuda_lib.lib().kpconv_transpose_dyn_launch(
         q_points.data_ptr(), s_points.data_ptr(), g.data_ptr(), kp.data_ptr(), st.data_ptr(),
         stack.data_ptr(), b, m, n, c, k_num, tile, num_tiles, band,
-        pick_tq(band, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(c))), int(dtype == torch.bfloat16), r2,
+        pick_tq(band, TRANSPOSE_TS), int(dtype == torch.bfloat16), r2,
         float(sigma), cuda_lib.stream_of(g),
     )
     cuda_lib.check(err, "kpconv_transpose_dyn")
@@ -445,9 +446,10 @@ def banded_kpconv_transpose_dyn_fused(
 ):
     """Transposed banded aggregation on dynamic windows (kernel #10): the
     feature gradient (B, N, C) fp32 of the aggregate taken over ``starts``
-    (B, num_tiles) windows of width ``band_width``.  Each tile's window
-    gradient goes to a stack, and the overlapping windows are added in tile
-    order (:func:`transpose_dyn_with_stack`); plain version
+    (B, num_tiles) windows of width ``band_width``, on the tensor cores
+    (fp32 by 3xTF32).  Each tile's window gradient goes to a stack, and the
+    overlapping windows are added in tile order
+    (:func:`transpose_dyn_with_stack`); plain version
     ops/banded.py::banded_kpconv_aggregate_transpose with ``starts``."""
     if g_weighted.device.type == "cpu":
         return banded_kpconv_transpose_dyn_plain(
@@ -695,7 +697,7 @@ def banded_kpconv_transpose_tau_fused(
     kp32 = kp.float().contiguous()
     _check_cuda(tau=tau, kernel_points=kp32)
     out = _transpose_static(
-        "kpconv_transpose_tau_launch", TRANSPOSE_TS, g_weighted, q_points, s_points, kp32,
+        "kpconv_transpose_tau_launch", g_weighted, q_points, s_points, kp32,
         float(np.float32(tau_reach2(radius, sigma, kernel_size))), sigma, kernel_size, tile, band_width, dtype, tau,
     )
     banded_kpconv_transpose_tau_fused.launches += 1

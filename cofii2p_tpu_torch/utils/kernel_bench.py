@@ -43,13 +43,13 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; fp32 outside the
 # tensor cores, which every non-matmul operation is counted at; bf16 matmul;
 # an fp32 product by 3xTF32 (three TF32 products at 495 TFLOP/s), the rate
-# of the fp32 products of the kernels that take that route (#7, #6, #2, #11)
+# of the fp32 products of the kernels that take that route (#7, #6, #2, #9,
+# #10, #11)
 HBM_BPS, FP32_OPS, BF16_MMA_OPS, TF32X3_OPS = 3.35e12, 67e12, 989e12, 495e12 / 3
 # kernels whose fp32 products run by 3xTF32 on the tensor cores
 TF32X3_KERNELS = ("banded_kpconv_fused_tau", "banded_kpconv_aggregate_tau", "banded_kpconv_aggregate_fused",
+                  "banded_kpconv_transpose_fused", "banded_kpconv_transpose_dyn_fused",
                   "banded_kpconv_transpose_tau_fused")
-# kernels whose products run on the CUDA cores in both precisions (#9, #10)
-CUDA_CORE_KERNELS = ("banded_kpconv_transpose_fused", "banded_kpconv_transpose_dyn_fused")
 INFL_OPS = 15  # operations of one kernel point's influence on one (query, row) pair
 
 
@@ -172,8 +172,6 @@ def call_bound(name: str, args, kwargs=None):
         mma16 = a["dtype"] == torch.bfloat16
 
         def ops(infl, prod):  # the influence math on the CUDA cores, the products at their route's rate
-            if name in CUDA_CORE_KERNELS:
-                return dict(ops32=infl + prod)
             if mma16:
                 return dict(ops32=infl, ops16=prod)
             if name in TF32X3_KERNELS:

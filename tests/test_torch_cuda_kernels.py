@@ -25,9 +25,10 @@ fp32 rel <= 1e-4, bf16 <= 5e-2, at every width of the `.t7` FPN and on
 bands over 2048 and over 3072 rows.
 The backward kernels of the dynamic windows (#10, #14) and of the k-NN
 semantics (#11, #15) and the tie count's window and tau modes (#12): tie
-counts bit-equal, #10/#11 rel <= 1e-4 (#11 on the tensor cores, also at
-C = 512 on a 2304-row band, in bf16 rel <= 1e-3 against the plain
-version's bf16 rounding points, the same bits on two launches), #14/#15
+counts bit-equal, #9/#10/#11 rel <= 1e-4 (all three on the tensor cores,
+the same bits on two launches; #9 and #11 also at C = 512 on a 2304-row
+band, #10 at C = 512 and on windows over 2048 rows, #11 in bf16 rel <=
+1e-3 against the plain version's bf16 rounding points), #14/#15
 rel <= 1e-5, and the window scatter bit-equal to its plain version on the
 kernel's own stack.
 The fused residual band pass (#16): counts equal and shortcuts bit-equal
@@ -255,13 +256,15 @@ def tied_features(s, c, device, seed=0):
 
 
 # the aggregate (#2) on the tensor cores: (m, n, C, band width, mode);
-# static bands of 768 rows, of encoder4_2's 2176 and encoder5_1's 2304, and
-# of 3200 (walked in two slices of kept membership bits), w256 windows,
-# bf16 compute; the transpose (#9) beside it on the static bands
+# static bands of 768 rows, of encoder4_2's 2176 and encoder5_1's 2304
+# (also at C = 512, two channel blocks of the transpose), and of 3200
+# (walked in two slices of kept membership bits), w256 windows, bf16
+# compute; the transpose (#9) beside it on the static bands
 AGG_MODES = {"band768": (1024, 2048, 32, 256, "static"), "band768_c64": (2048, 2048, 64, 256, "static"),
              "band768_c512": (1024, 1024, 512, 256, "static"), "band2176": (2560, 2560, 256, 1024, "static"),
-             "band2304": (1280, 2560, 256, 1024, "static"), "band3200": (3328, 3328, 32, 1536, "static"),
-             "w256": (1024, 2048, 64, 256, "window"), "bf16": (2048, 2048, 64, 256, "bf16")}
+             "band2304": (1280, 2560, 256, 1024, "static"), "band2304_c512": (1280, 2560, 512, 1024, "static"),
+             "band3200": (3328, 3328, 32, 1536, "static"), "w256": (1024, 2048, 64, 256, "window"),
+             "bf16": (2048, 2048, 64, 256, "bf16")}
 
 
 @pytest.mark.gpu
@@ -274,11 +277,12 @@ def test_training_kpconv_kernels_match_plain(cuda_device, mode):
     the repo's bf16 KPConv gate (its influence, fp32 in the kernel and
     float64 in the plain version, rounds to another bf16 value where the
     two straddle a rounding boundary, so no fp32-sized bound holds against
-    the plain version's bf16 either); #9 beside it on static bands, rel <=
-    1e-4."""
+    the plain version's bf16 either); #9 (the tensor-core transposed
+    kernel under radius membership, 3xTF32) beside it on static bands, rel
+    <= 1e-4 and the same bits on two launches."""
     m, n, c, bw, kind = AGG_MODES[mode]
     q, s = clouds(m, n, cuda_device)
-    if mode == "band2304":
+    if mode.startswith("band2304"):
         q = s[:, ::2].contiguous()  # a Morton subset, as the pyramid's next level
     g = torch.Generator().manual_seed(1)
     f = torch.randn(2, n, c, generator=g).to(cuda_device)
@@ -292,7 +296,10 @@ def test_training_kpconv_kernels_match_plain(cuda_device, mode):
     if kind == "static":
         gw = torch.randn(2, m, 15, c, generator=g).to(cuda_device)
         got = banded_kpconv_transpose_fused(gw, q, s, R, S, 15, 128, bw)
+        again = banded_kpconv_transpose_fused(gw, q, s, R, S, 15, 128, bw)
+        torch.cuda.synchronize()
         assert rel_err(got, banded_kpconv_transpose_plain(gw, q, s, R, S, 15, 128, bw)) <= 1e-4
+        assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -414,16 +421,21 @@ def test_kpconv_tau_kernels_match_plain(cuda_device, cin, cout, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,c", [(1024, 2048, 64), (2048, 2048, 256), (512, 1024, 512)])
-def test_window_transpose_kernel_matches_plain(cuda_device, m, n, c):
-    """Kernel #10 on w256 windows: rel <= 1e-4 against the plain version,
-    and the scatter bit-equal to its plain version on the kernel's stack."""
+@pytest.mark.parametrize("m,n,c,w", [(1024, 2048, 64, 256), (2048, 2048, 256, 256), (512, 1024, 512, 256),
+                                     (2560, 5120, 64, 2304), (1024, 2048, 128, 160)])
+def test_window_transpose_kernel_matches_plain(cuda_device, m, n, c, w):
+    """Kernel #10 (the tensor-core transposed kernel's window mode, 3xTF32)
+    on w256 windows, at C = 512 (two channel blocks), on w2304 windows
+    (over 2048 rows) and on w160 (blocks of 32 rows): rel <= 1e-4 against
+    the plain version, the scatter bit-equal to its plain version on the
+    kernel's stack, and the same bits on two launches."""
     q, s = clouds(m, n, cuda_device)
-    starts = dynamic_band_starts(q, s, R_ACT, 128, 256, "best", 1)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, w, "best", 1)
     gw = torch.randn(2, m, 15, c, generator=torch.Generator().manual_seed(6)).to(cuda_device)
-    got = banded_kpconv_transpose_dyn_fused(gw, q, s, starts, R, S, 15, 128, 256)
-    assert rel_err(got, banded_kpconv_transpose_dyn_plain(gw, q, s, starts, R, S, 15, 128, 256)) <= 1e-4
-    out, stack = transpose_dyn_with_stack(gw, q, s, starts, R, S, 15, 128, 256)
+    got = banded_kpconv_transpose_dyn_fused(gw, q, s, starts, R, S, 15, 128, w)
+    assert rel_err(got, banded_kpconv_transpose_dyn_plain(gw, q, s, starts, R, S, 15, 128, w)) <= 1e-4
+    out, stack = transpose_dyn_with_stack(gw, q, s, starts, R, S, 15, 128, w)
+    torch.cuda.synchronize()
     assert torch.equal(out, band_scatter_plain(stack, starts, n)) and torch.equal(out, got)
 
 

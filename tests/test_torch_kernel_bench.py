@@ -1,10 +1,9 @@
 """kernel_bench's bounds and yardsticks on the CPU: what it computes from
 shapes and data, with no card (the times themselves come only from the
-card).  The fp32 tensor-core KPConvs (#7, #6, the aggregate #2 and the tau
-transpose #11) take their products at the 3xTF32 rate, every other fp32
-kernel at the CUDA cores' 67 TFLOP/s, and the transposes on static bands
-and windows (#9, #10) at 67 in both precisions; the library call timed
-beside the fused attention computes the same function."""
+card).  The fp32 tensor-core KPConvs (#7, #6, the aggregate #2 and the
+three transposes #9, #10, #11) take their products at the 3xTF32 rate,
+every other fp32 kernel at the CUDA cores' 67 TFLOP/s; the library call
+timed beside the fused attention computes the same function."""
 
 import numpy as np
 import pytest
@@ -89,18 +88,25 @@ def test_aggregate_and_tau_transpose_take_the_tf32x3_rate():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_static_and_window_transposes_keep_the_cuda_core_rate(dtype):
-    """#9 (static bands) and #10 (windows) still multiply on the CUDA cores,
-    in either precision: the influence math and the products at 67 TFLOP/s."""
+    """#9 (static bands) and #10 (windows) no longer keep the CUDA-core
+    rate: since they run on the tensor-core transposed kernel, their fp32
+    products are charged at the 3xTF32 rate (495/3 TFLOP/s) and their bf16
+    products at the bf16 mma rate (989), the influence math at 67, against
+    their bytes."""
     q, _, _, _, _ = inputs()
     g = torch.as_tensor(np.random.default_rng(4).standard_normal((2, 256, 15, 32)).astype(np.float32))
+    prod_rate = kb.TF32X3_OPS if dtype == torch.float32 else kb.BF16_MMA_OPS
+
+    def t_ops(pairs):
+        return pairs * 15 * kb.INFL_OPS / kb.FP32_OPS + 2.0 * pairs * 15 * 32 / prod_rate
+
     pairs = float(banded_pair_count(q, q, kernel_reach(1.7, 0.8), 128, 64).sum())
     io = 2 * 512 * 3 * 4 + g.numel() * 4 + 2 * 256 * 32 * 4
-    ms9, _ = kb.call_bound("banded_kpconv_transpose_fused", (g, q, q, 1.7, 0.8, 15, 128, 64, dtype))
-    assert ms9 == pytest.approx(max(io / kb.HBM_BPS, pairs * 15 * (2 * 32 + kb.INFL_OPS) / kb.FP32_OPS) * 1e3,
-                                rel=1e-9)
+    ms9, by9 = kb.call_bound("banded_kpconv_transpose_fused", (g, q, q, 1.7, 0.8, 15, 128, 64, dtype))
+    assert ms9 == pytest.approx(max(io / kb.HBM_BPS, t_ops(pairs)) * 1e3, rel=1e-9)
+    assert by9 == ("bytes" if io / kb.HBM_BPS >= t_ops(pairs) else "operations")
     starts = dynamic_band_starts(q, q, kernel_reach(1.7, 0.8), 128, 64, "best", 1)
     wpairs = float(banded_pair_count(q, q, kernel_reach(1.7, 0.8), 128, 64, starts).sum())
     ms10, _ = kb.call_bound("banded_kpconv_transpose_dyn_fused", (g, q, q, starts, 1.7, 0.8, 15, 128, 64, dtype))
     wio = io + starts.numel() * 4
-    assert ms10 == pytest.approx(max(wio / kb.HBM_BPS, wpairs * 15 * (2 * 32 + kb.INFL_OPS) / kb.FP32_OPS) * 1e3,
-                                 rel=1e-9)
+    assert ms10 == pytest.approx(max(wio / kb.HBM_BPS, t_ops(wpairs)) * 1e3, rel=1e-9)

@@ -19,13 +19,15 @@ bands (one slice each), the fp32 weight layout.  The same kernel under
 radius membership (kernel #2, CO = 0) is built for every padded Cin the
 trainer's aggregate calls take, and its wrapper leaves the block size to
 the plan.  The tensor-core transposed kernel's plan (``TransposePlan``,
-kernel #11): every channel range in both precisions, 64 support rows a
-block as the wrapper plans its windows, and every window of the k-NN
-trainer's transposes within one segment of kept membership bits.
+kernels #9, #10 and #11): every channel range in both precisions, 64
+support rows a block as the wrappers plan their windows, every static
+window of the three trainers' transposes within one segment of kept
+membership bits, and every `--fast` window width sliced into whole blocks.
 """
 
 import inspect
 import os
+import re
 import shutil
 import subprocess
 
@@ -33,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig
+from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF, KITTIConfig, with_fast_windows
 from cofii2p_tpu_torch.models.kpconv import KPConvFPN
 from cofii2p_tpu_torch.ops import cuda_lib
 from cofii2p_tpu_torch.ops.banded import _band_starts_np, band_plan, bwd_geometry
@@ -43,12 +45,15 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
     banded_kpconv_aggregate_fused,
     banded_kpconv_aggregate_tau,
     banded_kpconv_fused_tau,
+    banded_kpconv_transpose_dyn_fused,
+    banded_kpconv_transpose_fused,
     fused_contraction_fits,
     fused_launch_plan,
     mma_pad,
     mma_weights,
     pick_tq,
     tf32_weights,
+    transpose_dyn_with_stack,
 )
 
 # the H100's budgets, stated here apart from the header's own static_asserts
@@ -458,3 +463,81 @@ def test_transpose_windows_fit_one_membership_segment(built):
         assert ts == TRANSPOSE_TS
         _, _, q_win, _ = bwd_geometry(m, n, tile, band, _band_starts_np(m, n, tile, band, num_tiles), ts)
         assert q_win <= qseg, (ql, sl, q_win)
+
+
+def transposed_passes(cfg):
+    """(name, query level, support level, window width or 0) of each
+    transposed pass (#9 on a static band, #10 on windows) of a KITTI train
+    step under ``cfg``: every KPConv of the FPN but encoder1_1, whose input
+    features need no gradient."""
+    fpn = KPConvFPN(input_dim=cfg.kpconv_input_dim, init_dim=cfg.kpconv_init_dim, band_plan=cfg.kpconv_band_plan,
+                    dynamic_plan=cfg.kpconv_dynamic_plan, dynamic_plan_self=cfg.kpconv_dynamic_plan_self)
+    passes = []
+    for name, _ in fpn.named_children():
+        if not name.startswith("encoder") or name == "encoder1_1":
+            continue
+        stage, block = (int(x) for x in name[len("encoder"):].split("_"))
+        ql = stage - 1
+        sl = ql - 1 if block == 1 and stage > 1 else ql
+        passes.append((name, ql, sl, fpn.dyn_w(sl, ql == sl)))
+    return passes
+
+
+TRAINERS = {"static": KITTIConfig(), "fast": with_fast_windows(KITTIConfig())}
+
+
+@pytest.mark.parametrize("trainer", sorted(TRAINERS))
+def test_static_transposes_plan_transpose_ts_rows_in_one_segment(built, trainer):
+    """Every static-band transposed pass (#9) of the default trainer (13 a
+    step) and of `--fast` (6 a step) takes blocks of TRANSPOSE_TS support
+    rows, and the window of query tiles each block walks fits one segment
+    of kept membership bits, so a block computes each pair's membership
+    once."""
+    qseg, _ = TR_BUILT["qseg"]
+    cfg = TRAINERS[trainer]
+    sizes = cfg.pyramid_sizes
+    static = [p for p in transposed_passes(cfg) if p[3] == 0]
+    assert len(static) == {"static": 13, "fast": 6}[trainer]
+    for name, ql, sl, _ in static:
+        m, n = sizes[ql], sizes[sl]
+        tile, num_tiles, band = band_plan(m, n, 128, cfg.kpconv_band_plan[sl])
+        ts = pick_tq(n, TRANSPOSE_TS)
+        assert ts == TRANSPOSE_TS, name
+        _, _, q_win, _ = bwd_geometry(m, n, tile, band, _band_starts_np(m, n, tile, band, num_tiles), ts)
+        assert q_win <= qseg, (name, q_win)
+
+
+def test_fast_windows_slice_into_whole_blocks():
+    """Every `--fast` window transposed pass (#10, 7 a step: encoder3_1
+    through encoder5_1 on w256 windows) has a width that the window mode's
+    TS (TRANSPOSE_TS rows a block) divides, within its support level."""
+    cfg = TRAINERS["fast"]
+    windows = [p for p in transposed_passes(cfg) if p[3]]
+    assert [p[0] for p in windows] == ["encoder3_1", "encoder3_2", "encoder3_3", "encoder4_1", "encoder4_2",
+                                       "encoder4_3", "encoder5_1"]
+    for name, _, sl, w in windows:
+        assert w == 256 and w <= cfg.pyramid_sizes[sl], name
+        assert pick_tq(w, TRANSPOSE_TS) == TRANSPOSE_TS and w % TRANSPOSE_TS == 0, name
+
+
+def test_radius_transpose_wrappers_leave_the_block_to_the_plan():
+    """#9's and #10's wrappers size their blocks by TRANSPOSE_TS (the
+    tensor-core plan's TS), not by the CUDA-core template's accumulator
+    bound, and kpconv_transpose.cu holds no kernel of its own: its three
+    launchers run the tensor-core kernel, #9 and #10 under RadiusMember
+    (#10 in the WINDOW mode), #11 under TauMember."""
+    for fn in (banded_kpconv_transpose_fused, banded_kpconv_transpose_dyn_fused, transpose_dyn_with_stack):
+        src = inspect.getsource(fn)
+        assert "_MAX_TQ" not in src and "_ACC_ELEMS" not in src, fn.__name__
+    assert "pick_tq(band, TRANSPOSE_TS)" in inspect.getsource(transpose_dyn_with_stack)
+    with open(os.path.join(cuda_lib.CSRC, "kpconv_transpose.cu")) as fh:
+        src = fh.read()
+    assert "__global__" not in src and not re.search(r"atomic[A-Z]", src)
+    launchers = src.split('extern "C" int ')[1:]
+    assert [body.split("(")[0] for body in launchers] == [
+        "kpconv_transpose_launch", "kpconv_transpose_dyn_launch", "kpconv_transpose_tau_launch"]
+    assert "launch<false>(a, RadiusMember{}" in launchers[0]
+    assert "launch<true>(a, RadiusMember{}" in launchers[1]
+    assert "launch<false>(a, TauMember{" in launchers[2]
+    with open(os.path.join(cuda_lib.CSRC, "kpconv_transpose_mma.cuh")) as fh:
+        assert not re.search(r"atomic[A-Z]", fh.read())
