@@ -45,7 +45,9 @@ the last line):
            version, with the pair's time beside the kernel's; the kernel's
            and the plain version's time (CUDA events) and the least time
            the card could take for the same work (the larger of bytes over
-           3.35 TB/s and operations over the peak rate of their type)
+           3.35 TB/s and operations over the peak rate of their type); the
+           fused KPConv and the attention also timed in fp32 (3xTF32), the
+           attention beside the library's fp32 attention
   fp32     the whole forward at B=1 in fp32 through the kernels and through
            the plain versions: FPN and transformer outputs agree
   grad     one fp32 train step at B=1 on a KITTI-scale frame through the
@@ -81,7 +83,12 @@ the last line):
            KITTI width, val at step 4): launches per step of each kernel,
            finite losses and gradient norm, parameters moved, the
            checkpoint restores and one eval_step runs on it; ms/step,
-           frames/s and peak memory.
+           frames/s and peak memory.  Then the restored model through
+           evaluation/pipeline.py's make_eval_body (what eval_all.main runs
+           for a port checkpoint under `kitti`: fp32, static bands, 12
+           launches of the fused KPConv a batch): 3 batches of 8 synthetic
+           frames, the median ms and frames/s of batches 2-3, finite poses
+           wherever RANSAC succeeded.
   t7       a reference-layout state dict from seeded weights, every KPConv
            with its own rotated and jittered kernel points, written as
            ref.t7; `python -m cofii2p_tpu_torch.evaluation.eval_all ref.t7
@@ -123,6 +130,7 @@ PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "serve_
 BATCH = 8
 REQUESTS = 10  # timed requests a serve phase: a request is ~0.13 s, where host jitter of a few ms shows
 TRAIN_STEPS = 4
+EVAL_BATCHES = 3  # batches of the fp32 static eval reading; the first is a warm-up
 PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0}
 # with kpconv_residual_fused: the 4 strided blocks' conv and shortcut in one
 # pass each (all fit residual_fused_fits in bf16 at w192), the other 10 convs
@@ -161,6 +169,11 @@ PER_KNN_STEP = {"knn_tau": 9, "kpconv_aggregate_tau": 14, "kpconv_transpose_tau"
 # pair (5 self, 4 cross), 12 KPConvs that fit the fused kernel and the two
 # Cin = 512 ones on the aggregate kernel, 4 strided shortcuts, 16 attention
 # calls; none of the radius kernels
+# launches per fp32 static eval batch of a port-trained model (A'): the 12
+# KPConvs that fit the fused kernel, the two Cin = 512 ones on the
+# aggregate, 4 strided shortcuts; full attention, as KITTIConfig has it
+PER_EVAL_FORWARD = {"kpconv_fused": 12, "kpconv_aggregate": 2, "maxpool": 4, "attention": 0, "residual_fused": 0,
+                    "kpconv_fused_tau": 0}
 PER_T7_FORWARD = {"knn_tau": 9, "kpconv_fused_tau": 12, "kpconv_aggregate_tau": 2, "maxpool_tau": 4, "attention": 16,
                   "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0, "residual_fused": 0}
 T7_DUMP_KEYS = {"GT_P", "pred_P", "K", "fine_xy", "corr_mask", "object_points", "superpoints_score"}
@@ -354,8 +367,9 @@ def check_kernels(device, gen, tally):
     for name, q, s, cin, cout, r, sg, bw, starts, f32_in in a_cases:
         f = torch.randn(b, s.shape[1], cin, generator=gen).to(device)
         w = (torch.randn(15, cin, cout, generator=gen) / cin**0.5).to(device)
-        ref, ref_cnt = banded_kpconv_fused_plain(f, q, s, w, r, sg, 15, 128, bw, torch.float32, starts)
-        out, cnt = banded_kpconv_fused(f, q, s, w, r, sg, 15, 128, bw, torch.float32, starts)
+        args32 = (f, q, s, w, r, sg, 15, 128, bw, torch.float32, starts)
+        ref, ref_cnt = banded_kpconv_fused_plain(*args32)
+        out, cnt = banded_kpconv_fused(*args32)
         torch.cuda.synchronize()
         e32 = rel_err(out, ref)
         if not torch.equal(cnt, ref_cnt):
@@ -373,6 +387,7 @@ def check_kernels(device, gen, tally):
         if not torch.equal(cnt16, cnt16_ref):
             raise PhaseError(f"kpconv {name}: bf16 counts differ at {(cnt16 != cnt16_ref).sum().item()} queries")
         k_ms = time_ms(lambda: banded_kpconv_fused(*args16))
+        k32_ms = time_ms(lambda: banded_kpconv_fused(*args32))
         p_ms = time_ms(lambda: banded_kpconv_fused_plain(*args16), 3)
         n = s.shape[1]
         bd = call_bound("banded_kpconv_fused", args16)
@@ -380,9 +395,11 @@ def check_kernels(device, gen, tally):
         tally.add("kpconv_fused", (out16 - ref16).abs().max().item(), k_ms, p_ms, bd)
         e16_same = rel_err(out16, ref16)
         del ref16
+        bd32 = call_bound("banded_kpconv_fused", args32)
         say("kernels", f"kpconv_fused {name} B={b} N={n}: fp32 rel {e32:.2e}, bf16 rel {e16:.2e} "
             f"(vs the bf16 plain version {e16_same:.2e}), counts equal; bf16 kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+            f"plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]}); fp32 (3xTF32) kernel {k32_ms:.3f} ms, "
+            f"bound {bd32[0]:.3f} ms ({bd32[1]})")
 
     # --- B: maxpool ------------------------------------------------------
     for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
@@ -430,6 +447,14 @@ def check_kernels(device, gen, tally):
                              f"bf16 beyond its rounding {excess:.2e} (<={ATTN_BF16_EXCESS:.0e}), dtype {out16.dtype}")
         say("kernels", f"attention (8,1280,4,32), {queries} q: fp32 abs {e32:.2e}, bf16 abs {e16:.2e}, bf16 beyond "
             f"its rounding of the fp32 plain version on the bf16 inputs {excess:.2e}, out bf16")
+    # fp32 (the `.t7` path's, 3xTF32) on the same normalised queries, with
+    # the library's fp32 attention as its yardstick
+    a32_ms = time_ms(lambda: fused_attention(q, k, v))
+    q32, k32, v32 = (x.transpose(1, 2) for x in (q, k, v))
+    a32_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q32, k32, v32))
+    bd32 = call_bound("fused_attention", (q, k, v))
+    say("kernels", f"attention (8,1280,4,32), normalised q, fp32 (3xTF32): kernel {a32_ms:.3f} ms, "
+        f"scaled_dot_product_attention {a32_lib:.3f} ms, bound {bd32[0]:.3f} ms ({bd32[1]})")
     # timed on serving's queries
     e16_same = (out16.float() - fused_attention_plain(qb, kb, vb).float()).abs().max().item()
     c_ms = time_ms(lambda: fused_attention(qb, kb, vb))
@@ -864,9 +889,9 @@ def check_residual_kernel(device, gen, tally, cfg):
     blocks at the serving shapes (bf16; w192 windows on support levels 1-3,
     the static band on level 0) and the three the fp32 static plan fuses.
     Counts equal and shortcuts bit-equal to both; the conv bit-equal to
-    #1's, since it is #1's code at #1's block size (csrc/kpconv_fused.cuh),
-    and within #1's thresholds of the plain version (fp32 rel <= 1e-3,
-    bf16 rel <= 5e-2)."""
+    #1's, since it is #1's tensor-core kernel at #1's plan in each
+    precision (csrc/kpconv_mma.cuh, POOL mode), and within #1's thresholds
+    of the plain version (fp32 rel <= 1e-3, bf16 rel <= 5e-2)."""
     import torch
 
     from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN
@@ -1273,6 +1298,7 @@ def train(device, seed, smi_line, phase="train"):
     recalls = {k: float(v) for k, v in recalls.items()}
     if not all(math.isfinite(v) for v in recalls.values()):
         raise PhaseError(f"{phase}: eval_step on the restored checkpoint not finite: {recalls}")
+    eval_line = fp32_eval_batches(cfg, restored, device, frames_total + BATCH) if phase == "train" else None
     shutil.rmtree(root, ignore_errors=True)
     del model, restored, captured
     torch.cuda.empty_cache()
@@ -1287,12 +1313,53 @@ def train(device, seed, smi_line, phase="train"):
         + "launches/step " + ", ".join(f"{k} {v}" for k, v in steps[-1][1].items() if v)
         + f"; {moved} parameter tensors moved; restored {os.path.basename(path)}, eval_step "
         + ", ".join(f"{k} {v:.3f}" for k, v in recalls.items()) + f"; card {smi_line}")
+    if eval_line:
+        say(phase, eval_line + f"; card {smi_line}")
     if phase != "train":
         try:
             say(phase, "B=1 step, " + replay_step_layers(cfg, device, seed, windows_only=phase == "train_fast"))
         except PhaseError as e:
             raise PhaseError(f"{phase}: {e}") from None
     return launches
+
+
+def fp32_eval_batches(cfg, model, device, start):
+    """The restored fp32 static model through evaluation/pipeline.py's
+    make_eval_body, the body eval_all.main runs for a port checkpoint
+    under `kitti`: EVAL_BATCHES batches of BATCH synthetic frames, launches
+    per batch as PER_EVAL_FORWARD, finite poses wherever RANSAC succeeded;
+    returns the line with the median ms and frames/s of the batches after
+    the first."""
+    import torch
+
+    from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body
+
+    run = make_eval_body(cfg, model.eval())
+    gen = torch.Generator(device).manual_seed(7)  # as eval_all.main seeds its draws
+    times, succ = [], 0
+    for i in range(EVAL_BATCHES):
+        hb = frames(cfg, BATCH, device, start=start + i * BATCH)
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        out = run(hb, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per = {k: v - before[k] for k, v in read_launches().items()}
+        for name, want in PER_EVAL_FORWARD.items():
+            if per[name] != want:
+                raise PhaseError(f"fp32 static eval: batch {i} launched {name} {per[name]} times, expected {want}")
+        finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
+        if not finite[out.success].all():
+            raise PhaseError(f"fp32 static eval: batch {i} has a non-finite pose where RANSAC succeeded")
+        succ += int(out.success.sum())
+    ms = sorted(t * 1e3 for t in times[1:])
+    med = (ms[(len(ms) - 1) // 2] + ms[len(ms) // 2]) / 2
+    return (f"fp32 static eval of the restored model (make_eval_body, {EVAL_BATCHES} batches x B={BATCH}): median "
+            f"of batches 2-{EVAL_BATCHES} {med:.1f} ms ({BATCH * 1e3 / med:.2f} frames/s), batches "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; launches/batch "
+            + ", ".join(f"{k} {per[k]}" for k in PER_EVAL_FORWARD if per[k])
+            + f"; RANSAC success {succ}/{EVAL_BATCHES * BATCH}, finite poses")
 
 
 def check_pose(device, gen):

@@ -11,9 +11,9 @@
 
 namespace cofii2p {
 
-constexpr int kMmaThreads = 256;             // threads a block (kpconv_fused.cuh's kThreads)
-constexpr int kMmaSeg = 2048;                // band rows per membership segment (kSeg)
-constexpr int kMmaWords = kMmaSeg / 32;      // membership words per query and segment (kWords)
+constexpr int kMmaThreads = 256;             // threads a block
+constexpr int kMmaSeg = 2048;                // band rows per membership segment of #1 in bf16
+constexpr int kMmaWords = kMmaSeg / 32;      // membership words per query and segment
 constexpr int kMmaMaxC = 512;                // Cin and Cout the kernel takes
 constexpr int kSmemPerBlock = 232448;        // dynamic shared memory a block may use (H100)
 constexpr int kSmemPerSM = 233472;           // shared memory an SM holds (H100)
@@ -26,25 +26,38 @@ constexpr int mma_pad(int c) {
   return p;
 }
 
-// Every padded (CI, CO) pair up to 512: bf16 compute at any width the
-// wrapper takes runs on the tensor cores
+// Every padded (CI, CO) pair up to 512: any width the wrapper takes runs
+// on the tensor cores, bf16 and fp32
 #define COFII2P_MMA_CO(X, ci) X(ci, 32) X(ci, 64) X(ci, 128) X(ci, 256) X(ci, 512)
 #define COFII2P_MMA_WIDTHS(X) \
   COFII2P_MMA_CO(X, 32) COFII2P_MMA_CO(X, 64) COFII2P_MMA_CO(X, 128) COFII2P_MMA_CO(X, 256) COFII2P_MMA_CO(X, 512)
 
 constexpr bool mma_widths(int cin, int cout) { return cin >= 1 && cout >= 1 && cin <= kMmaMaxC && cout <= kMmaMaxC; }
 
-// Block plan for padded widths CI, CO.  Once both products run on the
-// tensor cores a zero-influence pair costs a bit test and a zero, so a
-// block takes 64 queries, 32 where a width is 512 (acc_k and out, TQ x CI
-// and TQ x CO fp32 fragments over 256 threads, would otherwise pass the
-// register budget); up to 128 channels two blocks share an SM.
-template <int CI, int CO>
+constexpr int kTauSeg = 3072;                  // band rows a block keeps membership bits of at once
+constexpr int kTauWords = kTauSeg / 32;        // membership words per query
+
+// Block plan of kernel #1 (kpconv_mma.cuh) for padded widths CI, CO, in
+// bf16 or in fp32 by 3xTF32 (F32).  Once both products run on the tensor
+// cores a zero-influence pair costs a bit test and a zero, so a block takes
+// 64 queries, 32 where a width is 512 (acc_k and out, TQ x CI and TQ x CO
+// fp32 fragments over 256 threads, would otherwise pass the register
+// budget).  bf16: up to 128 channels two blocks share an SM; membership
+// segments of kMmaSeg rows.  fp32 takes TauPlan<CI, CO, true>'s accounting:
+// operands staged at twice bf16's bytes, the influence tile split into tf32
+// hi and lo, 32-row chunks (64 at 32 channels), two blocks an SM up to 64
+// channels, and membership bits of a kTauSeg-row segment with 16-bit row
+// indices, so every band of the FPN (2304 rows at most) is one segment.
+template <int CI, int CO, bool F32 = false>
 struct MmaPlan {
+  static constexpr int ESZ = F32 ? 4 : 2;                          // bytes of a staged operand
   static constexpr int kMaxC = CI > CO ? CI : CO;
   static constexpr int TQ = kMaxC <= 256 ? 64 : 32;                // queries per block at most
-  static constexpr int RB = CI <= 64 ? 128 : (CI <= 256 ? 64 : 32);  // active rows per chunk
-  static constexpr int MIN_BLOCKS = kMaxC <= 128 ? 2 : 1;          // blocks an SM holds: <= 128 registers
+  static constexpr int RB = F32 ? (CI <= 32 ? 64 : 32) : (CI <= 64 ? 128 : (CI <= 256 ? 64 : 32));  // chunk rows
+  static constexpr int MIN_BLOCKS = kMaxC <= (F32 ? 64 : 128) ? 2 : 1;  // blocks an SM holds
+  static constexpr int SEG = F32 ? kTauSeg : kMmaSeg;              // band rows of a membership segment
+  static constexpr int WORDS = SEG / 32;                           // membership words per query
+  static constexpr int IDX_BYTES = F32 ? 2 : 4;                    // bytes of an active-row index
   static constexpr int MT = TQ / 16;                                 // 16-row m-tiles
   // 8 warps over the (TQ, CI) aggregate and the (TQ, CO) output: WMA x WNA
   // (WMO x WNO) warps, each MA x NA (MO x NO) fragments of 16 x 8
@@ -56,15 +69,20 @@ struct MmaPlan {
   static_assert(WMA * MA * 16 == TQ && WNA * NA * 8 == CI, "MmaPlan: the warps tile the aggregate exactly");
   static_assert(WMO * MO * 16 == TQ && WNO * NO * 8 == CO, "MmaPlan: the warps tile the output exactly");
   static_assert(RB % 16 == 0 && CI % 32 == 0, "MmaPlan tiling");
-  // shared rows in bf16 elements, padded by 16 bytes against bank conflicts
-  static constexpr int A_STRIDE = RB + 8, F_STRIDE = CI + 8, P_STRIDE = CI + 8;
+  static_assert(SEG % kMmaThreads == 0, "a segment: whole membership passes of 256 rows");
+  static_assert(IDX_BYTES == 4 || SEG <= 1 << 16, "16-bit active-row indices");
+  // shared rows in elements: bf16 rows padded by 16 bytes, fp32 rows by 4
+  // words (A, acc_k) or 8 (features), against bank conflicts
+  static constexpr int A_STRIDE = F32 ? RB + 4 : RB + 8;
+  static constexpr int F_STRIDE = CI + 8;
+  static constexpr int P_STRIDE = F32 ? CI + 4 : CI + 8;
   // shared memory in bytes, in layout order (every part a multiple of 16)
-  static constexpr int F_BYTES = 2 * RB * F_STRIDE * 2;   // feature chunks, two slots
-  static constexpr int P_BYTES = TQ * P_STRIDE * 2;       // acc_k in bf16
-  static constexpr int A_BYTES = TQ * A_STRIDE * 2;       // influence tile
-  static constexpr int MASK_BYTES = TQ * kMmaWords * 4;   // membership bits of the segment
-  static constexpr int ACT_BYTES = kMmaSeg * 4;           // ordered active rows of the segment
-  static constexpr int Q_BYTES = TQ * 7 * 4;              // centred and uncentred queries, counts
+  static constexpr int F_BYTES = 2 * RB * F_STRIDE * ESZ;         // feature chunks, two slots
+  static constexpr int P_BYTES = TQ * P_STRIDE * ESZ;             // acc_k for the contraction
+  static constexpr int A_BYTES = TQ * A_STRIDE * ESZ * (F32 ? 2 : 1);  // influence tile (fp32: tf32 hi and lo)
+  static constexpr int MASK_BYTES = TQ * WORDS * 4;               // membership bits of the segment
+  static constexpr int ACT_BYTES = SEG * IDX_BYTES;               // ordered active rows of the segment
+  static constexpr int Q_BYTES = TQ * 7 * 4;                      // centred and uncentred queries, counts
   static constexpr int SMEM = F_BYTES + P_BYTES + A_BYTES + MASK_BYTES + ACT_BYTES + Q_BYTES + 64;
   static_assert(SMEM <= kSmemPerBlock, "over the shared memory a block may use");
   // 1 KB of each block's shared memory is the system's
@@ -81,9 +99,6 @@ struct MmaPlan {
 // (CO > 0, the contraction fused in) and kernel #6 (CO = 0, the aggregate
 // written out), in fp32 by 3xTF32 (F32) or in bf16; under radius
 // membership (CO = 0) the same kernel is #2.
-
-constexpr int kTauSeg = 3072;                  // band rows a block keeps membership bits of at once
-constexpr int kTauWords = kTauSeg / 32;        // membership words per query
 
 // Every padded (CI, CO) pair up to 512 for #7 and every padded CI for #6
 // (CO = 0), each built for both precisions

@@ -290,7 +290,7 @@ __global__ void __launch_bounds__(kTauThreads, (cofii2p::TauPlan<CI, CO, F32>::M
           float v = 0.f;
           if (live && q < TQ && (mrow[q * kWords] & bit)) {
             const float* qa = qa_s + 3 * q;
-            // (pa - qa) - kp, as the CUDA-core template took it
+            // (pa - qa) - kp, as kpconv_mma.cuh takes it for #1
             const float dx = (pa0 - qa[0]) - kx;
             const float dy = (pa1 - qa[1]) - ky;
             const float dz = (pa2 - qa[2]) - kz;

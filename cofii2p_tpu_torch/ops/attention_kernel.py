@@ -6,10 +6,11 @@ the TPU kernel, the output is in q's dtype: bf16 under bf16 serving, where
 attention options, kept as it is).
 
 :func:`fused_attention` takes the plain version for a CPU tensor and
-launches the kernel (csrc/attention.cu) for a CUDA tensor; there is no
-other fallback.  The JAX package has no backward for this kernel, so on
-the card it refuses inputs that require grad under grad mode (training
-uses ``attention='full'``).
+launches the kernel (csrc/attention.cu: on the tensor cores, bf16 on bf16
+products, fp32 by 3xTF32) for a CUDA tensor; there is no other fallback.
+The JAX package has no backward for this kernel, so on the card it
+refuses inputs that require grad under grad mode (training uses
+``attention='full'``).
 """
 
 from __future__ import annotations
@@ -55,9 +56,9 @@ def fused_attention(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
-        # the bf16 body reads k and v in 16-byte copies, q in 4-byte words
-        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary for the bf16 kernel")
+        # both bodies read k and v in 16-byte copies
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     out = torch.empty_like(q)
     bf16 = int(q.dtype == torch.bfloat16)
     err = cuda_lib.lib().attention_launch(

@@ -33,7 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of its launch
 SIGNATURES = {
     "kpconv_fused_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P],
     "kpconv_aggregate_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -71,7 +71,7 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "band_scatter_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "residual_fused_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _F, _P],
 }
 

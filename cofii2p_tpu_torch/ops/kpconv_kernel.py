@@ -26,14 +26,14 @@ Counterpart of cofii2p_tpu/ops/kpconv_kernel.py.  Seven kernels:
    the tensor-core kernel of csrc/kpconv_transpose_mma.cuh; replaces
    _transpose_agg_tau) is their feature gradient.
 
-In bf16 compute :func:`banded_kpconv_fused` runs the tensor-core kernel
-(csrc/kpconv_mma.cuh) on the weights :func:`mma_weights` lays out; the
-kernel takes its block plan from csrc/kpconv_mma_plan.cuh.  fp32 runs the
-CUDA-core template (csrc/kpconv_fused.cuh).  The aggregate (#2), the two
-tau kernels and the three transposed passes (#9, #10, #11) run on the
-tensor cores in both precisions, fp32 by 3xTF32 (the fused tau kernel on
-the weights :func:`tf32_weights` lays out, bf16 on :func:`mma_weights`'),
-with block plans ``TauPlan`` and ``TransposePlan`` of the same header.
+Every kernel here runs on the tensor cores in both precisions, fp32 by
+3xTF32: :func:`banded_kpconv_fused` on csrc/kpconv_mma.cuh, the aggregate
+(#2) and the two tau kernels on csrc/kpconv_tau_mma.cuh, the three
+transposed passes (#9, #10, #11) on csrc/kpconv_transpose_mma.cuh, each
+kernel with its block plan (``MmaPlan``, ``TauPlan``, ``TransposePlan``)
+from csrc/kpconv_mma_plan.cuh.  The two fused kernels read W in the
+fragment layout :func:`fused_weights` ships: :func:`mma_weights`' in bf16,
+:func:`tf32_weights`' in fp32.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor; there is no other fallback.  A wrapper returns
@@ -68,17 +68,11 @@ from cofii2p_tpu_torch.ops.banded import (
 )
 
 MAX_CHANNELS = 512  # Cin and Cout the kernels take
-_ACC_ELEMS = 8192  # per-block accumulator bound of the CUDA-core template (csrc/kpconv_fused.cuh)
 # support rows per block of the tensor-core transposed kernel, #9, #10 and
 # #11 (csrc/kpconv_mma_plan.cuh TransposePlan::TS): the host plans each
 # support tile's window of query tiles (static bands), or slices each
 # window (#10), for blocks of this size
 TRANSPOSE_TS = 64
-# queries per block of the CUDA-core template (#1 and #16 in fp32): a
-# block's active rows are the union of its queries' neighbourhoods, and
-# each (query, active row) pair costs a product per channel on the CUDA
-# cores even where its influence is 0
-_MAX_TQ = 32
 
 banded_kpconv_aggregate_plain = banded_kpconv_aggregate
 banded_kpconv_transpose_plain = banded_kpconv_aggregate_transpose
@@ -136,7 +130,7 @@ def _tf32_perm(ci: int) -> list:
 
 
 def tf32_weights(weights, ci: int, co: int):
-    """W (K, Cin, Cout) as the tau kernel reads it in fp32 (3xTF32): fp32,
+    """W (K, Cin, Cout) as the fused kernels read it in fp32 (3xTF32): fp32,
     zero-padded to (CI, CO), transposed to (K, CO, CI) and Cin permuted by
     :func:`_tf32_perm`; the kernel splits each value into tf32 hi + lo."""
     k_num, cin, cout = weights.shape
@@ -146,16 +140,14 @@ def tf32_weights(weights, ci: int, co: int):
     return w.index_select(1, perm).transpose(1, 2).contiguous()
 
 
-def fused_launch_plan(cin: int, cout: int, tile: int, dtype, weights):
-    """(W as the launcher takes it, queries per block) of one fused call.
-    bf16 compute runs the tensor-core kernel: W in :func:`mma_weights`'
-    layout, and 0 queries, for the kernel takes its own block plan
-    (csrc/kpconv_mma_plan.cuh).  fp32 runs the CUDA-core template: W fp32,
-    <= 32 queries within its accumulator bound."""
-    if dtype == torch.bfloat16 and max(cin, cout) <= MAX_CHANNELS:
-        return mma_weights(weights, mma_pad(cin), mma_pad(cout)), 0
-    tq = pick_tq(tile, min(_MAX_TQ, _ACC_ELEMS >> _pad_shift(cin), _ACC_ELEMS >> _pad_shift(cout)))
-    return weights.to(dtype).float().contiguous(), tq
+def fused_weights(weights, dtype):
+    """W (K, Cin, Cout) as kernel #1 (and #16's conv half) reads it in the
+    compute dtype: :func:`mma_weights`' layout in bf16,
+    :func:`tf32_weights`' in fp32, padded to the built widths; the block
+    takes its queries from its plan (csrc/kpconv_mma_plan.cuh ``MmaPlan``)."""
+    _, cin, cout = weights.shape
+    layout = mma_weights if dtype == torch.bfloat16 else tf32_weights
+    return layout(weights, mma_pad(cin), mma_pad(cout))
 
 
 def pick_tq(tile: int, limit: int) -> int:
@@ -240,7 +232,7 @@ def banded_kpconv_fused(
         raise ValueError(f"Cin, Cout <= {MAX_CHANNELS} supported, got {cin}, {cout}")
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     st = _starts_arg(m, n, tile, band, num_tiles, b, s_feats.device, starts)
-    w, tq = fused_launch_plan(cin, cout, tile, dtype, weights)
+    w = fused_weights(weights, dtype)
     kp = _kernel_points(float(radius), int(kernel_size), s_feats.device)
     _check_cuda(s_feats=s_feats, q_points=q_points, s_points=s_points, weights=w, starts=st)
     out = torch.empty(b, m, cout, dtype=torch.float32, device=s_feats.device)
@@ -250,7 +242,7 @@ def banded_kpconv_fused(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
         int(s_feats.dtype == torch.bfloat16), w.data_ptr(), kp.data_ptr(),
         st.data_ptr(), out.data_ptr(), count.data_ptr(),
-        b, m, n, cin, cout, k_num, tile, num_tiles, band, tq,
+        b, m, n, cin, cout, k_num, tile, num_tiles, band,
         int(dtype == torch.bfloat16), r2, float(sigma),
         cuda_lib.stream_of(s_feats),
     )

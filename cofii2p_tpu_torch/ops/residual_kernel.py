@@ -32,7 +32,7 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
     banded_kpconv_apply,
     banded_kpconv_fused_plain,
     check_no_grad,
-    fused_launch_plan,
+    fused_weights,
 )
 from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_apply, banded_maxpool_plain
 
@@ -122,9 +122,9 @@ def banded_residual_fused(
         raise ValueError(f"Cin <= {MAX_POOL_CHANNELS} supported, got {cin}")
     tile, num_tiles, band = band_plan(m, n, tile, band_width, starts)
     st = _starts_arg(m, n, tile, band, num_tiles, b, agg_feats.device, starts)
-    # #1's weights and block size (ops/kpconv_kernel.py::banded_kpconv_fused),
-    # so the conv half sums in #1's order
-    w, tq = fused_launch_plan(cmid, dout, tile, dtype, weights)
+    # #1's weights (ops/kpconv_kernel.py::banded_kpconv_fused); the kernel
+    # takes #1's plan, so the conv half sums in #1's order
+    w = fused_weights(weights, dtype)
     kp = _kernel_points(float(radius), int(kernel_size), agg_feats.device)
     _check_cuda(mp_feats=mp_feats, agg_feats=agg_feats, q_points=q_points, s_points=s_points, weights=w, starts=st)
     out = torch.empty(b, m, dout, dtype=torch.float32, device=agg_feats.device)
@@ -135,7 +135,7 @@ def banded_residual_fused(
         q_points.data_ptr(), s_points.data_ptr(), agg_feats.data_ptr(), int(agg_feats.dtype == torch.bfloat16),
         mp_feats.data_ptr(), int(mp_feats.dtype == torch.bfloat16), w.data_ptr(), kp.data_ptr(), st.data_ptr(),
         out.data_ptr(), count.data_ptr(), shortcut.data_ptr(),
-        b, m, n, cmid, dout, cin, k_num, tile, num_tiles, band, tq,
+        b, m, n, cmid, dout, cin, k_num, tile, num_tiles, band,
         int(dtype == torch.bfloat16), r2, float(sigma), cuda_lib.stream_of(agg_feats),
     )
     cuda_lib.check(err, "residual_fused")

@@ -43,13 +43,9 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; fp32 outside the
 # tensor cores, which every non-matmul operation is counted at; bf16 matmul;
 # an fp32 product by 3xTF32 (three TF32 products at 495 TFLOP/s), the rate
-# of the fp32 products of the kernels that take that route (#7, #6, #2, #9,
-# #10, #11)
+# of every fp32 product of the KPConv kernels (#1, #2, #6, #7, #9, #10, #11,
+# #16) and the fused attention (#4), which all take that route
 HBM_BPS, FP32_OPS, BF16_MMA_OPS, TF32X3_OPS = 3.35e12, 67e12, 989e12, 495e12 / 3
-# kernels whose fp32 products run by 3xTF32 on the tensor cores
-TF32X3_KERNELS = ("banded_kpconv_fused_tau", "banded_kpconv_aggregate_tau", "banded_kpconv_aggregate_fused",
-                  "banded_kpconv_transpose_fused", "banded_kpconv_transpose_dyn_fused",
-                  "banded_kpconv_transpose_tau_fused")
 INFL_OPS = 15  # operations of one kernel point's influence on one (query, row) pair
 
 
@@ -148,8 +144,9 @@ def call_bound(name: str, args, kwargs=None):
         s = k.shape[1]
         mma = 4.0 * b * h * l * s * d
         io = (q.numel() * 2 + k.numel() * 2) * q.element_size()
-        return bound_ms(io, ops32=5.0 * b * h * l * s + (0 if q.dtype == torch.bfloat16 else mma),
-                        ops16=mma if q.dtype == torch.bfloat16 else 0.0)
+        bf16 = q.dtype == torch.bfloat16
+        return bound_ms(io, ops32=5.0 * b * h * l * s, ops16=mma if bf16 else 0.0,
+                        ops_tf32x3=0.0 if bf16 else mma)
     q, s = a["q_points"], a["s_points"]
     b, m = q.shape[:2]
     n = s.shape[1]
@@ -171,12 +168,8 @@ def call_bound(name: str, args, kwargs=None):
             pairs = _pairs(q, s, tau_reach2(a["radius"], a["sigma"], ks) ** 0.5, tile, bw, starts, tau)
         mma16 = a["dtype"] == torch.bfloat16
 
-        def ops(infl, prod):  # the influence math on the CUDA cores, the products at their route's rate
-            if mma16:
-                return dict(ops32=infl, ops16=prod)
-            if name in TF32X3_KERNELS:
-                return dict(ops32=infl, ops_tf32x3=prod)
-            return dict(ops32=infl + prod)
+        def ops(infl, prod):  # the influence math on the CUDA cores, the products on the tensor cores
+            return dict(ops32=infl, ops16=prod) if mma16 else dict(ops32=infl, ops_tf32x3=prod)
 
         if tau is not None:
             pts += tau.numel() * 4 + ks * 3 * 4

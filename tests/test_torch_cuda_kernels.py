@@ -34,7 +34,10 @@ kernel's own stack.
 The fused residual band pass (#16): counts equal and shortcuts bit-equal
 to the plain version and to the pair it fuses (#1, #3), the conv
 bit-equal to #1's (the same kernel code at the same block size) and
-within #1's tolerances of the plain version.
+within #1's tolerances of the plain version, in fp32 also with tied
+maxima.  #1 and #4 in fp32 (3xTF32 on the tensor cores): #1 at every
+width of the FPN on static bands, windows and a 3200-row band, #4 at
+ragged shapes with both query kinds, each the same bits on two launches.
 """
 
 import numpy as np
@@ -203,6 +206,25 @@ def test_attention_tensor_core_kernel_matches_plain(cuda_device, b, l, s_len, qu
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("queries", ["normalised", "randn"])
+@pytest.mark.parametrize("b,l,s_len", [(2, 1, 1280), (2, 1000, 1100), (2, 1280, 40), (8, 1280, 1280)])
+def test_attention_fp32_tensor_core_kernel_matches_plain(cuda_device, b, l, s_len, queries):
+    """The fp32 body (3xTF32 on the tensor cores) at the same ragged shapes
+    and at the `.t7` path's, with both query kinds: abs <= 1e-5 against the
+    plain version, output fp32, the same bits on two launches."""
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(b, l, 4, 32, generator=g).to(cuda_device)
+    if queries == "normalised":
+        q = q / q.norm(dim=1, keepdim=True)
+    k, v = (torch.randn(b, s_len, 4, 32, generator=g).to(cuda_device) for _ in range(2))
+    out, again = fused_attention(q, k, v), fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert (out - fused_attention_plain(q, k, v)).abs().max().item() <= 1e-5
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
 def test_attention_refuses_unaligned_bf16_inputs(cuda_device):
     """The bf16 body reads k and v in 16-byte copies: a contiguous view that
     starts off a 16-byte boundary is refused, not faulted on."""
@@ -242,6 +264,39 @@ def test_kpconv_tensor_core_kernel_matches_plain(cuda_device, cin, cout, mode):
     torch.cuda.synchronize()
     assert torch.equal(cnt, ref_cnt)
     assert rel_err(out, ref) <= 5e-2
+
+
+# kernel #1 in fp32 (3xTF32): a static band, w192 windows, and a band of
+# 3200 rows, over the fp32 plan's 3072-row membership segment
+F32_MODES = {"static": (1024, 2048, 256, False), "w192": (1024, 2048, 192, True),
+             "band3200": (512, 4096, 1536, False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(F32_MODES))
+@pytest.mark.parametrize("cin,cout", [(4, 64), (32, 32), (32, 64), (64, 64), (128, 128), (256, 256), (512, 512)])
+def test_kpconv_fp32_tensor_core_kernel_matches_plain(cuda_device, cin, cout, mode):
+    """Kernel #1 in fp32 (csrc/kpconv_mma.cuh by 3xTF32) at every (Cin,
+    Cout) of the KITTI FPN (Cin = 4 on fp32 features, as encoder1_1), on a
+    static band, w192 windows and a 3200-row band: counts bit-equal to the
+    plain version, rel <= 1e-3 (about 1e-6 expected, as the tau kernel
+    gives), the same bits on two launches; at Cin = 64 also on bf16
+    features."""
+    m, n, width, dynamic = F32_MODES[mode]
+    q, s = clouds(m, n, cuda_device, lone=4)
+    g = torch.Generator().manual_seed(cin + cout)
+    f32 = torch.randn(2, n, cin, generator=g).to(cuda_device)
+    w = (torch.randn(15, cin, cout, generator=g) / cin**0.5).to(cuda_device)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, width, "best", 1) if dynamic else None
+    for f in (f32, f32.bfloat16()) if cin == 64 else (f32,):
+        args = (f, q, s, w, R, S, 15, 128, width, torch.float32, starts)
+        ref, ref_cnt = banded_kpconv_fused_plain(*args)
+        out, cnt = banded_kpconv_fused(*args)
+        again, _ = banded_kpconv_fused(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, ref_cnt)
+        assert rel_err(out, ref) <= 1e-3
+        assert torch.equal(out, again)
 
 
 def tied_features(s, c, device, seed=0):
@@ -567,3 +622,30 @@ def test_residual_fused_kernel_matches_plain_and_the_pair(cuda_device, m, n, cin
         assert torch.equal(out, conv)
         assert rel_err(out, ref) <= tol
     assert (mp == 0).all(-1).any()  # the lone queries' empty neighbourhoods
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,dynamic", [(256, False), (192, True)])
+def test_residual_fused_fp32_kernel_ties_match_plain_and_the_pair(cuda_device, width, dynamic):
+    """#16 in fp32 (#1's tensor-core kernel in POOL mode, 3xTF32) at
+    encoder3_1's widths on clouds whose shortcut maxima tie: counts equal,
+    the shortcut bit-equal to the plain version and to #3, the conv
+    bit-equal to #1's and within 1e-3 of the plain version, the same bits
+    on two launches."""
+    q, s = clouds(1024, 2048, cuda_device, lone=8)
+    s, fm = tied_features(s, 256, cuda_device)
+    q = s[:, ::2].contiguous()
+    fa = torch.randn(2, 2048, 64, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    w = (torch.randn(15, 64, 64, generator=torch.Generator().manual_seed(4)) / 8.0).to(cuda_device)
+    starts = dynamic_band_starts(q, s, R_ACT, 128, width, "best", 1) if dynamic else None
+    args = (fm, fa, w, q, s, R, S, 15, 128, width, torch.float32, starts)
+    out, cnt, mp = banded_residual_fused(*args)
+    again, _, mp_again = banded_residual_fused(*args)
+    ref, ref_cnt, ref_mp = banded_residual_fused_plain(*args)
+    conv, conv_cnt = banded_kpconv_fused(fa, q, s, w, R, S, 15, 128, width, torch.float32, starts)
+    pooled = banded_maxpool_fused(fm, q, s, R_ACT, 128, width, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, ref_cnt) and torch.equal(cnt, conv_cnt)
+    assert mp.dtype == torch.float32 and torch.equal(mp, ref_mp) and torch.equal(mp, pooled)
+    assert torch.equal(out, conv) and rel_err(out, ref) <= 1e-3
+    assert torch.equal(out, again) and torch.equal(mp, mp_again)

@@ -1,9 +1,11 @@
 """kernel_bench's bounds and yardsticks on the CPU: what it computes from
 shapes and data, with no card (the times themselves come only from the
-card).  The fp32 tensor-core KPConvs (#7, #6, the aggregate #2 and the
-three transposes #9, #10, #11) take their products at the 3xTF32 rate,
-every other fp32 kernel at the CUDA cores' 67 TFLOP/s; the library call
-timed beside the fused attention computes the same function."""
+card).  The fp32 products of the tensor-core kernels (every KPConv, #1,
+#2, #6, #7, #9, #10, #11, #16, and the fused attention #4) are charged at
+the 3xTF32 rate, every other fp32 operation (the influence math, the
+maxpools' comparisons, the softmax) at the CUDA cores' 67 TFLOP/s; the
+library call timed beside the fused attention computes the same
+function."""
 
 import numpy as np
 import pytest
@@ -40,13 +42,19 @@ def test_tau_kpconv_products_take_the_tf32x3_rate():
 
 
 def test_other_fp32_kernels_keep_the_cuda_core_rate():
-    """#1 in fp32 runs its products on the CUDA cores: all its operations
-    at 67 TFLOP/s; in bf16 its products at 989."""
+    """#1 in fp32 runs its products by 3xTF32 on the tensor cores since its
+    redesign: the influence math at 67 TFLOP/s, the products at 495/3; in
+    bf16 its products at 989.  The maxpool, which has no product, keeps
+    every comparison at the CUDA cores' rate."""
     q, f, w, _, _ = inputs()
     pairs = float(banded_pair_count(q, q, kernel_reach(1.7, 0.8), 128, 64).sum())
     infl, mma = pairs * 15 * kb.INFL_OPS, 2.0 * pairs * 15 * 32 + 2.0 * 2 * 256 * 15 * 32 * 32
-    ms, _ = kb.call_bound("banded_kpconv_fused", (f, q, q, w, 1.7, 0.8, 15, 128, 64))
-    assert ms == pytest.approx((infl + mma) / kb.FP32_OPS * 1e3, rel=1e-9)
+    ms, by = kb.call_bound("banded_kpconv_fused", (f, q, q, w, 1.7, 0.8, 15, 128, 64))
+    assert by == "operations"
+    assert ms == pytest.approx((infl / kb.FP32_OPS + mma / kb.TF32X3_OPS) * 1e3, rel=1e-9)
+    ms_mp, _ = kb.call_bound("banded_maxpool_fused", (f, q, q, kernel_reach(1.7, 0.8), 128, 64))
+    io = 2 * 512 * 3 * 4 + 2 * f.numel() * 4
+    assert ms_mp == pytest.approx(max(io / kb.HBM_BPS, pairs * 32 / kb.FP32_OPS) * 1e3, rel=1e-9)
     ms16, _ = kb.call_bound("banded_kpconv_fused", (f.bfloat16(), q, q, w, 1.7, 0.8, 15, 128, 64, torch.bfloat16))
     io = 2 * 512 * 3 * 4 + f.numel() * 2 + w.numel() * 4 + 2 * 256 * 33 * 4
     assert ms16 == pytest.approx(max(io / kb.HBM_BPS, infl / kb.FP32_OPS + mma / kb.BF16_MMA_OPS) * 1e3, rel=1e-9)
@@ -110,3 +118,18 @@ def test_static_and_window_transposes_keep_the_cuda_core_rate(dtype):
     ms10, _ = kb.call_bound("banded_kpconv_transpose_dyn_fused", (g, q, q, starts, 1.7, 0.8, 15, 128, 64, dtype))
     wio = io + starts.numel() * 4
     assert ms10 == pytest.approx(max(wio / kb.HBM_BPS, t_ops(wpairs)) * 1e3, rel=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_products_take_their_tensor_core_rate(dtype):
+    """#4's two products (4 B H L S D operations) at the 3xTF32 rate in
+    fp32 and at the bf16 mma rate in bf16, its softmax (5 per logit) at the
+    CUDA cores', against its q, k, v and output bytes."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(8, 1280, 4, 32, generator=g).to(dtype) for _ in range(3))
+    ms, by = kb.call_bound("fused_attention", (q, k, v))
+    mma, soft = 4.0 * 8 * 4 * 1280 * 1280 * 32, 5.0 * 8 * 4 * 1280 * 1280
+    rate = kb.TF32X3_OPS if dtype == torch.float32 else kb.BF16_MMA_OPS
+    io = 4 * q.numel() * q.element_size()
+    assert ms == pytest.approx(max(io / kb.HBM_BPS, soft / kb.FP32_OPS + mma / rate) * 1e3, rel=1e-9)
+    assert by == "operations"

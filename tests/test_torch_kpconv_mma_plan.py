@@ -10,9 +10,11 @@ tile, asks for at most 232,448 bytes of shared memory (and the blocks an SM
 must hold fit its 228 KB together), holds at most half its share of
 registers in fp32 accumulators, and its 8 warps tile the aggregate and the
 output exactly.  The pairs built are every padded width the wrapper sends
-to the kernel, so every KPConv of the KITTI FPN (serving's bf16 plan and
-the fp32 static plan) has one; the weight layout the wrapper ships gives
-each lane its B fragments.  The same for the k-NN (tau) kernel's plan
+to the kernel, in bf16 and in fp32 (3xTF32, whose plan stages its operands
+at twice the bytes and keeps the membership bits of a 3072-row segment),
+so every KPConv of the KITTI FPN (serving's bf16 plan and the fp32 static
+plan) has one; the weight layout the wrapper ships gives each lane its B
+fragments.  The same for the k-NN (tau) kernel's plan
 (``TauPlan``, kernels #7 and #6, fp32 by 3xTF32 and bf16): every width
 pair in both precisions, the kept membership bits of the `.t7` FPN's
 bands (one slice each), the fp32 weight layout.  The same kernel under
@@ -47,8 +49,9 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
     banded_kpconv_fused_tau,
     banded_kpconv_transpose_dyn_fused,
     banded_kpconv_transpose_fused,
+    banded_kpconv_fused,
     fused_contraction_fits,
-    fused_launch_plan,
+    fused_weights,
     mma_pad,
     mma_weights,
     pick_tq,
@@ -60,7 +63,10 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
 SMEM_PER_BLOCK, SMEM_PER_SM, REGS_PER_SM, THREADS = 232448, 233472, 65536, 256
 WIDTHS = (32, 64, 128, 256, 512)
 PAIRS = [(ci, co) for ci in WIDTHS for co in WIDTHS]
-FIELDS = ("ci", "co", "tq", "rb", "smem", "min_blocks", "acc_regs", "wma", "wna", "ma", "na", "wmo", "wno", "mo", "no")
+FIELDS = ("ci", "co", "tq", "rb", "smem", "min_blocks", "acc_regs", "wma", "wna", "ma", "na", "wmo", "wno", "mo", "no",
+          "seg", "words")
+# kernel #1's fp32 (3xTF32) plans, filled by the ``built`` fixture: (CI, CO) -> plan
+F32_BUILT = {}
 TILES = (1, 8, 16, 32, 64, 128)
 TAU_FIELDS = ("ci", "co", "f32", "tq", "rb", "smem", "min_blocks", "acc_regs", "wma", "wna", "ma", "na", "wmo", "wno",
               "mo", "no", "mask_bytes")
@@ -79,11 +85,12 @@ PLAN_DUMP = r"""
 #include <cstdio>
 #include "kpconv_mma_plan.cuh"
 
-template <int CI, int CO>
+template <int CI, int CO, bool F32>
 void row() {
-  using P = cofii2p::MmaPlan<CI, CO>;
-  std::printf("plan %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d\n", CI, CO, P::TQ, P::RB, P::SMEM, P::MIN_BLOCKS,
-              P::ACC_REGS, P::WMA, P::WNA, P::MA, P::NA, P::WMO, P::WNO, P::MO, P::NO);
+  using P = cofii2p::MmaPlan<CI, CO, F32>;
+  std::printf("%s %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d\n", F32 ? "plan32" : "plan", CI, CO, P::TQ, P::RB,
+              P::SMEM, P::MIN_BLOCKS, P::ACC_REGS, P::WMA, P::WNA, P::MA, P::NA, P::WMO, P::WNO, P::MO, P::NO, P::SEG,
+              P::WORDS);
 }
 
 template <int CI, int CO, bool F32>
@@ -101,7 +108,7 @@ void tr_row() {
 }
 
 int main() {
-#define ROW(ci, co) row<ci, co>();
+#define ROW(ci, co) row<ci, co, false>(); row<ci, co, true>();
   COFII2P_MMA_WIDTHS(ROW)
 #define TAU_ROW(ci, co) tau_row<ci, co, true>(); tau_row<ci, co, false>();
   COFII2P_TAU_WIDTHS(TAU_ROW)
@@ -143,6 +150,8 @@ def built(tmp_path_factory):
         vals = [int(v) for v in vals]
         if kind == "plan":
             plans[tuple(vals[:2])] = dict(zip(FIELDS, vals))
+        elif kind == "plan32":
+            F32_BUILT[tuple(vals[:2])] = dict(zip(FIELDS, vals))
         elif kind == "pad":
             pads[vals[0]] = (vals[1], bool(vals[2]))
         elif kind == "tq":
@@ -231,31 +240,72 @@ def test_the_fpn_has_fourteen_convs():
 
 @pytest.mark.parametrize("plan,name,cin,cout", CASES, ids=[f"{c[0]}-{c[1]}" for c in CASES])
 def test_fpn_convs_take_the_tensor_core_kernel_in_bf16(built, plan, name, cin, cout):
-    """In bf16 each conv ships W in the tensor-core layout for a pair that
-    is built; in fp32 it keeps the CUDA-core template's fp32 W and <= 32
-    queries a block."""
+    """Each conv ships W in the tensor-core layout of its compute dtype for
+    a pair built in that precision: mma_weights' bf16 in bf16,
+    tf32_weights' fp32 in fp32 (3xTF32); the block takes its queries from
+    its plan, so the launcher has no TQ parameter."""
     w = torch.randn(15, cin, cout)
-    wk, tq = fused_launch_plan(cin, cout, 128, torch.bfloat16, w)
     ci, co = mma_pad(cin), mma_pad(cout)
-    assert (ci, co) in built[0]
-    assert wk.dtype == torch.bfloat16 and wk.shape == (15, co, ci) and tq == 0
-    w32, tq32 = fused_launch_plan(cin, cout, 128, torch.float32, w)
-    assert w32.dtype == torch.float32 and torch.equal(w32, w) and 128 % tq32 == 0 and tq32 <= 32
+    assert (ci, co) in built[0] and (ci, co) in F32_BUILT
+    wk = fused_weights(w, torch.bfloat16)
+    assert wk.dtype == torch.bfloat16 and torch.equal(wk, mma_weights(w, ci, co))
+    w32 = fused_weights(w, torch.float32)
+    assert w32.dtype == torch.float32 and w32.shape == (15, co, ci) and torch.equal(w32, tf32_weights(w, ci, co))
+    for launcher in ("kpconv_fused_launch", "residual_fused_launch"):
+        assert "TQ" not in _c_params(launcher)
 
 
 @pytest.mark.parametrize("cin,cout", [(4, 64), (8, 8), (64, 128), (600, 64)])
 def test_bf16_widths_over_the_kernel_keep_the_cuda_core_template(cin, cout):
-    """Widths up to MAX_CHANNELS take the tensor-core layout in bf16; wider
-    ones (which the wrapper refuses) and every fp32 call the CUDA-core
-    template's fp32 weights and <= 32 queries a block."""
+    """Widths up to MAX_CHANNELS take the tensor-core layout in both
+    precisions (no fp32 call keeps a CUDA-core template: W is
+    tf32_weights' fp32 (K, CO, CI)); wider ones the wrapper refuses before
+    any launch (meta tensors: nothing runs)."""
     w = torch.randn(15, cin, cout)
-    wk, tq = fused_launch_plan(cin, cout, 128, torch.bfloat16, w)
     if max(cin, cout) <= MAX_CHANNELS:
-        assert wk.dtype == torch.bfloat16 and wk.shape == (15, mma_pad(cout), mma_pad(cin)) and tq == 0
+        ci, co = mma_pad(cin), mma_pad(cout)
+        wk = fused_weights(w, torch.bfloat16)
+        assert wk.dtype == torch.bfloat16 and wk.shape == (15, co, ci)
+        w32 = fused_weights(w, torch.float32)
+        assert w32.dtype == torch.float32 and torch.equal(w32, tf32_weights(w, ci, co))
     else:
-        assert wk.dtype == torch.float32 and wk.shape == w.shape and 0 < tq <= 32
-    w32, tq32 = fused_launch_plan(cin, cout, 128, torch.float32, w)
-    assert w32.dtype == torch.float32 and torch.equal(w32, w) and 0 < tq32 <= 32
+        dev = torch.device("meta")
+        q = torch.empty(1, 256, 3, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match=f"<= {MAX_CHANNELS}"):
+                banded_kpconv_fused(torch.empty(1, 256, cin, device=dev), q, q, w.to(dev), 1.7, 0.8, 15, 128, 64,
+                                    dtype)
+
+
+def _c_params(launcher):
+    """The parameter list of an ``extern "C"`` launcher of csrc/."""
+    for f in sorted(os.listdir(cuda_lib.CSRC)):
+        if f.endswith(".cu"):
+            m = re.search(r'extern "C" int ' + launcher + r"\(([^)]*)\)", open(os.path.join(cuda_lib.CSRC, f)).read())
+            if m:
+                return m.group(1)
+    raise AssertionError(f"no launcher {launcher}")
+
+
+@pytest.mark.parametrize("ci,co", PAIRS, ids=[f"{ci}x{co}" for ci, co in PAIRS])
+def test_fp32_block_plan_fits_the_card(built, ci, co):
+    """Kernel #1's fp32 (3xTF32) plan at every padded pair: the queries of
+    the bf16 plan (64, 32 where a width is 512), shared memory within the
+    block's and (MIN_BLOCKS blocks) the SM's, fp32 accumulators within half
+    the registers, the 8 warps tile the aggregate and the output exactly;
+    membership bits of a 3072-row segment, so every band of the FPN (2304
+    rows at most) is one segment."""
+    p, p16 = F32_BUILT[(ci, co)], built[0][(ci, co)]
+    assert p["tq"] == p16["tq"] == (64 if max(ci, co) <= 256 else 32)
+    assert p["smem"] <= SMEM_PER_BLOCK
+    assert p["min_blocks"] * (p["smem"] + 1024) <= SMEM_PER_SM
+    assert p["acc_regs"] <= REGS_PER_SM // (THREADS * p["min_blocks"]) // 2
+    assert p["rb"] % 16 == 0 and THREADS % p["rb"] == 0
+    for wm, wn, mt, nt, width in ((p["wma"], p["wna"], p["ma"], p["na"], ci), (p["wmo"], p["wno"], p["mo"], p["no"], co)):
+        assert wm * wn == THREADS // 32
+        assert wm * mt * 16 == p["tq"] and wn * nt * 8 == width
+    assert p["seg"] == p["words"] * 32 and p["seg"] % THREADS == 0 and p["seg"] <= 1 << 16
+    assert p["seg"] >= 2304 and p16["seg"] == 2048
 
 
 @pytest.mark.parametrize("cin,cout", [(4, 64), (512, 512)])

@@ -1,6 +1,8 @@
-"""Why the fp32 tau KPConvs (kernels #7 and #6, csrc/kpconv_tau_mma.cuh) may
-run their products on the tensor cores: 3xTF32 keeps them inside the 1e-4
-gates that one TF32 product misses.
+"""Why the fp32 KPConvs (kernels #7 and #6, csrc/kpconv_tau_mma.cuh, and #1,
+csrc/kpconv_mma.cuh, with the same products) and the fp32 fused attention
+(#4, csrc/attention.cu) may run their products on the tensor cores: 3xTF32
+keeps them inside the gates (1e-4 rel, 1e-5 abs) that one TF32 product
+misses.
 
 TF32 keeps 10 mantissa bits.  The kernel splits each fp32 operand into
 hi = tf32(a) and lo = tf32(a - hi) (cvt.rna: round to nearest, ties away
@@ -9,7 +11,9 @@ from zero) and accumulates hi*hi + hi*lo + lo*hi in fp32, dropping lo*lo
 on `.t7`-shaped operands: a block's influence tile (64 queries by the 640
 active rows of an lvl3 band, most of it zero) times the rows' features
 (Cin 256), then the aggregate times W_k (256 x 256); each against float64,
-in chip_smoke.py's error (max elementwise, floored at the rms).
+in chip_smoke.py's error (max elementwise, floored at the rms); and the
+attention's softmax(Q K^T / sqrt(D)) V of one (frame, head) at the `.t7`
+path's shape, against float64 in absolute error.
 """
 
 import numpy as np
@@ -89,3 +93,52 @@ def test_three_tf32_products_keep_the_fp32_gates(seed):
     assert rel_err(mma_product(acc3, w, split=False), ref_out) > 5 * GATE
     # both products against float64 throughout
     assert rel_err(out3, ref_acc @ w.astype(np.float64)) < GATE / 50
+
+
+ATTN_GATE = 1e-5  # chip_smoke.py's and the card tests' fp32 gate of the fused attention (#4), abs
+
+
+def attention_tf32x3(q, k, v, split=True, chunk=64):
+    """One (frame, head) of the fp32 attention body of csrc/attention.cu:
+    S = Q K^T by mma_product (3xTF32, or one TF32 product), divided by
+    sqrt(D) in fp32; an online softmax over chunks of 64 keys (running max,
+    fp32 denominators, the output rescaled by exp(m_old - m_new)); P V by
+    mma_product on P's and V's splits; acc / denom in fp32."""
+    d = q.shape[1]
+    scale = np.sqrt(np.float32(d), dtype=np.float32)
+    o = np.zeros((q.shape[0], d), np.float32)
+    m = np.full(q.shape[0], -np.inf, np.float32)
+    den = np.zeros(q.shape[0], np.float32)
+    for s0 in range(0, k.shape[0], chunk):
+        x = (mma_product(q, k[s0:s0 + chunk].T, split) / scale).astype(np.float32)
+        m_new = np.maximum(m, x.max(1))
+        corr = np.exp(m - m_new).astype(np.float32)
+        p = np.exp(x - m_new[:, None]).astype(np.float32)
+        den = (den * corr + p.sum(1, dtype=np.float32)).astype(np.float32)
+        o = (o * corr[:, None] + mma_product(p, v[s0:s0 + chunk], split)).astype(np.float32)
+        m = m_new
+    return o / den[:, None]
+
+
+def attention_f64(q, k, v):
+    x = q.astype(np.float64) @ k.astype(np.float64).T / np.sqrt(q.shape[1])
+    p = np.exp(x - x.max(1, keepdims=True))
+    return (p / p.sum(1, keepdims=True)) @ v.astype(np.float64)
+
+
+@pytest.mark.parametrize("queries", ["normalised", "randn"])
+def test_three_tf32_products_keep_the_attention_gate(queries):
+    """The fp32 attention at the `.t7` path's shape, one (frame, head) of
+    (8, 1280, 4, 32), with the transformer's sequence-normalised queries and
+    with randn ones (logit std ~1): by 3xTF32 (Q, K, P and V each split
+    into hi + lo) within the 1e-5 abs gate of a float64 reference, more
+    than 10 times inside it; one TF32 product on the same operands misses
+    it."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal((1280, 32)).astype(np.float32) for _ in range(3))
+    if queries == "normalised":
+        q = (q / np.linalg.norm(q, axis=0, keepdims=True)).astype(np.float32)
+    ref = attention_f64(q, k, v)
+    err3 = np.abs(attention_tf32x3(q, k, v) - ref).max()
+    assert err3 < ATTN_GATE / 10
+    assert np.abs(attention_tf32x3(q, k, v, split=False) - ref).max() > ATTN_GATE
