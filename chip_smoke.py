@@ -15,10 +15,12 @@ the last line):
   kernels  each CUDA kernel against its plain PyTorch version: the serving
            kernels at the serving shapes, fp32 and bf16 (the fused KPConv
            at lvl0 4->64 on fp32 features and 32->32, lvl1 <- lvl0
-           32->64, lvl2 static and w192, lvl4 512->512; the attention with
-           serving's normalised queries and with randn ones, its bf16
-           output within bf16's rounding of the fp32 plain version on the
-           same inputs plus 5e-4); the training
+           32->64, lvl2 static and w192, lvl4 512->512; the maxpool at the
+           four strided shortcuts, C = 128 to 1024 on their levels, static
+           and w192, bit-equal and the same bits on two launches; the
+           attention with serving's normalised queries and with randn
+           ones, its bf16 output within bf16's rounding of the fp32 plain
+           version on the same inputs plus 5e-4); the training
            kernels (aggregate, transposed aggregate, tie count, maxpool
            backward) at the trainer's fp32 shapes, B=8, on clouds with
            duplicated points so that maxima tie, the aggregate (tensor
@@ -26,7 +28,9 @@ the last line):
            k-NN kernels (tau,
            tau KPConv fused and aggregate, tau maxpool) at the `.t7`
            path's fp32 shapes, B=8, on the same clouds, so that k-th and
-           (k+1)-th distances and maxima tie: tau and the maxpool bit-equal,
+           (k+1)-th distances and maxima tie: tau and the maxpool
+           bit-equal (the maxpool at the four strided shortcuts, C = 128 to
+           1024, fp32 and bf16, the same bits on two launches),
            the KPConvs (tensor cores, fp32 by 3xTF32) at every width of the
            FPN, on bands of one membership segment and of two (2176 and
            2304 rows), with equal active-row counts; the backward kernels of
@@ -179,7 +183,7 @@ PER_T7_FORWARD = {"knn_tau": 9, "kpconv_fused_tau": 12, "kpconv_aggregate_tau": 
 T7_DUMP_KEYS = {"GT_P", "pred_P", "K", "fine_xy", "corr_mask", "object_points", "superpoints_score"}
 KERNELS = {
     "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
-    "maxpool": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:208"),
+    "maxpool": ("cofii2p_tpu_torch/csrc/maxpool_fwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:208"),
     "attention": ("cofii2p_tpu_torch/csrc/attention.cu", "cofii2p_tpu/ops/attention_kernel.py:53"),
     "kpconv_aggregate": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:228"),
     "kpconv_transpose": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:516"),
@@ -188,7 +192,7 @@ KERNELS = {
     "knn_tau": ("cofii2p_tpu_torch/csrc/knn_tau.cu", "cofii2p_tpu/ops/tau_kernel.py:110"),
     "kpconv_aggregate_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:691"),
     "kpconv_fused_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1212"),
-    "maxpool_tau": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:657"),
+    "maxpool_tau": ("cofii2p_tpu_torch/csrc/maxpool_fwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:657"),
     "kpconv_transpose_dyn": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh",
                              "cofii2p_tpu/ops/kpconv_kernel.py:442"),
     "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh",
@@ -402,27 +406,37 @@ def check_kernels(device, gen, tally):
             f"bound {bd32[0]:.3f} ms ({bd32[1]})")
 
     # --- B: maxpool ------------------------------------------------------
-    for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
+    # the four strided shortcuts at their levels (encoder2_1 .. encoder5_1);
+    # the C = 128 and 512 cases draw from generators of their own, so the
+    # checks after them see the same draws of ``gen`` as before
+    for c, ql, sl, fgen in ((128, 1, 0, torch.Generator().manual_seed(3)), (256, 2, 1, gen),
+                            (512, 3, 2, torch.Generator().manual_seed(4)), (1024, 4, 3, gen)):
         q, s = levels[ql], levels[sl]
         r, sg = r0 * 2 ** (sl), s0 * 2 ** (sl)
         ra = kernel_reach(r, sg)
         st = dynamic_band_starts(q, s, ra, 128, 192, "best", max(1, s.shape[1] // 2560))
         for mode, bw, starts in (("static", plan[sl], None), ("w192", 192, st)):
+            k32_ms = 0.0
             for dtype in (torch.float32, torch.bfloat16):
-                f = torch.randn(b, s.shape[1], c, generator=gen).to(device, dtype)
+                f = torch.randn(b, s.shape[1], c, generator=fgen).to(device, dtype)
                 ref = banded_maxpool_plain(f, q, s, ra, 128, bw, starts)
                 out = banded_maxpool_fused(f, q, s, ra, 128, bw, starts)
+                again = banded_maxpool_fused(f, q, s, ra, 128, bw, starts)
                 torch.cuda.synchronize()
                 bad = (out != ref).sum().item()
-                if bad or out.dtype != dtype:
-                    raise PhaseError(f"maxpool C={c} {mode} {dtype}: {bad} mismatches")
+                if bad or out.dtype != dtype or not torch.equal(out, again):
+                    raise PhaseError(f"maxpool C={c} {mode} {dtype}: {bad} mismatches, same bits on two launches: "
+                                     f"{torch.equal(out, again)}")
+                if dtype == torch.float32:
+                    k32_ms = time_ms(lambda: banded_maxpool_fused(f, q, s, ra, 128, bw, starts))
             k_ms = time_ms(lambda: banded_maxpool_fused(f, q, s, ra, 128, bw, starts))
             p_ms = time_ms(lambda: banded_maxpool_plain(f, q, s, ra, 128, bw, starts), 3)
             m, n = q.shape[1], s.shape[1]
             bd = call_bound("banded_maxpool_fused", (f, q, s, ra, 128, bw, starts))
             tally.add("maxpool", 0.0, k_ms, p_ms, bd)
-            say("kernels", f"maxpool C={c} {mode} B={b} M={m} N={n}: 0 mismatches fp32+bf16; "
-                f"bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+            say("kernels", f"maxpool C={c} lvl{ql}<-lvl{sl} {mode} B={b} M={m} N={n}: 0 mismatches fp32+bf16, the "
+                f"same bits on two launches; bf16 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms "
+                f"({bd[1]}); fp32 kernel {k32_ms:.3f} ms")
 
     # --- C: attention ----------------------------------------------------
     # serving's sequence-normalised queries (logits near 0, a near-uniform
@@ -693,25 +707,35 @@ def check_knn_kernels(device, gen, tally, cfg):
         del base, f, fb, out, ref, out16
 
     # --- #8 tau maxpool, with tied maxima ------------------------------------
-    for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
+    # the four strided shortcuts at their levels and `.t7` bands; the C =
+    # 128 and 512 cases draw from generators of their own
+    for c, ql, sl, fgen in ((128, 1, 0, torch.Generator().manual_seed(6)), (256, 2, 1, gen),
+                            (512, 3, 2, torch.Generator().manual_seed(7)), (1024, 4, 3, gen)):
         q, s, bw, tau = levels[ql], levels[sl], plan[sl], taus[(ql, sl)]
-        base = torch.randn(b, levels[0].shape[1], c, generator=gen).to(device)
+        base = torch.randn(b, levels[0].shape[1], c, generator=fgen).to(device)
         f = torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, c))
+        b16_ms = 0.0
         for dtype in (torch.float32, torch.bfloat16):
             fd = f.to(dtype)
             out = banded_maxpool_tau(fd, q, s, tau, 128, bw)
+            again = banded_maxpool_tau(fd, q, s, tau, 128, bw)
             ref = banded_maxpool_tau_plain(fd, q, s, tau, 128, bw)
             torch.cuda.synchronize()
             bad = (out != ref).sum().item()
-            if bad or out.dtype != dtype:
-                raise PhaseError(f"maxpool_tau C={c} {dtype}: {bad} mismatches")
+            if bad or out.dtype != dtype or not torch.equal(out, again):
+                raise PhaseError(f"maxpool_tau C={c} {dtype}: {bad} mismatches, same bits on two launches: "
+                                 f"{torch.equal(out, again)}")
+            if dtype == torch.bfloat16:
+                b16_ms = time_ms(lambda: banded_maxpool_tau(fd, q, s, tau, 128, bw))
         k_ms = time_ms(lambda: banded_maxpool_tau(f, q, s, tau, 128, bw))
         p_ms = time_ms(lambda: banded_maxpool_tau_plain(f, q, s, tau, 128, bw), 3)
         bd = call_bound("banded_maxpool_tau", (f, q, s, tau, 128, bw))
         tally.add("maxpool_tau", 0.0, k_ms, p_ms, bd)
-        say("kernels", f"maxpool_tau C={c} lvl{ql}<-lvl{sl} B={b} M={q.shape[1]} N={s.shape[1]}: 0 mismatches "
-            f"fp32+bf16; fp32 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
-        del base, f, out, ref
+        band = band_plan(q.shape[1], s.shape[1], 128, bw)[2]
+        say("kernels", f"maxpool_tau C={c} lvl{ql}<-lvl{sl} B={b} M={q.shape[1]} N={s.shape[1]} band {band}: 0 "
+            f"mismatches fp32+bf16, the same bits on two launches; fp32 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {bd[0]:.3f} ms ({bd[1]}); bf16 kernel {b16_ms:.3f} ms")
+        del base, f, fd, out, again, ref
 
 
 def check_window_and_tau_backward_kernels(device, gen, tally, cfg):

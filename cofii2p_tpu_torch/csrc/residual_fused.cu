@@ -8,7 +8,7 @@
 // over the band rows j of m's 128-query tile with d2 <= kernel reach^2;
 // a = unary1(x) (Cmid channels), f = the block input x (Cin channels).
 // conv and count are #1's (csrc/kpconv_fused.cu), shortcut is #3's
-// (csrc/maxpool.cu), on the same inputs.
+// (csrc/maxpool_fwd.cu), on the same inputs.
 //
 // What bounds it on the H100: the conv half, as #1 (the influence math
 // over the band and the two products on the tensor cores); the shortcut

@@ -42,7 +42,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _P],
     "maxpool_launch": [_P, _P, _P, _I, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                       _I, _I, _I, _I, _I, _I, _F, _P],
     "maxpool_count_launch": [_P, _P, _P, _I, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "maxpool_bwd_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -50,7 +50,7 @@ SIGNATURES = {
     "attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "knn_tau_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "maxpool_tau_launch": [_P, _P, _P, _I, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _P],
     "kpconv_fused_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _P],

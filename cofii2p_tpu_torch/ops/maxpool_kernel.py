@@ -2,21 +2,24 @@
 autograd Function that differentiates through them.
 
 Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Six kernels:
- - :func:`banded_maxpool_fused` (csrc/maxpool.cu; replaces
-   banded_maxpool_pallas) keeps per-query membership as a bitmask in
-   shared memory and reads a feature row only where it is in reach;
- - :func:`banded_maxpool_tie_count_fused` (the same source in count mode;
-   replaces _match_count) counts the member rows tied at the max, on
-   static bands or dynamic windows, by radius or by tau;
+ - :func:`banded_maxpool_fused` (csrc/maxpool_fwd.cu; replaces
+   banded_maxpool_pallas): a block a 128-query tile and every channel,
+   membership tested once a tile and kept as bits, the rows any query
+   holds staged once per channel slice in shared memory and maxed there
+   per query (plan: csrc/maxpool_plan.cuh);
+ - :func:`banded_maxpool_tie_count_fused` (csrc/maxpool.cu; replaces
+   _match_count) counts the member rows tied at the max, on static bands
+   or dynamic windows, by radius or by tau;
  - :func:`banded_maxpool_backward_fused` (csrc/maxpool_bwd.cu; replaces
    _bwd) routes the tie-divided cotangent to those rows, transposed over
    support tiles, on static bands;
    :func:`banded_maxpool_backward_dyn_fused` (the same source in window
    mode, then csrc/band_scatter.cu; replaces _bwd_dyn) on dynamic windows;
- - :func:`banded_maxpool_tau` (csrc/maxpool.cu in tau mode; replaces
-   banded_maxpool_tau_pallas) is the reference's k-NN maxpool: membership
-   d2 <= tau[m], no radius mask; :func:`banded_maxpool_backward_tau_fused`
-   (csrc/maxpool_bwd.cu in tau mode; replaces _tau_bwd) its routing.
+ - :func:`banded_maxpool_tau` (csrc/maxpool_fwd.cu with tau thresholds;
+   replaces banded_maxpool_tau_pallas) is the reference's k-NN maxpool:
+   membership d2 <= tau[m], no radius mask;
+   :func:`banded_maxpool_backward_tau_fused` (csrc/maxpool_bwd.cu in tau
+   mode; replaces _tau_bwd) its routing.
 
 Each wrapper takes its plain version (ops/banded.py) for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no other fallback.
@@ -98,8 +101,7 @@ def banded_maxpool_fused(s_feats, q_points, s_points, r_active, tile=128, band_w
     err = cuda_lib.lib().maxpool_launch(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
         int(s_feats.dtype == torch.bfloat16), st.data_ptr(), out.data_ptr(),
-        b, m, n, c, tile, band, pick_tq(tile, 16),
-        float(np.float32(r_active * r_active)), cuda_lib.stream_of(s_feats),
+        b, m, n, c, tile, band, float(np.float32(r_active * r_active)), cuda_lib.stream_of(s_feats),
     )
     cuda_lib.check(err, "maxpool")
     banded_maxpool_fused.launches += 1
@@ -132,7 +134,7 @@ def banded_maxpool_tau(s_feats, q_points, s_points, tau, tile=128, band_width=10
     err = cuda_lib.lib().maxpool_tau_launch(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
         int(s_feats.dtype == torch.bfloat16), st.data_ptr(), tau.data_ptr(), out.data_ptr(),
-        b, m, n, c, tile, band, pick_tq(tile, 16), cuda_lib.stream_of(s_feats),
+        b, m, n, c, tile, band, cuda_lib.stream_of(s_feats),
     )
     cuda_lib.check(err, "maxpool_tau")
     banded_maxpool_tau.launches += 1

@@ -2,7 +2,7 @@
 `.t7` eval path.
 
     python -m cofii2p_tpu_torch.utils.kernel_bench [--path serve|resfuse|train|fast|knn_train|t7|val|val_resfuse]
-        [--batch 8] [--reps 10]
+        [--batch 8] [--reps 10] [--only WRAPPER[,WRAPPER...]]
 
 ``serve`` runs one forward of bench.py's serving config (bf16 w192,
 fused attention); ``resfuse`` the same with ``kpconv_residual_fused=True``
@@ -27,7 +27,8 @@ larger of the bytes moved over the HBM rate and the operations over the
 peak rate of their type).  Where one PyTorch call computes the same
 function (the fused attention: ``scaled_dot_product_attention``), it is
 timed beside them as a yardstick.  One line per call, then per-kernel
-totals.
+totals; ``--only`` replays the calls of the named wrappers alone (e.g.
+``banded_maxpool_fused,banded_maxpool_tau``).
 Needs a CUDA device.
 """
 
@@ -393,6 +394,7 @@ def main():
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="", help="comma-separated wrapper names whose calls are replayed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench needs a CUDA device")
@@ -408,6 +410,8 @@ def main():
     else:
         calls = {"serve": record_serve, "t7": record_t7}[args.path](args.batch, args.seed, dev)
     torch.cuda.synchronize()
+    if args.only:
+        calls = [c for c in calls if c[0] in args.only.split(",")]
 
     wrappers = kernel_wrappers()
     totals = {}

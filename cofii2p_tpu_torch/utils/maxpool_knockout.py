@@ -1,0 +1,164 @@
+"""Time the forward band max (kernels #3 and #8) by part on the card, with
+knock-out builds, and beside variants of its block plan.
+
+    python -m cofii2p_tpu_torch.utils.maxpool_knockout [--tree DIR] [--path t7] [--path serve] [--reps 10]
+        [--variant NAME=VALUE[,NAME=VALUE...] ...]
+
+``--tree`` is the root of a checkout of the port (default: this one); its
+package is copied under ``build/knockout/`` of this checkout: as it is
+(``full``), with the feature loads knocked out (``no_loads``), with the
+membership tests knocked out (``no_member``) and once for each
+``--variant``, which sets ``constexpr int`` constants of
+``csrc/maxpool_plan.cuh`` (e.g. ``kPoolThreads=256,kPoolWalk=2``), each
+built on its own.  Each copy then replays the maxpool calls of the given
+paths with ``utils/kernel_bench.py --only`` (this checkout's, copied in)
+and the per-path totals of #3 and #8 are printed side by side.
+
+What each knock-out removes, by the source the tree has:
+ - ``csrc/maxpool.cu`` (the CUDA-core kernel, before the redesign):
+   no_loads replaces the walk's global load of f[j, c] by a value made
+   from j and c, so the bit walk stays; no_member tests each band row
+   against the block's first query only (the test no longer depends on the
+   query, so the compiler hoists it out of the query loop) and gives every
+   query that query's bits, so the walk keeps its length.
+ - ``csrc/maxpool_fwd.cu`` (the redesign): no_loads drops the cp.async of
+   feature rows into shared memory (the walk reads stale shared memory);
+   no_member gives every query the first query's test, as above.
+The knocked-out builds compute wrong maxima: their times are the only
+output.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ROOT = os.path.dirname(_PKG)
+ONLY = "banded_maxpool_fused,banded_maxpool_tau"
+
+PARTS = ("no_loads", "no_member")
+
+# (source, part) -> [(text, replacement)]; each text must occur once.
+# maxpool.cu's are those of the CUDA-core forward before the redesign, for
+# the measure-first timing of such a tree through --tree
+KNOCKOUTS = {
+    "maxpool.cu": {
+        "no_loads": [("const float v = cofii2p::load_f(feats, frow0 + (long)j * C + c, f_bf16);",
+                      "const float v = __int_as_float(j ^ c);")],
+        "no_member": [("cofii2p::membership_d2(qc_s + 3 * q, px, py, pz) <= (TAU ? thr_s[q] : r2)",
+                       "cofii2p::membership_d2(qc_s, px, py, pz) <= (TAU ? thr_s[0] : r2)")],
+    },
+    "maxpool_fwd.cu": {
+        "no_loads": [("cofii2p::cp_async16(d, f + e * ESZ, 16);", "(void)e;")],
+        "no_member": [("const float4 qq = q_s[32 * w + k];", "const float4 qq = q_s[0];")],
+    },
+}
+
+
+def forward_source(csrc: str) -> str:
+    """The source of the forward band max in a tree's csrc/."""
+    return "maxpool_fwd.cu" if os.path.exists(os.path.join(csrc, "maxpool_fwd.cu")) else "maxpool.cu"
+
+
+def patch(text: str, edits) -> str:
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"knock-out pattern found {text.count(old)} times: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def plan_edits(text: str, variant: str):
+    """The edits that set the variant's ``NAME=VALUE`` constants of a plan
+    header's text."""
+    edits = []
+    for item in variant.split(","):
+        name, value = item.split("=")
+        m = re.search(r"constexpr int " + name + r" = -?\d+;", text)
+        if not m:
+            raise RuntimeError(f"no constexpr int {name} in the plan header")
+        edits.append((m.group(0), f"constexpr int {name} = {int(value)};"))
+    return edits
+
+
+def make_copy(tree: str, variant: str) -> str:
+    """This variant's copy of the tree's package; returns its root."""
+    dst = os.path.join(_ROOT, "build", "knockout", re.sub(r"[^\w]", "_", variant))
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "cofii2p_tpu_torch"), os.path.join(dst, "cofii2p_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    # the kernel points the port reads by path
+    disp = os.path.join("cofii2p_tpu", "models", "dispositions")
+    shutil.copytree(os.path.join(tree, disp), os.path.join(dst, disp))
+    shutil.copy(os.path.join(_PKG, "utils", "kernel_bench.py"), os.path.join(dst, "cofii2p_tpu_torch", "utils"))
+    csrc = os.path.join(dst, "cofii2p_tpu_torch", "csrc")
+    src = forward_source(csrc) if variant in ("full", *PARTS) else "maxpool_plan.cuh"
+    path = os.path.join(csrc, src)
+    with open(path) as fh:
+        text = fh.read()
+    if variant in PARTS:
+        text = patch(text, KNOCKOUTS[src][variant])
+    elif variant != "full":
+        text = patch(text, plan_edits(text, variant))
+    with open(path, "w") as fh:
+        fh.write(text)
+    return dst
+
+
+def run(root: str, args) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.run([sys.executable, *args], cwd=root, env=env, capture_output=True, text=True)
+
+
+def totals(out: str) -> dict:
+    """kernel_bench's TOTAL lines: wrapper -> (calls, kernel ms, bound ms)."""
+    got = {}
+    for m in re.finditer(r"TOTAL (\S+)\s+(\d+) calls\s+kernel\s+([\d.]+) ms.*bound\s+([\d.]+) ms", out):
+        got[m.group(1)] = (int(m.group(2)), float(m.group(3)), float(m.group(4)))
+    return got
+
+
+def main():
+    ap = argparse.ArgumentParser(description="time kernels #3 and #8 by part with knock-out builds")
+    ap.add_argument("--tree", default=_ROOT, help="root of the checkout whose kernels are timed")
+    ap.add_argument("--path", action="append", choices=("serve", "train", "fast", "knn_train", "t7", "val"))
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--variant", action="append", default=[], help="NAME=VALUE[,NAME=VALUE...] of the plan header")
+    args = ap.parse_args()
+    paths = args.path or ["t7", "serve"]
+    variants = ("full", *PARTS, *args.variant)
+    roots = {v: make_copy(os.path.abspath(args.tree), v) for v in variants}
+    build = ["-c", "from cofii2p_tpu_torch.ops import cuda_lib; cuda_lib.build()"]
+    with ThreadPoolExecutor(len(variants)) as ex:
+        for v, res in zip(variants, ex.map(lambda v: run(roots[v], build), variants)):
+            if res.returncode:
+                raise SystemExit(f"{v}: build failed\n{res.stdout}{res.stderr}")
+    csrc = os.path.join(roots["full"], "cofii2p_tpu_torch", "csrc")
+    print(f"tree {os.path.abspath(args.tree)}, forward source {forward_source(csrc)}")
+    for path in paths:
+        row = {}
+        for v in variants:
+            res = run(roots[v], ["-m", "cofii2p_tpu_torch.utils.kernel_bench", "--path", path, "--only", ONLY,
+                                 "--reps", str(args.reps)])
+            if res.returncode:
+                raise SystemExit(f"{v} {path}: kernel_bench failed\n{res.stdout}{res.stderr}")
+            row[v] = totals(res.stdout)
+            last = res.stdout.strip().splitlines()[-1]
+        for name in sorted(row["full"]):
+            n, full, bound = row["full"][name]
+            no_loads, no_member = row["no_loads"][name][1], row["no_member"][name][1]
+            parts = (f", no_loads {no_loads:.3f} (loads {full - no_loads:.3f}), no_member {no_member:.3f} "
+                     f"(membership {full - no_member:.3f})")
+            others = "".join(f", {v} {row[v][name][1]:.3f}" for v in args.variant)
+            print(f"{path:6s} {name:22s} {n} calls: full {full:.3f} ms{parts}{others}, bound {bound:.3f}")
+        print(last)
+
+
+if __name__ == "__main__":
+    main()

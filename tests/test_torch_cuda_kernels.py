@@ -87,6 +87,9 @@ from cofii2p_tpu_torch.ops.pyramid import morton_order
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_fused, banded_residual_fused_plain
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel, banded_knn_tau_plain
 from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
+# by its bare name, as pytest puts tests/ on the path: on the card another
+# installed package may be named ``tests``
+from torch_kernel_inputs import ENC1_1_BW, ENC1_1_R, ENC1_1_S, ENC1_1_SEEDS, enc1_1_tau_inputs
 
 R, S = 1.7, 0.8  # the level-2 radius and sigma of the KITTI FPN
 R_ACT = kernel_reach(R, S)
@@ -142,15 +145,20 @@ def test_kpconv_kernel_matches_plain(cuda_device, cin, cout, dynamic):
         assert rel_err(out, ref) <= tol
 
 
+# the channel widths of the four strided shortcuts (encoder2_1 .. encoder5_1)
+POOL_WIDTHS = [128, 256, 512, 1024]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", POOL_WIDTHS)
 @pytest.mark.parametrize("dynamic", [False, True])
-def test_maxpool_kernel_bitequal_to_plain(cuda_device, dynamic):
+def test_maxpool_kernel_bitequal_to_plain(cuda_device, dynamic, c):
     q, s = clouds(1024, 2048, cuda_device, lone=8)
     width, starts = 256, None
     if dynamic:
         width = 192
         starts = dynamic_band_starts(q, s, R_ACT, 128, width, "best", 1)
-    f32 = torch.randn(2, 2048, 256, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    f32 = torch.randn(2, 2048, c, generator=torch.Generator().manual_seed(0)).to(cuda_device)
     for dtype in (torch.float32, torch.bfloat16):
         f = f32.to(dtype)
         out = banded_maxpool_fused(f, q, s, R_ACT, 128, width, starts)
@@ -158,6 +166,72 @@ def test_maxpool_kernel_bitequal_to_plain(cuda_device, dynamic):
         assert out.dtype == dtype
         assert torch.equal(out, ref)
         assert (out == 0).all(-1).any()  # the lone queries' empty neighbourhoods
+        assert torch.equal(out, banded_maxpool_fused(f, q, s, R_ACT, 128, width, starts))  # the same bits again
+
+
+# the forward band max (csrc/maxpool_fwd.cu) on tied maxima: (M, N, band
+# width, windows); "band3456": 256 + 2 * 1600 rows, over the 3072 a block
+# keeps membership bits of at once, so it walks two segments; "tile96": a
+# 96-query tile, fewer than the block's 128
+POOL_MODES = {"band512": (1024, 2048, 256, False), "w192": (1024, 2048, 192, True),
+              "band3456": (2048, 4096, 1600, False), "tile96": (96, 512, 128, False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tau", [False, True], ids=["radius", "tau"])
+@pytest.mark.parametrize("mode,c", [(m, c) for m in sorted(POOL_MODES) for c in (128, 1024)] + [("band512", 20)])
+def test_maxpool_kernels_bitequal_on_ties_windows_and_long_bands(cuda_device, mode, c, tau):
+    """Kernels #3 (radius) and #8 (tau) bit-equal to their plain versions
+    with duplicated points and features (maxima tie, and under tau the
+    k-th and (k+1)-th distances), lone queries (empty neighbourhoods give
+    0), window starts, a band over one membership segment, a tile under
+    128 queries and a width that is no whole 16-byte piece (C = 20, element
+    by element), fp32 and bf16, the same bits on two launches."""
+    m, n, width, windowed = POOL_MODES[mode]
+    q, s = clouds(m, n, cuda_device, lone=4)
+    s, f32 = tied_features(s, c, cuda_device, seed=3)
+    thr = banded_knn_tau_plain(q, s, 64, 128, width) if tau else None
+    starts = None
+    if windowed:
+        starts = (dynamic_knn_starts(q, s, banded_knn_tau_plain(q, s, 64, 128, 2 * width), 128, width, 1) if tau
+                  else dynamic_band_starts(q, s, R_ACT, 128, width, "best", 1))
+        if tau:
+            thr = banded_knn_tau_plain(q, s, 64, 128, width, starts)
+    for dtype in (torch.float32, torch.bfloat16):
+        f = f32.to(dtype)
+        if tau:
+            run = lambda: banded_maxpool_tau(f, q, s, thr, 128, width, starts)  # noqa: E731
+            ref = banded_maxpool_tau_plain(f, q, s, thr, 128, width, starts)
+        else:
+            run = lambda: banded_maxpool_fused(f, q, s, R_ACT, 128, width, starts)  # noqa: E731
+            ref = banded_maxpool_plain(f, q, s, R_ACT, 128, width, starts)
+        out = run()
+        assert out.dtype == dtype
+        assert torch.equal(out, ref)
+        assert torch.equal(out, run())
+        if not tau:
+            assert (out == 0).all(-1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tau", [False, True], ids=["radius", "tau"])
+@pytest.mark.parametrize("c", POOL_WIDTHS)
+def test_tie_count_over_the_new_forward_equals_plain(cuda_device, c, tau):
+    """#12's count over the forward kernel's output equals the plain count
+    (the forward's output equal to the plain one first): the count walks
+    exactly the rows the forward maxed over, by radius and by tau."""
+    q, s = clouds(1024, 2048, cuda_device, lone=4)
+    s, f = tied_features(s, c, cuda_device, seed=4)
+    thr = banded_knn_tau_plain(q, s, 128, 128, 256) if tau else None
+    if tau:
+        out = banded_maxpool_tau(f, q, s, thr, 128, 256)
+        assert torch.equal(out, banded_maxpool_tau_plain(f, q, s, thr, 128, 256))
+    else:
+        out = banded_maxpool_fused(f, q, s, R_ACT, 128, 256)
+        assert torch.equal(out, banded_maxpool_plain(f, q, s, R_ACT, 128, 256))
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256, tau=thr)
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, 256, tau=thr))
+    assert (cnt > 1).any()
 
 
 @pytest.mark.gpu
@@ -414,15 +488,17 @@ def test_knn_tau_kernel_bitequal_to_plain(cuda_device, m, n, k, width, windowed)
 
 
 @pytest.mark.gpu
-def test_maxpool_tau_kernel_bitequal_to_plain(cuda_device):
+@pytest.mark.parametrize("c", POOL_WIDTHS)
+def test_maxpool_tau_kernel_bitequal_to_plain(cuda_device, c):
     q, s = clouds(1024, 2048, cuda_device, lone=8)
-    s, f32 = tied_features(s, 256, cuda_device)
+    s, f32 = tied_features(s, c, cuda_device)
     tau = banded_knn_tau_plain(q, s, 16, 128, 256)
     for dtype in (torch.float32, torch.bfloat16):
         f = f32.to(dtype)
         out = banded_maxpool_tau(f, q, s, tau, 128, 256)
         assert out.dtype == dtype
         assert torch.equal(out, banded_maxpool_tau_plain(f, q, s, tau, 128, 256))
+        assert torch.equal(out, banded_maxpool_tau(f, q, s, tau, 128, 256))  # the same bits again
 
 
 # (M, N, band width, k): a 768-row band; encoder4_2's self band of 128 +
@@ -649,3 +725,30 @@ def test_residual_fused_fp32_kernel_ties_match_plain_and_the_pair(cuda_device, w
     assert mp.dtype == torch.float32 and torch.equal(mp, ref_mp) and torch.equal(mp, pooled)
     assert torch.equal(out, conv) and rel_err(out, ref) <= 1e-3
     assert torch.equal(out, again) and torch.equal(mp, mp_again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", ENC1_1_SEEDS)
+def test_kpconv_tau_bf16_error_at_cin4_tracks_the_plain_version(cuda_device, seed):
+    """Kernel #7 in bf16 at encoder1_1 (Cin = 4 -> 64) over the seeds on
+    which tests/test_torch_tau_bf16_error.py reads the JAX reference's bf16
+    error: against one fp32 truth (the fp32 plain version) the kernel errs
+    as the plain bf16 version does, whose error is the reference's (over
+    5e-2 on one of these draws, 8.8e-2, as the reference's own).  The
+    kernel rounds at the plain version's points but sums in another order,
+    so an element may round to the neighbouring bf16 value (2^-8
+    relative): its error lies within 1e-3 of the plain one's, and it is
+    within 5e-3 of the plain bf16 output itself (2.4e-4 at most over these
+    draws on an H100)."""
+    f, s, w, tau, kp = (torch.as_tensor(x).to(cuda_device) for x in enc1_1_tau_inputs(seed))
+    args = (s, s, w, tau, kp, ENC1_1_R, ENC1_1_S, 15, 128, ENC1_1_BW)
+    truth, _ = banded_kpconv_fused_tau_plain(f, *args)
+    for fk in (f.bfloat16(), f):  # bf16 features, and fp32 ones as encoder1_1 takes them
+        plain, plain_cnt = banded_kpconv_fused_tau_plain(fk, *args, torch.bfloat16)
+        out, cnt = banded_kpconv_fused_tau(fk, *args, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, plain_cnt)
+        e_kernel, e_plain, apart = rel_err(out, truth), rel_err(plain, truth), rel_err(out, plain)
+        print(f"encoder1_1 seed {seed} {fk.dtype}: kernel {e_kernel:.4e}, plain {e_plain:.4e}, apart {apart:.3e}")
+        assert abs(e_kernel - e_plain) <= 1e-3, (e_kernel, e_plain)
+        assert apart <= 5e-3

@@ -41,7 +41,7 @@ def test_tau_kpconv_products_take_the_tf32x3_rate():
     assert ms6 == pytest.approx(max(io / kb.HBM_BPS, infl / kb.FP32_OPS + 2.0 * pairs * 15 * 32 / kb.TF32X3_OPS) * 1e3)
 
 
-def test_other_fp32_kernels_keep_the_cuda_core_rate():
+def test_fp32_products_take_the_3xtf32_rate_and_the_maxpool_the_cuda_core_rate():
     """#1 in fp32 runs its products by 3xTF32 on the tensor cores since its
     redesign: the influence math at 67 TFLOP/s, the products at 495/3; in
     bf16 its products at 989.  The maxpool, which has no product, keeps
@@ -95,7 +95,7 @@ def test_aggregate_and_tau_transpose_take_the_tf32x3_rate():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_static_and_window_transposes_keep_the_cuda_core_rate(dtype):
+def test_static_and_window_transposes_take_their_tensor_core_rate(dtype):
     """#9 (static bands) and #10 (windows) no longer keep the CUDA-core
     rate: since they run on the tensor-core transposed kernel, their fp32
     products are charged at the 3xTF32 rate (495/3 TFLOP/s) and their bf16

@@ -256,7 +256,7 @@ def test_fpn_convs_take_the_tensor_core_kernel_in_bf16(built, plan, name, cin, c
 
 
 @pytest.mark.parametrize("cin,cout", [(4, 64), (8, 8), (64, 128), (600, 64)])
-def test_bf16_widths_over_the_kernel_keep_the_cuda_core_template(cin, cout):
+def test_widths_up_to_max_channels_take_the_tensor_core_layout_and_wider_are_refused(cin, cout):
     """Widths up to MAX_CHANNELS take the tensor-core layout in both
     precisions (no fp32 call keeps a CUDA-core template: W is
     tf32_weights' fp32 (K, CO, CI)); wider ones the wrapper refuses before
