@@ -38,8 +38,12 @@ the last line):
            tie count on windows) on the w256 windows and of `banded_knn`
            training (tau transpose on the tensor cores, tau maxpool
            backward, the tie count by tau) on the k-NN pairs' static bands:
-           tie counts bit-equal, transposes rel <= 1e-4, the tau transpose
-           the same bits on two launches, maxpool backwards rel <= 1e-5,
+           tie counts bit-equal (the tie count at the four strided
+           shortcuts, C = 128 to 1024, by radius on static bands, on w256
+           windows and by tau, also in bf16 at C = 256, the same bits on
+           two launches), transposes rel <= 1e-4, the tau transpose and
+           the tau maxpool backward (at the four tau shortcuts) the same
+           bits on two launches, maxpool backwards rel <= 1e-5,
            the window scatter bit-equal on the kernel's own stack; the fused residual
            band pass (#16) at the four strided blocks' serving shapes (bf16,
            w192) and the three fp32 static ones it takes, on clouds with
@@ -187,7 +191,7 @@ KERNELS = {
     "attention": ("cofii2p_tpu_torch/csrc/attention.cu", "cofii2p_tpu/ops/attention_kernel.py:53"),
     "kpconv_aggregate": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:228"),
     "kpconv_transpose": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:516"),
-    "maxpool_count": ("cofii2p_tpu_torch/csrc/maxpool.cu", "cofii2p_tpu/ops/maxpool_kernel.py:315"),
+    "maxpool_count": ("cofii2p_tpu_torch/csrc/maxpool_fwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:315"),
     "maxpool_bwd": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:537"),
     "knn_tau": ("cofii2p_tpu_torch/csrc/knn_tau.cu", "cofii2p_tpu/ops/tau_kernel.py:110"),
     "kpconv_aggregate_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:691"),
@@ -198,7 +202,7 @@ KERNELS = {
     "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh",
                              "cofii2p_tpu/ops/kpconv_kernel.py:826"),
     "maxpool_bwd_dyn": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:452"),
-    "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
+    "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_route.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
     "residual_fused": ("cofii2p_tpu_torch/csrc/residual_fused.cu", "cofii2p_tpu/ops/residual_kernel.py:386"),
 }
 # the path whose launch counts the summary reports for each kernel
@@ -494,7 +498,9 @@ def check_training_kernels(device, gen, tally, cfg):
     versions, fp32, B=8, at the trainer's shapes; the aggregate (#2) and the
     transpose (#9) also on encoder4_2's 2176-row band, where the CUDA-core
     templates they replaced redid their membership for every kernel point;
-    #9 at C = 512 in two channel blocks, and the same bits on two launches."""
+    #9 at C = 512 in two channel blocks, and the same bits on two launches;
+    the tie count (#12) at the four strided shortcuts, in bf16 too at C =
+    256, bit-equal and the same bits on two launches."""
     import torch
 
     from cofii2p_tpu_torch.ops.banded import kernel_reach
@@ -562,28 +568,41 @@ def check_training_kernels(device, gen, tally, cfg):
         del g, out, out2, ref
 
     # --- #12 tie count and #13 maxpool backward, with tied maxima -------------
-    for c, ql, sl in ((128, 1, 0), (1024, 4, 3)):
+    # #12 at the four strided shortcuts (C = 128 .. 1024 on their levels),
+    # fp32, and in bf16 at C = 256; #13 at C = 128 and 1024; the C = 256
+    # and 512 cases draw from generators of their own
+    for c, ql, sl, fgen in ((128, 1, 0, gen), (256, 2, 1, torch.Generator().manual_seed(8)),
+                            (512, 3, 2, torch.Generator().manual_seed(9)), (1024, 4, 3, gen)):
         q, s = levels[ql], levels[sl]
         m, n = q.shape[1], s.shape[1]
         r, sg, bw = r0 * 2 ** sl, s0 * 2 ** sl, plan[sl]
         ra = kernel_reach(r, sg)
-        base = torch.randn(b, sizes[0], c, generator=gen).to(device)
+        base = torch.randn(b, sizes[0], c, generator=fgen).to(device)
         f = torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, c))  # duplicated points tie
-        out = banded_maxpool_fused(f, q, s, ra, 128, bw)
-        ref = banded_maxpool_tie_count_plain(f, q, s, out, ra, 128, bw)
-        cnt = banded_maxpool_tie_count_fused(f, q, s, out, ra, 128, bw)
-        torch.cuda.synchronize()
-        if not torch.equal(cnt, ref):
-            raise PhaseError(f"maxpool_count C={c}: {(cnt != ref).sum().item()} counts differ")
-        ties = int((cnt > 1).sum())
-        if ties == 0:
-            raise PhaseError(f"maxpool_count C={c}: no tied maximum in a cloud with duplicated points")
+        # bf16 first, so that the fp32 case's out and counts are kept
+        for dtype in (torch.bfloat16, torch.float32) if c == 256 else (torch.float32,):
+            fd = f.to(dtype)
+            out = banded_maxpool_fused(fd, q, s, ra, 128, bw)
+            ref = banded_maxpool_tie_count_plain(fd, q, s, out, ra, 128, bw)
+            cnt = banded_maxpool_tie_count_fused(fd, q, s, out, ra, 128, bw)
+            again = banded_maxpool_tie_count_fused(fd, q, s, out, ra, 128, bw)
+            torch.cuda.synchronize()
+            if not torch.equal(cnt, ref) or not torch.equal(cnt, again):
+                raise PhaseError(f"maxpool_count C={c} {dtype}: {(cnt != ref).sum().item()} counts differ, the "
+                                 f"same bits on two launches {torch.equal(cnt, again)}")
+            ties = int((cnt > 1).sum())
+            if ties == 0:
+                raise PhaseError(f"maxpool_count C={c} {dtype}: no tied maximum in a cloud with duplicated points")
         k_ms = time_ms(lambda: banded_maxpool_tie_count_fused(f, q, s, out, ra, 128, bw))
         p_ms = time_ms(lambda: banded_maxpool_tie_count_plain(f, q, s, out, ra, 128, bw), 3)
         bd = call_bound("banded_maxpool_tie_count_fused", (f, q, s, out, ra, 128, bw))
         tally.add("maxpool_count", 0.0, k_ms, p_ms, bd)
-        say("kernels", f"maxpool_count C={c} B={b} M={m} N={n}: counts equal, {ties} tied (query, channel) "
+        say("kernels", f"maxpool_count C={c} lvl{ql}<-lvl{sl} B={b} M={m} N={n}: counts equal"
+            f"{' fp32+bf16' if c == 256 else ''}, the same bits on two launches, {ties} tied (query, channel) "
             f"maxima; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        if c in (256, 512):
+            del base, f, fd, out, ref, cnt, again
+            continue
         gs = torch.randn(b, m, c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
         ref = banded_maxpool_route_plain(gs, f, q, s, out, ra, 128, bw)
         got = banded_maxpool_backward_fused(gs, f, q, s, out, ra, 128, bw)
@@ -597,7 +616,7 @@ def check_training_kernels(device, gen, tally, cfg):
         tally.add("maxpool_bwd", (got - ref).abs().max().item(), k_ms, p_ms, bd)
         say("kernels", f"maxpool_bwd C={c} B={b} M={m} N={n}: rel {e13:.2e}; "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
-        del base, f, out, ref, cnt, gs, got
+        del base, f, fd, out, ref, cnt, again, gs, got
 
 
 def check_knn_kernels(device, gen, tally, cfg):
@@ -745,12 +764,14 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
     w256 windows the trainer places, with #12 on the same windows; #11
     (tau transpose) and #15 (tau maxpool backward) on the k-NN pairs'
     static bands (up to 2304 rows), with #12 by tau and per-layer kernel
-    points.  Tie counts bit-equal, #10/#11 rel <= 1e-4, #14/#15 rel <=
-    1e-5, #10's and #14's scatter bit-equal to its plain version on the
-    kernel's own stack, and #10 and #11 the same bits on two launches."""
+    points.  Tie counts bit-equal (on windows and by tau at the four
+    strided shortcuts), #10/#11 rel <= 1e-4, #14/#15 rel <= 1e-5 (#15 at
+    the four tau shortcuts), #10's and #14's scatter bit-equal to its plain
+    version on the kernel's own stack, and #10, #11, #12 and #15 the same
+    bits on two launches."""
     import torch
 
-    from cofii2p_tpu_torch.ops.banded import _load_kernel_points, dynamic_band_starts, kernel_reach
+    from cofii2p_tpu_torch.ops.banded import _load_kernel_points, band_plan, dynamic_band_starts, kernel_reach
     from cofii2p_tpu_torch.ops.kpconv_kernel import (
         band_scatter_plain,
         banded_kpconv_transpose_dyn_fused,
@@ -782,8 +803,8 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
         # as KPConvFPN.starts_for places them
         return dynamic_band_starts(q, s, kernel_reach(r, sg), 128, w, "best", max(1, s.shape[1] // 2560))
 
-    def tied(c, sl):
-        base = torch.randn(b, levels[0].shape[1], c, generator=gen).to(device)
+    def tied(c, sl, fgen=gen):
+        base = torch.randn(b, levels[0].shape[1], c, generator=fgen).to(device)
         return torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, c))
 
     def timed(name, kern, plain, args, err, what):
@@ -817,23 +838,31 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
               f"bit-equal on the kernel's {mb:.1f} MiB stack")
         del g, ref, out, out2, stack, scat
 
-    # --- #12 on windows and #14: the shortcuts of encoder3_1 and 5_1 ----------
-    for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
+    # --- #12 on windows: the four shortcuts; #14: encoder3_1 and 5_1 ----------
+    # (the C = 128 and 512 cases draw from generators of their own)
+    for c, ql, sl, fgen in ((128, 1, 0, torch.Generator().manual_seed(10)), (256, 2, 1, gen),
+                            (512, 3, 2, torch.Generator().manual_seed(11)), (1024, 4, 3, gen)):
         q, s = levels[ql], levels[sl]
         r, sg = r0 * 2 ** sl, s0 * 2 ** sl
         ra = kernel_reach(r, sg)
         st = window_starts(q, s, r, sg)
-        f = tied(c, sl)
+        f = tied(c, sl, fgen)
         out = banded_maxpool_fused(f, q, s, ra, 128, w, st)
         cargs = (f, q, s, out, ra, 128, w, st)
         ref = banded_maxpool_tie_count_plain(*cargs)
         cnt = banded_maxpool_tie_count_fused(*cargs)
+        again = banded_maxpool_tie_count_fused(*cargs)
         torch.cuda.synchronize()
         ties = int((cnt > 1).sum())
-        if not torch.equal(cnt, ref) or ties == 0:
-            raise PhaseError(f"maxpool_count w{w} C={c}: {(cnt != ref).sum().item()} counts differ, {ties} ties")
+        if not torch.equal(cnt, ref) or not torch.equal(cnt, again) or ties == 0:
+            raise PhaseError(f"maxpool_count w{w} C={c}: {(cnt != ref).sum().item()} counts differ, {ties} ties, "
+                             f"the same bits on two launches {torch.equal(cnt, again)}")
         timed("maxpool_count", banded_maxpool_tie_count_fused, banded_maxpool_tie_count_plain, cargs, 0.0,
-              f"maxpool_count on windows C={c} w{w} B={b} M={q.shape[1]}: counts equal, {ties} tied maxima")
+              f"maxpool_count on windows C={c} lvl{ql}<-lvl{sl} w{w} B={b} M={q.shape[1]}: counts equal, the same "
+              f"bits on two launches, {ties} tied maxima")
+        if c in (128, 512):
+            del f, out, ref, cnt, again
+            continue
         gs = torch.randn(b, q.shape[1], c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
         args = (gs, f, q, s, out, st, ra, 128, w)
         ref = banded_maxpool_route_dyn_plain(*args)
@@ -850,7 +879,7 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
               (got - ref).abs().max().item(),
               f"maxpool_bwd_dyn C={c} w{w} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e14:.2e}, scatter bit-equal "
               f"on the kernel's {mb:.1f} MiB stack")
-        del f, out, ref, cnt, gs, got, got2, stack, scat
+        del f, out, ref, cnt, again, gs, got, got2, stack, scat
 
     # --- #11 tau transpose: encoder1_2, 4_2 (band 2176) and 5_1 (band 2304) ---
     kgen = torch.Generator().manual_seed(2)
@@ -877,33 +906,43 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
               "the same bits on two launches")
         del g, ref, out, out2
 
-    # --- #12 by tau and #15: the tau shortcuts of encoder3_1 and 5_1 ----------
-    for c, ql, sl in ((256, 2, 1), (1024, 4, 3)):
+    # --- #12 by tau and #15: the four tau shortcuts (encoder5_1 on its
+    # 2304-row band); the C = 128 and 512 cases draw from generators of
+    # their own
+    for c, ql, sl, fgen in ((128, 1, 0, torch.Generator().manual_seed(12)), (256, 2, 1, gen),
+                            (512, 3, 2, torch.Generator().manual_seed(13)), (1024, 4, 3, gen)):
         q, s, bw = levels[ql], levels[sl], plan[sl]
         tau = banded_knn_tau_plain(q, s, k, 128, bw)
-        f = tied(c, sl)
+        f = tied(c, sl, fgen)
         out = banded_maxpool_tau(f, q, s, tau, 128, bw)
         cargs = (f, q, s, out, 0.0, 128, bw, None, tau)
         ref = banded_maxpool_tie_count_plain(*cargs)
         cnt = banded_maxpool_tie_count_fused(*cargs)
+        again = banded_maxpool_tie_count_fused(*cargs)
         torch.cuda.synchronize()
         ties = int((cnt > 1).sum())
-        if not torch.equal(cnt, ref) or ties == 0:
-            raise PhaseError(f"maxpool_count tau C={c}: {(cnt != ref).sum().item()} counts differ, {ties} ties")
+        if not torch.equal(cnt, ref) or not torch.equal(cnt, again) or ties == 0:
+            raise PhaseError(f"maxpool_count tau C={c}: {(cnt != ref).sum().item()} counts differ, {ties} ties, "
+                             f"the same bits on two launches {torch.equal(cnt, again)}")
+        band = band_plan(q.shape[1], s.shape[1], 128, bw)[2]
         timed("maxpool_count", banded_maxpool_tie_count_fused, banded_maxpool_tie_count_plain, cargs, 0.0,
-              f"maxpool_count by tau C={c} B={b} M={q.shape[1]}: counts equal, {ties} tied maxima")
-        gs = torch.randn(b, q.shape[1], c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
+              f"maxpool_count by tau C={c} lvl{ql}<-lvl{sl} band {band} B={b} M={q.shape[1]}: counts equal, the "
+              f"same bits on two launches, {ties} tied maxima")
+        gs = torch.randn(b, q.shape[1], c, generator=fgen).to(device) / torch.clamp(cnt, min=1.0)
         args = (gs, f, q, s, out, tau, 128, bw)
         ref = banded_maxpool_route_tau_plain(*args)
         got = banded_maxpool_backward_tau_fused(*args)
+        got2 = banded_maxpool_backward_tau_fused(*args)
         torch.cuda.synchronize()
         e15 = rel_err(got, ref)
-        if e15 > 1e-5:
-            raise PhaseError(f"maxpool_bwd_tau C={c}: rel err {e15:.3e} > 1e-5")
+        if e15 > 1e-5 or not torch.equal(got, got2):
+            raise PhaseError(f"maxpool_bwd_tau C={c}: rel err {e15:.3e} (<= 1e-5), the same bits on two launches "
+                             f"{torch.equal(got, got2)}")
         timed("maxpool_bwd_tau", banded_maxpool_backward_tau_fused, banded_maxpool_route_tau_plain, args,
               (got - ref).abs().max().item(),
-              f"maxpool_bwd_tau C={c} lvl{ql}<-lvl{sl} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e15:.2e}")
-        del f, out, ref, cnt, gs, got
+              f"maxpool_bwd_tau C={c} lvl{ql}<-lvl{sl} band {band} B={b} M={q.shape[1]} N={s.shape[1]}: rel "
+              f"{e15:.2e}, the same bits on two launches")
+        del f, out, ref, cnt, again, gs, got, got2
 
 
 def check_residual_kernel(device, gen, tally, cfg):

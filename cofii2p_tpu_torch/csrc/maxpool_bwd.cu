@@ -1,6 +1,6 @@
 // Backward of the banded maxpool for Hopper: routes the cotangent to the
-// arg-max rows, transposed over support tiles (static bands), per window
-// (dynamic windows) and under the k-NN (tau) semantics.
+// arg-max rows, transposed over support tiles (static bands) and per window
+// (dynamic windows).  The k-NN (tau) routing, #15, is maxpool_route.cu.
 //
 // Replaces: cofii2p_tpu/ops/maxpool_kernel.py::_bwd (body
 // _maxpool_bwd_kernel).  Same function: for each support row j and
@@ -28,10 +28,6 @@
 // slice of a (B, num_tiles, band, C) stack, each element once;
 // band_scatter.cu adds the overlapping windows in tile order.
 //
-// With TAU it replaces maxpool_kernel.py::_tau_bwd (body
-// _maxpool_bwd_kernel_tau, kernel #15): the neighbourhood is d2 <= tau[m],
-// each query's k-NN threshold, with no radius mask.
-//
 // Exactness: membership is bit-identical to the forward's (centring on the
 // forward tile's first query, not on a chunk's, the round-to-nearest
 // intrinsics of common.cuh and the same threshold), so no maximum loses its
@@ -46,15 +42,15 @@ constexpr int kMaxTS = 32;               // support rows per block at most
 constexpr int kQW = kThreads / 32;       // mask words per support row
 
 // DYN: blockIdx.x = t * (band / TS) + chunk, rows chunk * TS .. of tile
-// t's window, written to the stack ``g_feats``.  TAU: d2 <= tau[m].
-template <bool DYN, bool TAU>
+// t's window, written to the stack ``g_feats``.
+template <bool DYN>
 __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts,
     const void* __restrict__ feats, int f_bf16, const void* __restrict__ pooled,
     const float* __restrict__ gs, const int* __restrict__ starts,
-    const int* __restrict__ qstart_blk, const float* __restrict__ tau,
-    float* __restrict__ g_feats, int M, int N, int C, int tile, int num_tiles,
-    int band, int TS, int n_qtiles, float r2) {
+    const int* __restrict__ qstart_blk, float* __restrict__ g_feats, int M,
+    int N, int C, int tile, int num_tiles, int band, int TS, int n_qtiles,
+    float r2) {
   __shared__ float sp_s[kMaxTS * 3];
   __shared__ float pc_s[kMaxTS * 3];
   __shared__ unsigned mask_s[kMaxTS * kQW];
@@ -93,15 +89,13 @@ __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
     // bit q of row s: query t * tile + q has row s0 + s in its neighbourhood
     float qc[3] = {0.f, 0.f, 0.f};
     const bool valid = tid < tile;
-    float thr = r2;
     if (valid) {
       for (int d = 0; d < 3; ++d)
         qc[d] = __fsub_rn(q_pts[((long)b * M + (long)t * tile + tid) * 3 + d], ref_p[d]);
-      if (TAU) thr = tau[(long)b * M + (long)t * tile + tid];
     }
     for (int s = 0; s < TS; ++s) {
       const bool in = valid && s >= lo && s < hi &&
-                      cofii2p::membership_d2(qc, pc_s[3 * s], pc_s[3 * s + 1], pc_s[3 * s + 2]) <= thr;
+                      cofii2p::membership_d2(qc, pc_s[3 * s], pc_s[3 * s + 1], pc_s[3 * s + 2]) <= r2;
       const unsigned bits = __ballot_sync(0xffffffffu, in);
       if (lane == 0) mask_s[s * kQW + warp] = bits;
     }
@@ -132,22 +126,22 @@ __global__ void __launch_bounds__(kThreads) maxpool_bwd_kernel(
   }
 }
 
-// The three modes' checks and launch; DYN ignores qstart_blk and n_qtiles.
-template <bool DYN, bool TAU>
+// The two modes' checks and launch; DYN ignores qstart_blk and n_qtiles.
+template <bool DYN>
 int launch(const void* q, const void* s, const void* f, int f_bf16,
            const void* pooled, const void* gs, const void* starts,
-           const void* qstart_blk, const void* tau, void* g_feats, int B,
+           const void* qstart_blk, void* g_feats, int B,
            int M, int N, int C, int tile, int num_tiles, int band, int TS,
            int n_qtiles, float r2, void* stream) {
   if (TS < 1 || TS > kMaxTS || (DYN ? band : N) % TS || tile < 1 ||
       tile > kThreads || M % tile || M / tile != num_tiles || band > N)
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(DYN ? num_tiles * (band / TS) : N / TS, (C + kThreads - 1) / kThreads, B);
-  maxpool_bwd_kernel<DYN, TAU><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  maxpool_bwd_kernel<DYN><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(s), f, f_bf16,
       pooled, static_cast<const float*>(gs), static_cast<const int*>(starts),
-      static_cast<const int*>(qstart_blk), static_cast<const float*>(tau),
-      static_cast<float*>(g_feats), M, N, C, tile, num_tiles, band, TS, n_qtiles, r2);
+      static_cast<const int*>(qstart_blk), static_cast<float*>(g_feats), M, N,
+      C, tile, num_tiles, band, TS, n_qtiles, r2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -166,8 +160,9 @@ extern "C" int maxpool_bwd_launch(const void* q, const void* s, const void* f,
                                   int M, int N, int C, int tile, int num_tiles,
                                   int band, int TS, int n_qtiles, float r2,
                                   void* stream) {
-  return launch<false, false>(q, s, f, f_bf16, pooled, gs, starts, qstart_blk, nullptr, g_feats, B, M,
-                              N, C, tile, num_tiles, band, TS, n_qtiles, r2, stream);
+  return launch<false>(q, s, f, f_bf16, pooled, gs, starts, qstart_blk,
+                       g_feats, B, M, N, C, tile, num_tiles, band, TS,
+                       n_qtiles, r2, stream);
 }
 
 // Kernel #14's stack: q, s, f, pooled, gs as above, starts (B, num_tiles)
@@ -180,20 +175,6 @@ extern "C" int maxpool_bwd_dyn_launch(const void* q, const void* s,
                                       int M, int N, int C, int tile,
                                       int num_tiles, int band, int TS,
                                       float r2, void* stream) {
-  return launch<true, false>(q, s, f, f_bf16, pooled, gs, starts, nullptr, nullptr, stack, B, M, N, C,
-                             tile, num_tiles, band, TS, 1, r2, stream);
-}
-
-// Kernel #15: as maxpool_bwd_launch with tau (B, M) fp32 the per-query
-// squared k-NN thresholds in place of r2.
-extern "C" int maxpool_bwd_tau_launch(const void* q, const void* s,
-                                      const void* f, int f_bf16,
-                                      const void* pooled, const void* gs,
-                                      const void* starts,
-                                      const void* qstart_blk, const void* tau,
-                                      void* g_feats, int B, int M, int N, int C,
-                                      int tile, int num_tiles, int band, int TS,
-                                      int n_qtiles, void* stream) {
-  return launch<false, true>(q, s, f, f_bf16, pooled, gs, starts, qstart_blk, tau, g_feats, B, M, N,
-                             C, tile, num_tiles, band, TS, n_qtiles, 0.f, stream);
+  return launch<true>(q, s, f, f_bf16, pooled, gs, starts, nullptr, stack,
+                      B, M, N, C, tile, num_tiles, band, TS, 1, r2, stream);
 }

@@ -44,7 +44,7 @@ SIGNATURES = {
     "maxpool_launch": [_P, _P, _P, _I, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _P],
     "maxpool_count_launch": [_P, _P, _P, _I, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                             _I, _I, _I, _I, _I, _I, _F, _P],
     "maxpool_bwd_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -64,7 +64,7 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _F, _P],
     "maxpool_count_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _I, _P],
     "maxpool_bwd_dyn_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "maxpool_bwd_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,

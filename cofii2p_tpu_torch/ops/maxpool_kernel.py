@@ -7,9 +7,11 @@ Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Six kernels:
    membership tested once a tile and kept as bits, the rows any query
    holds staged once per channel slice in shared memory and maxed there
    per query (plan: csrc/maxpool_plan.cuh);
- - :func:`banded_maxpool_tie_count_fused` (csrc/maxpool.cu; replaces
-   _match_count) counts the member rows tied at the max, on static bands
-   or dynamic windows, by radius or by tau;
+ - :func:`banded_maxpool_tie_count_fused` (csrc/maxpool_fwd.cu in COUNT
+   mode: the forward's block, membership and staging, a comparison with
+   the forward max in place of the max; replaces _match_count) counts the
+   member rows tied at the max, on static bands or dynamic windows, by
+   radius or by tau;
  - :func:`banded_maxpool_backward_fused` (csrc/maxpool_bwd.cu; replaces
    _bwd) routes the tie-divided cotangent to those rows, transposed over
    support tiles, on static bands;
@@ -18,8 +20,11 @@ Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Six kernels:
  - :func:`banded_maxpool_tau` (csrc/maxpool_fwd.cu with tau thresholds;
    replaces banded_maxpool_tau_pallas) is the reference's k-NN maxpool:
    membership d2 <= tau[m], no radius mask;
-   :func:`banded_maxpool_backward_tau_fused` (csrc/maxpool_bwd.cu in tau
-   mode; replaces _tau_bwd) its routing.
+   :func:`banded_maxpool_backward_tau_fused` (csrc/maxpool_route.cu;
+   replaces _tau_bwd) its routing: a block 64 support rows and every
+   channel, membership once a block as a 64-bit word a window query, the
+   listed queries' out and gs staged once per channel slice (plan:
+   csrc/maxpool_plan.cuh).
 
 Each wrapper takes its plain version (ops/banded.py) for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no other fallback.
@@ -51,7 +56,8 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
     pick_tq,
 )
 
-_MAX_TS = 32  # support rows per block of the backward (csrc/maxpool_bwd.cu)
+_MAX_TS = 32  # support rows per block of the radius routings (csrc/maxpool_bwd.cu)
+ROUTE_TS = 64  # support rows per block of the k-NN routing (RoutePlan::TS, csrc/maxpool_plan.cuh)
 
 banded_maxpool_plain = banded_maxpool
 
@@ -179,12 +185,12 @@ def banded_maxpool_tie_count_fused(s_feats, q_points, s_points, out, r_active, t
                                    int(s_feats.dtype == torch.bfloat16), st.data_ptr())
     if tau is None:
         err = lib.maxpool_count_launch(
-            *common, out.data_ptr(), cnt.data_ptr(), b, m, n, c, tile, band, pick_tq(tile, 16),
+            *common, out.data_ptr(), cnt.data_ptr(), b, m, n, c, tile, band,
             float(np.float32(r_active * r_active)), cuda_lib.stream_of(s_feats),
         )
     else:
         err = lib.maxpool_count_tau_launch(
-            *common, tau.data_ptr(), out.data_ptr(), cnt.data_ptr(), b, m, n, c, tile, band, pick_tq(tile, 16),
+            *common, tau.data_ptr(), out.data_ptr(), cnt.data_ptr(), b, m, n, c, tile, band,
             cuda_lib.stream_of(s_feats),
         )
     cuda_lib.check(err, "maxpool_count")
@@ -203,8 +209,10 @@ def _check_tau(tau, b, m):
 
 def _route_static(launcher, g_scaled, s_feats, q_points, s_points, out, tile, band_width, r2=None, tau=None):
     """Launch a maxpool routing pass on static bands (kernel #13 with
-    ``r2``, #15 with ``tau``) through the library's ``launcher``; returns
-    (B, N, C) fp32."""
+    ``r2``, #15 with ``tau``) through the library's ``launcher``, its
+    windows planned for support tiles of the largest power of two <= the
+    kernel's rows a block (#13 32, #15 :data:`ROUTE_TS`) that divides N;
+    returns (B, N, C) fp32."""
     gs = g_scaled.float().contiguous()
     b, m, n, c = _check_pool(s_feats, q_points, s_points, out)
     _check_cuda(g_scaled=gs)
@@ -212,7 +220,8 @@ def _route_static(launcher, g_scaled, s_feats, q_points, s_points, out, tile, ba
         raise ValueError(f"cotangent shape {tuple(gs.shape)} != {(b, m, c)}")
     tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
     st = static_starts(m, n, tile, band, num_tiles, b, gs.device).contiguous()
-    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, _MAX_TS), gs.device)
+    ts_max = _MAX_TS if tau is None else ROUTE_TS
+    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, ts_max), gs.device)
     g_feats = torch.empty(b, n, c, dtype=torch.float32, device=gs.device)
     err = getattr(cuda_lib.lib(), launcher)(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),

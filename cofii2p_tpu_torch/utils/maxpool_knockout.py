@@ -1,8 +1,9 @@
-"""Time the forward band max (kernels #3 and #8) by part on the card, with
-knock-out builds, and beside variants of its block plan.
+"""Time the banded maxpool's kernels by part on the card, with knock-out
+builds, and beside variants of their block plans: the forward band max
+(kernels #3 and #8), the tie count (#12) and the k-NN routing (#15).
 
-    python -m cofii2p_tpu_torch.utils.maxpool_knockout [--tree DIR] [--path t7] [--path serve] [--reps 10]
-        [--variant NAME=VALUE[,NAME=VALUE...] ...]
+    python -m cofii2p_tpu_torch.utils.maxpool_knockout [--tree DIR] [--kernel forward|count|route ...]
+        [--path t7] [--path serve] [--reps 10] [--variant NAME=VALUE[,NAME=VALUE...] ...]
 
 ``--tree`` is the root of a checkout of the port (default: this one); its
 package is copied under ``build/knockout/`` of this checkout: as it is
@@ -10,21 +11,36 @@ package is copied under ``build/knockout/`` of this checkout: as it is
 membership tests knocked out (``no_member``) and once for each
 ``--variant``, which sets ``constexpr int`` constants of
 ``csrc/maxpool_plan.cuh`` (e.g. ``kPoolThreads=256,kPoolWalk=2``), each
-built on its own.  Each copy then replays the maxpool calls of the given
-paths with ``utils/kernel_bench.py --only`` (this checkout's, copied in)
-and the per-path totals of #3 and #8 are printed side by side.
+built on its own.  Each copy then replays the calls of the wrappers of the
+``--kernel``s (default ``forward``) on the given paths with
+``utils/kernel_bench.py --only`` (this checkout's, copied in), and the
+per-path totals of each wrapper are printed side by side.  A copy patches
+the source of every kernel named, so one build serves them all; a knocked
+out kernel that is not timed only makes the replayed inputs wrong.
 
-What each knock-out removes, by the source the tree has:
- - ``csrc/maxpool.cu`` (the CUDA-core kernel, before the redesign):
+What each knock-out removes, by the source the tree has (``SOURCES``
+picks it):
+ - ``csrc/maxpool.cu``: the CUDA-core forward before its redesign, then
+   the CUDA-core tie count (#12) until its redesign deleted the file.
    no_loads replaces the walk's global load of f[j, c] by a value made
    from j and c, so the bit walk stays; no_member tests each band row
-   against the block's first query only (the test no longer depends on the
-   query, so the compiler hoists it out of the query loop) and gives every
-   query that query's bits, so the walk keeps its length.
- - ``csrc/maxpool_fwd.cu`` (the redesign): no_loads drops the cp.async of
-   feature rows into shared memory (the walk reads stale shared memory);
-   no_member gives every query the first query's test, as above.
-The knocked-out builds compute wrong maxima: their times are the only
+   against the block's first query only (the test no longer depends on
+   the query, so the compiler hoists it out of the query loop) and gives
+   every query that query's bits, so the walk keeps its length.
+ - ``csrc/maxpool_fwd.cu`` (the redesigned forward, and the tie count as
+   its COUNT mode): no_loads drops the cp.async of feature rows into
+   shared memory (the walk reads stale shared memory); no_member gives
+   every query the first query's test, as above.
+ - ``csrc/maxpool_bwd.cu`` (the CUDA-core routing, #15 in its TAU mode
+   until its redesign): no_loads replaces the two global loads of the
+   walk, out[m, c] and gs[m, c], by values made from the address;
+   no_member tests each row of the block against the tile's first query
+   once (32 lanes, one ballot) and gives every query those bits.
+ - ``csrc/maxpool_route.cu`` (the redesigned routing): no_loads drops the
+   cp.async of the listed queries' out and gs slices; no_member tests only
+   each tile's first query and gives every query of the tile its word, so
+   every query of such a tile is listed (the walk grows).
+The knocked-out builds compute wrong results: their times are the only
 output.  Needs a CUDA device.
 """
 
@@ -40,13 +56,20 @@ from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
-ONLY = "banded_maxpool_fused,banded_maxpool_tau"
+
+# kernel -> (the wrappers kernel_bench --only replays, the tree's sources of
+# it in order of preference: the first that exists is patched)
+SOURCES = {
+    "forward": ("banded_maxpool_fused,banded_maxpool_tau", ("maxpool_fwd.cu", "maxpool.cu")),
+    "count": ("banded_maxpool_tie_count_fused", ("maxpool.cu", "maxpool_fwd.cu")),
+    "route": ("banded_maxpool_backward_tau_fused", ("maxpool_route.cu", "maxpool_bwd.cu")),
+}
 
 PARTS = ("no_loads", "no_member")
 
 # (source, part) -> [(text, replacement)]; each text must occur once.
-# maxpool.cu's are those of the CUDA-core forward before the redesign, for
-# the measure-first timing of such a tree through --tree
+# maxpool.cu's and maxpool_bwd.cu's apply to the CUDA-core kernels of a
+# tree before their redesign, for the measure-first timing through --tree
 KNOCKOUTS = {
     "maxpool.cu": {
         "no_loads": [("const float v = cofii2p::load_f(feats, frow0 + (long)j * C + c, f_bf16);",
@@ -58,12 +81,31 @@ KNOCKOUTS = {
         "no_loads": [("cofii2p::cp_async16(d, f + e * ESZ, 16);", "(void)e;")],
         "no_member": [("const float4 qq = q_s[32 * w + k];", "const float4 qq = q_s[0];")],
     },
+    "maxpool_bwd.cu": {
+        "no_loads": [("if (cofii2p::load_f(pooled, o, f_bf16) == fv[s]) acc[s] += gs[o];",
+                      "if (__int_as_float((int)o) == fv[s]) acc[s] += __int_as_float((int)o & 0x3fffffff);")],
+        "no_member": [("    for (int s = 0; s < TS; ++s) {\n      const bool in = valid && s >= lo && s < hi &&\n"
+                       "                      cofii2p::membership_d2(qc, pc_s[3 * s], pc_s[3 * s + 1], pc_s[3 * s + 2]) "
+                       "<= thr;",
+                       "    const float q0[3] = {0.f, 0.f, 0.f};\n"
+                       "    const float thr0 = TAU ? tau[(long)b * M + (long)t * tile] : r2;\n"
+                       "    const unsigned row0 = __ballot_sync(0xffffffffu, lane < TS && cofii2p::membership_d2(q0, "
+                       "pc_s[3 * lane], pc_s[3 * lane + 1], pc_s[3 * lane + 2]) <= thr0);\n"
+                       "    for (int s = 0; s < TS; ++s) {\n"
+                       "      const bool in = valid && s >= lo && s < hi && ((row0 >> s) & 1u);")],
+    },
+    "maxpool_route.cu": {
+        "no_loads": [("cofii2p::cp_async16(d, src, 16);", "(void)src;")],
+        "no_member": [("for (int r = r_lo; r < r_hi; ++r) {", "for (int r = r_lo; r < (q == 0 ? r_hi : r_lo); ++r) {"),
+                      ("return bits_s[jq];", "return bits_s[jq - jq % tile];")],
+    },
 }
 
 
-def forward_source(csrc: str) -> str:
-    """The source of the forward band max in a tree's csrc/."""
-    return "maxpool_fwd.cu" if os.path.exists(os.path.join(csrc, "maxpool_fwd.cu")) else "maxpool.cu"
+def kernel_source(csrc: str, kernel: str) -> str:
+    """The source of ``kernel`` in a tree's csrc/."""
+    names = SOURCES[kernel][1]
+    return next((n for n in names if os.path.exists(os.path.join(csrc, n))), names[-1])
 
 
 def patch(text: str, edits) -> str:
@@ -87,8 +129,16 @@ def plan_edits(text: str, variant: str):
     return edits
 
 
-def make_copy(tree: str, variant: str) -> str:
-    """This variant's copy of the tree's package; returns its root."""
+def _rewrite(path: str, edit) -> None:
+    with open(path) as fh:
+        text = edit(fh.read())
+    with open(path, "w") as fh:
+        fh.write(text)
+
+
+def make_copy(tree: str, variant: str, kernels=("forward",)) -> str:
+    """This variant's copy of the tree's package, the sources of
+    ``kernels`` patched; returns its root."""
     dst = os.path.join(_ROOT, "build", "knockout", re.sub(r"[^\w]", "_", variant))
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(tree, "cofii2p_tpu_torch"), os.path.join(dst, "cofii2p_tpu_torch"),
@@ -98,16 +148,11 @@ def make_copy(tree: str, variant: str) -> str:
     shutil.copytree(os.path.join(tree, disp), os.path.join(dst, disp))
     shutil.copy(os.path.join(_PKG, "utils", "kernel_bench.py"), os.path.join(dst, "cofii2p_tpu_torch", "utils"))
     csrc = os.path.join(dst, "cofii2p_tpu_torch", "csrc")
-    src = forward_source(csrc) if variant in ("full", *PARTS) else "maxpool_plan.cuh"
-    path = os.path.join(csrc, src)
-    with open(path) as fh:
-        text = fh.read()
     if variant in PARTS:
-        text = patch(text, KNOCKOUTS[src][variant])
+        for src in dict.fromkeys(kernel_source(csrc, k) for k in kernels):
+            _rewrite(os.path.join(csrc, src), lambda text, src=src: patch(text, KNOCKOUTS[src][variant]))
     elif variant != "full":
-        text = patch(text, plan_edits(text, variant))
-    with open(path, "w") as fh:
-        fh.write(text)
+        _rewrite(os.path.join(csrc, "maxpool_plan.cuh"), lambda text: patch(text, plan_edits(text, variant)))
     return dst
 
 
@@ -125,26 +170,30 @@ def totals(out: str) -> dict:
 
 
 def main():
-    ap = argparse.ArgumentParser(description="time kernels #3 and #8 by part with knock-out builds")
+    ap = argparse.ArgumentParser(description="time kernels #3/#8, #12 and #15 by part with knock-out builds")
     ap.add_argument("--tree", default=_ROOT, help="root of the checkout whose kernels are timed")
+    ap.add_argument("--kernel", action="append", choices=sorted(SOURCES), help="kernels timed (default forward)")
     ap.add_argument("--path", action="append", choices=("serve", "train", "fast", "knn_train", "t7", "val"))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--variant", action="append", default=[], help="NAME=VALUE[,NAME=VALUE...] of the plan header")
     args = ap.parse_args()
+    kernels = args.kernel or ["forward"]
     paths = args.path or ["t7", "serve"]
+    only = ",".join(SOURCES[k][0] for k in kernels)
     variants = ("full", *PARTS, *args.variant)
-    roots = {v: make_copy(os.path.abspath(args.tree), v) for v in variants}
+    roots = {v: make_copy(os.path.abspath(args.tree), v, kernels) for v in variants}
     build = ["-c", "from cofii2p_tpu_torch.ops import cuda_lib; cuda_lib.build()"]
     with ThreadPoolExecutor(len(variants)) as ex:
         for v, res in zip(variants, ex.map(lambda v: run(roots[v], build), variants)):
             if res.returncode:
                 raise SystemExit(f"{v}: build failed\n{res.stdout}{res.stderr}")
     csrc = os.path.join(roots["full"], "cofii2p_tpu_torch", "csrc")
-    print(f"tree {os.path.abspath(args.tree)}, forward source {forward_source(csrc)}")
+    print(f"tree {os.path.abspath(args.tree)}, sources "
+          + ", ".join(f"{k} {kernel_source(csrc, k)}" for k in kernels))
     for path in paths:
         row = {}
         for v in variants:
-            res = run(roots[v], ["-m", "cofii2p_tpu_torch.utils.kernel_bench", "--path", path, "--only", ONLY,
+            res = run(roots[v], ["-m", "cofii2p_tpu_torch.utils.kernel_bench", "--path", path, "--only", only,
                                  "--reps", str(args.reps)])
             if res.returncode:
                 raise SystemExit(f"{v} {path}: kernel_bench failed\n{res.stdout}{res.stderr}")
@@ -156,7 +205,7 @@ def main():
             parts = (f", no_loads {no_loads:.3f} (loads {full - no_loads:.3f}), no_member {no_member:.3f} "
                      f"(membership {full - no_member:.3f})")
             others = "".join(f", {v} {row[v][name][1]:.3f}" for v in args.variant)
-            print(f"{path:6s} {name:22s} {n} calls: full {full:.3f} ms{parts}{others}, bound {bound:.3f}")
+            print(f"{path:9s} {name:33s} {n} calls: full {full:.3f} ms{parts}{others}, bound {bound:.3f}")
         print(last)
 
 

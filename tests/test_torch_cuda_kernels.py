@@ -45,7 +45,13 @@ import pytest
 import torch
 
 from cofii2p_tpu_torch.ops.attention_kernel import fused_attention, fused_attention_plain
-from cofii2p_tpu_torch.ops.banded import _load_kernel_points, dynamic_band_starts, dynamic_knn_starts, kernel_reach
+from cofii2p_tpu_torch.ops.banded import (
+    _load_kernel_points,
+    banded_pair_count,
+    dynamic_band_starts,
+    dynamic_knn_starts,
+    kernel_reach,
+)
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
     band_scatter_plain,
     banded_kpconv_aggregate_fused,
@@ -213,25 +219,66 @@ def test_maxpool_kernels_bitequal_on_ties_windows_and_long_bands(cuda_device, mo
             assert (out == 0).all(-1).any()
 
 
+# the tie count (#12, the forward's COUNT mode) at every shortcut width in
+# fp32 on a 256-row band, in a band over one 3072-row membership segment
+# and on w192 windows, and in bf16 at two widths of each
+COUNT_CASES = ([("band512", c, "fp32") for c in POOL_WIDTHS] + [("band3456", c, "fp32") for c in (128, 1024)]
+               + [("w192", c, "fp32") for c in (256, 512)]
+               + [(m, c, "bf16") for m in ("band512", "band3456", "w192") for c in (128, 1024)])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tau", [False, True], ids=["radius", "tau"])
-@pytest.mark.parametrize("c", POOL_WIDTHS)
-def test_tie_count_over_the_new_forward_equals_plain(cuda_device, c, tau):
+@pytest.mark.parametrize("mode,c,dtype", COUNT_CASES)
+def test_tie_count_over_the_new_forward_equals_plain(cuda_device, mode, c, dtype, tau):
     """#12's count over the forward kernel's output equals the plain count
     (the forward's output equal to the plain one first): the count walks
-    exactly the rows the forward maxed over, by radius and by tau."""
-    q, s = clouds(1024, 2048, cuda_device, lone=4)
+    exactly the rows the forward maxed over, by radius and by tau, on
+    static bands (one and two membership segments) and windows, fp32 and
+    bf16 (compared in fp32: +0 == -0), ties present, the same bits on two
+    launches."""
+    m, n, width, windowed = POOL_MODES[mode]
+    q, s = clouds(m, n, cuda_device, lone=4)
     s, f = tied_features(s, c, cuda_device, seed=4)
-    thr = banded_knn_tau_plain(q, s, 128, 128, 256) if tau else None
+    f = f.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    f[:, 4::16, 1] = 0.0  # signed zeros, equal in fp32
+    f[:, 5::16, 1] = -0.0
+    starts = None
+    if windowed:
+        starts = (dynamic_knn_starts(q, s, banded_knn_tau_plain(q, s, 64, 128, 2 * width), 128, width, 1) if tau
+                  else dynamic_band_starts(q, s, R_ACT, 128, width, "best", 1))
+    thr = banded_knn_tau_plain(q, s, 128, 128, width, starts) if tau else None
     if tau:
-        out = banded_maxpool_tau(f, q, s, thr, 128, 256)
-        assert torch.equal(out, banded_maxpool_tau_plain(f, q, s, thr, 128, 256))
+        out = banded_maxpool_tau(f, q, s, thr, 128, width, starts)
+        assert torch.equal(out, banded_maxpool_tau_plain(f, q, s, thr, 128, width, starts))
     else:
-        out = banded_maxpool_fused(f, q, s, R_ACT, 128, 256)
-        assert torch.equal(out, banded_maxpool_plain(f, q, s, R_ACT, 128, 256))
-    cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256, tau=thr)
-    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, 256, tau=thr))
+        out = banded_maxpool_fused(f, q, s, R_ACT, 128, width, starts)
+        assert torch.equal(out, banded_maxpool_plain(f, q, s, R_ACT, 128, width, starts))
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, width, starts, tau=thr)
+    again = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, width, starts, tau=thr)
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, width, starts, tau=thr))
+    assert torch.equal(cnt, again)
     assert (cnt > 1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 13])
+def test_tie_count_masks_the_walks_padding(cuda_device, k, dtype):
+    """On features equal in every row each member ties with the max, so
+    the count is the number of members: k-NN thresholds of k = 1, 3 (fewer
+    members than one 4-row walk step), 4, 8 (whole steps) and 13 give
+    nearly every query exactly k members on distinct points, and the
+    walk's repeats of the last member past the end must add nothing."""
+    q, s = clouds(1024, 2048, cuda_device)
+    thr = banded_knn_tau_plain(q, s, k, 128, 256)
+    members = banded_pair_count(q, s, None, 128, 256, None, thr)
+    assert (members == k).float().mean() > 0.99  # more only where the k-th and (k+1)-th d2 tie
+    f = torch.full((2, 2048, 20), 0.5, device=cuda_device).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    out = banded_maxpool_tau(f, q, s, thr, 128, 256)
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, 0.0, 128, 256, tau=thr)
+    assert torch.equal(cnt, members[..., None].float().expand_as(cnt))
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, 0.0, 128, 256, tau=thr))
 
 
 @pytest.mark.gpu
@@ -432,13 +479,16 @@ def test_training_kpconv_kernels_match_plain(cuda_device, mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [128, 1024])
+@pytest.mark.parametrize("c", POOL_WIDTHS)
 def test_maxpool_backward_kernels_match_plain(cuda_device, c):
+    """The tie count on static bands bit-equal and the same on two
+    launches, kernel #13 rel <= 1e-5, at every shortcut width."""
     q, s = clouds(512, 2048, cuda_device)
     s, f = tied_features(s, c, cuda_device)
     out = banded_maxpool_fused(f, q, s, R_ACT, 128, 256)
     cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256)
     assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, 256))
+    assert torch.equal(cnt, banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256))
     gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(cuda_device) / cnt.clamp(min=1)
     got = banded_maxpool_backward_fused(gs, f, q, s, out, R_ACT, 128, 256)
     assert rel_err(got, banded_maxpool_route_plain(gs, f, q, s, out, R_ACT, 128, 256)) <= 1e-5
@@ -571,16 +621,18 @@ def test_window_transpose_kernel_matches_plain(cuda_device, m, n, c, w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [128, 1024])
+@pytest.mark.parametrize("c", POOL_WIDTHS)
 def test_window_maxpool_backward_kernels_match_plain(cuda_device, c):
-    """The tie count in window mode bit-equal, kernel #14 rel <= 1e-5, its
-    scatter bit-equal on its own stack; duplicated points tie."""
+    """The tie count in window mode bit-equal and the same on two launches,
+    kernel #14 rel <= 1e-5, its scatter bit-equal on its own stack;
+    duplicated points tie; every shortcut width."""
     q, s = clouds(512, 2048, cuda_device)
     s, f = tied_features(s, c, cuda_device)
     starts = dynamic_band_starts(q, s, R_ACT, 128, 256, "best", 1)
     out = banded_maxpool_fused(f, q, s, R_ACT, 128, 256, starts)
     cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256, starts)
     assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, 256, starts))
+    assert torch.equal(cnt, banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256, starts))
     assert (cnt > 1).any()
     gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(cuda_device) / cnt.clamp(min=1)
     got = banded_maxpool_backward_dyn_fused(gs, f, q, s, out, starts, R_ACT, 128, 256)
@@ -617,20 +669,36 @@ def test_tau_transpose_kernel_matches_plain(cuda_device, m, n, c, bw, dtype):
     assert torch.equal(got, again)
 
 
+# kernel #15 (csrc/maxpool_route.cu): (M, N, C, band width, dtype); every
+# shortcut width on 512-row bands, encoder5_1's 2304-row band (the whole
+# query level in one window), bf16, and N = 2080 (32 * 65), where the
+# wrapper plans 32-row support tiles, under the kernel's 64
+ROUTE_CASES = [(512, 2048, c, 256, "fp32") for c in POOL_WIDTHS] + [
+    (1280, 2560, 256, 1024, "fp32"), (512, 2048, 256, 256, "bf16"), (1024, 2080, 128, 256, "fp32")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [128, 1024])
-def test_tau_maxpool_backward_kernels_match_plain(cuda_device, c):
-    """The tie count in tau mode bit-equal, kernel #15 rel <= 1e-5."""
-    q, s = clouds(512, 2048, cuda_device)
+@pytest.mark.parametrize("m,n,c,bw,dtype", ROUTE_CASES)
+def test_tau_maxpool_backward_kernels_match_plain(cuda_device, m, n, c, bw, dtype):
+    """The tie count in tau mode bit-equal, kernel #15 rel <= 1e-5 against
+    its plain version; both the same bits on two launches."""
+    q, s = clouds(m, n, cuda_device)
     s, f = tied_features(s, c, cuda_device)
-    tau = banded_knn_tau_plain(q, s, 16, 128, 256)
-    out = banded_maxpool_tau(f, q, s, tau, 128, 256)
-    cnt = banded_maxpool_tie_count_fused(f, q, s, out, 0.0, 128, 256, tau=tau)
-    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, 0.0, 128, 256, tau=tau))
+    if (m, n) == (1280, 2560):
+        q = s[:, ::2].contiguous()  # a Morton subset, as the pyramid's next level: band 2304
+    f = f.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    tau = banded_knn_tau_plain(q, s, 16, 128, bw)
+    out = banded_maxpool_tau(f, q, s, tau, 128, bw)
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, 0.0, 128, bw, tau=tau)
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, 0.0, 128, bw, tau=tau))
+    assert torch.equal(cnt, banded_maxpool_tie_count_fused(f, q, s, out, 0.0, 128, bw, tau=tau))
     assert (cnt > 1).any()
     gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)).to(cuda_device) / cnt.clamp(min=1)
-    got = banded_maxpool_backward_tau_fused(gs, f, q, s, out, tau, 128, 256)
-    assert rel_err(got, banded_maxpool_route_tau_plain(gs, f, q, s, out, tau, 128, 256)) <= 1e-5
+    got = banded_maxpool_backward_tau_fused(gs, f, q, s, out, tau, 128, bw)
+    again = banded_maxpool_backward_tau_fused(gs, f, q, s, out, tau, 128, bw)
+    torch.cuda.synchronize()
+    assert rel_err(got, banded_maxpool_route_tau_plain(gs, f, q, s, out, tau, 128, bw)) <= 1e-5
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu

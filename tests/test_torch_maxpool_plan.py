@@ -1,7 +1,8 @@
-"""The forward band max's block plan (csrc/maxpool_plan.cuh, kernels #3 and
-#8) on the CPU, so that a launch the card would refuse (too much shared
-memory, too many registers, a segment walk that misses band rows) shows
-here and not on the card.
+"""The banded maxpool's block plans (csrc/maxpool_plan.cuh) on the CPU: the
+forward band max (kernels #3 and #8), its COUNT mode (the tie count, #12)
+and the k-NN routing (#15), so that a launch the card would refuse (too
+much shared memory, too many registers, a segment walk that misses band
+rows) shows here and not on the card.
 
 The plan is plain constexpr C++, the one the kernel is built with: the host
 compiler evaluates it here for the two builds (fp32 and bf16, a lane
@@ -12,7 +13,11 @@ w192 windows on the deep levels), the static trainer and its fp32 eval,
 `--fast` (w256 windows), the `.t7` eval and `banded_knn` training (k-NN
 membership on static bands): C = 128 to 1024 in both dtypes, its band in
 whole segments of kept membership bits, and a band longer than one
-segment.  The launchers take no TQ: the plan sizes the block.
+segment.  The launchers take no TQ: the plan sizes the block.  The
+COUNT builds keep the forward's block within the same registers; the
+routing's 64-row support tiles divide every `banded_knn` shortcut's
+support level, and each shortcut's query window fits one segment of
+membership words.
 """
 
 import inspect
@@ -27,8 +32,13 @@ from cofii2p_tpu_torch.config import SERVE_DYNAMIC_PLAN, SERVE_DYNAMIC_PLAN_SELF
 from cofii2p_tpu_torch.evaluation.eval_all import reference_ckpt_config
 from cofii2p_tpu_torch.models.kpconv import KPConvFPN
 from cofii2p_tpu_torch.ops import cuda_lib
-from cofii2p_tpu_torch.ops.banded import band_plan
-from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_fused, banded_maxpool_tau
+from cofii2p_tpu_torch.ops.banded import _band_starts_np, band_plan, bwd_geometry
+from cofii2p_tpu_torch.ops.maxpool_kernel import (
+    ROUTE_TS,
+    banded_maxpool_fused,
+    banded_maxpool_tau,
+    banded_maxpool_tie_count_fused,
+)
 from cofii2p_tpu_torch.utils import maxpool_knockout
 
 # the H100's budgets, stated here apart from the header's own static_asserts
@@ -36,6 +46,10 @@ SMEM_PER_BLOCK, SMEM_PER_SM, REGS_PER_SM = 232448, 233472, 65536
 FIELDS = ("esz", "vec", "threads", "tq", "qpw", "cs", "row_bytes", "seg", "words", "rb", "smem", "min_blocks",
           "acc_regs", "walk")
 BUILDS = ((4, 4), (2, 8))  # (bytes of a feature, channels a lane) of each kernel built
+COUNT_FIELDS = ("esz", "vec", "lane_bytes", "threads", "qpw", "cs", "row_bytes", "cnt_words", "smem", "acc_regs",
+                "reg_budget")
+ROUTE_FIELDS = ("esz", "threads", "warps", "ts", "rpw", "vec", "cs", "rb", "qseg", "qrow_bytes", "pieces", "smem",
+                "min_blocks", "acc_regs", "reg_budget")
 BANDS = (128, 192, 256, 384, 512, 768, 1536, 2304, 2560, 3072, 3073, 3456, 6144, 7000)
 
 PLAN_DUMP = r"""
@@ -49,9 +63,27 @@ void row() {
               P::ROW_BYTES, P::SEG, P::WORDS, P::RB, P::SMEM, P::MIN_BLOCKS, P::ACC_REGS, cofii2p::kPoolWalk);
 }
 
+template <int ESZ>
+void count_row() {
+  using P = cofii2p::PoolPlan<ESZ, true>;
+  std::printf("count %d %d %d %d %d %d %d %d %d %d %d\n", ESZ, P::VEC, P::LANE_BYTES, P::THREADS, P::QPW, P::CS,
+              P::ROW_BYTES, P::CNT_WORDS, P::SMEM, P::ACC_REGS, P::REG_BUDGET);
+}
+
+template <int ESZ>
+void route_row() {
+  using P = cofii2p::RoutePlan<ESZ>;
+  std::printf("route %d %d %d %d %d %d %d %d %d %d %d %d %d %d %d\n", ESZ, P::THREADS, P::WARPS, P::TS, P::RPW, P::VEC,
+              P::CS, P::RB, P::QSEG, P::QROW_BYTES, P::PIECES, P::SMEM, P::MIN_BLOCKS, P::ACC_REGS, P::REG_BUDGET);
+}
+
 int main() {
   row<4>();
   row<2>();
+  count_row<4>();
+  count_row<2>();
+  route_row<4>();
+  route_row<2>();
   const int bands[] = {BANDS};
   for (int band : bands) std::printf("seg %d %d\n", band, cofii2p::pool_segments(band));
   for (int c = 1; c <= 1100; ++c)
@@ -76,12 +108,16 @@ def built(tmp_path_factory):
                          text=True)
     assert res.returncode == 0, res.stderr  # a static_assert of the plan fails here
     out = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout
-    got = {"plan": {}, "seg": {}, "slices": {}}
+    got = {"plan": {}, "seg": {}, "slices": {}, "count": {}, "route": {}}
     for line in out.splitlines():
         kind, *vals = line.split()
         vals = [int(v) for v in vals]
         if kind == "plan":
             got["plan"][tuple(vals[:2])] = dict(zip(FIELDS, vals))
+        elif kind == "count":
+            got["count"][vals[0]] = dict(zip(COUNT_FIELDS, vals))
+        elif kind == "route":
+            got["route"][vals[0]] = dict(zip(ROUTE_FIELDS, vals))
         elif kind == "seg":
             got["seg"][vals[0]] = vals[1]
         else:
@@ -210,16 +246,19 @@ def _c_params(launcher):
 
 
 def test_forward_launchers_take_no_tq():
-    """maxpool_launch (#3) and maxpool_tau_launch (#8) take their block
+    """maxpool_launch (#3), maxpool_tau_launch (#8) and the tie count's
+    launchers (#12, the forward's kernel in COUNT mode) take their block
     from the plan: neither the C signature, nor its ctypes declaration, nor
-    the wrapper passes a TQ; the tie count's launchers (#12) keep theirs."""
-    for launcher, wrapper in (("maxpool_launch", banded_maxpool_fused), ("maxpool_tau_launch", banded_maxpool_tau)):
+    the wrapper passes a TQ."""
+    for launcher, wrapper in (("maxpool_launch", banded_maxpool_fused), ("maxpool_tau_launch", banded_maxpool_tau),
+                              ("maxpool_count_launch", banded_maxpool_tie_count_fused),
+                              ("maxpool_count_tau_launch", banded_maxpool_tie_count_fused)):
         assert "TQ" not in _c_params(launcher)
         assert "pick_tq" not in inspect.getsource(wrapper)
     assert len(cuda_lib.SIGNATURES["maxpool_launch"]) == 14
     assert len(cuda_lib.SIGNATURES["maxpool_tau_launch"]) == 14
-    for launcher in ("maxpool_count_launch", "maxpool_count_tau_launch"):
-        assert "int TQ" in _c_params(launcher)
+    assert len(cuda_lib.SIGNATURES["maxpool_count_launch"]) == 15
+    assert len(cuda_lib.SIGNATURES["maxpool_count_tau_launch"]) == 15
 
 
 def test_plan_header_stands_alone():
@@ -240,3 +279,94 @@ def test_knockouts_apply_to_the_forward_source(part):
         header = fh.read()
     got = maxpool_knockout.patch(header, maxpool_knockout.plan_edits(header, "kPoolThreads=256,kPoolWalk=2"))
     assert "constexpr int kPoolThreads = 256;" in got and "constexpr int kPoolWalk = 2;" in got
+
+
+@pytest.mark.parametrize("kernel,part", [(k, p) for k in ("count", "route") for p in maxpool_knockout.PARTS])
+def test_knockouts_apply_to_the_count_and_route_sources(kernel, part):
+    """The knock-out tool finds the tie count in csrc/maxpool_fwd.cu (its
+    COUNT mode) and the k-NN routing in csrc/maxpool_route.cu, and each of
+    its edits finds its text once there."""
+    src = maxpool_knockout.kernel_source(cuda_lib.CSRC, kernel)
+    assert src == {"count": "maxpool_fwd.cu", "route": "maxpool_route.cu"}[kernel]
+    with open(os.path.join(cuda_lib.CSRC, src)) as fh:
+        assert maxpool_knockout.patch(fh.read(), maxpool_knockout.KNOCKOUTS[src][part])
+
+
+def test_count_kernel_file_is_gone_and_the_radius_backward_has_no_tau_mode():
+    """#12 runs as the forward's COUNT mode, so csrc/maxpool.cu is gone;
+    #15 has its own source, so csrc/maxpool_bwd.cu keeps only #13 and #14
+    (no TAU parameter, branch or launcher)."""
+    assert not os.path.exists(os.path.join(cuda_lib.CSRC, "maxpool.cu"))
+    with open(os.path.join(cuda_lib.CSRC, "maxpool_bwd.cu")) as fh:
+        bwd = fh.read()
+    assert "TAU" not in bwd and "tau[" not in bwd and "tau_launch" not in bwd
+    assert re.findall(r'extern "C" int (\w+)\(', bwd) == ["maxpool_bwd_launch", "maxpool_bwd_dyn_launch"]
+    with open(os.path.join(cuda_lib.CSRC, "maxpool_route.cu")) as fh:
+        assert 'extern "C" int maxpool_bwd_tau_launch(' in fh.read()
+    with open(os.path.join(cuda_lib.CSRC, "maxpool_fwd.cu")) as fh:
+        fwd = fh.read()
+    for launcher in ("maxpool_count_launch", "maxpool_count_tau_launch"):
+        assert f'extern "C" int {launcher}(' in fwd
+
+
+@pytest.mark.parametrize("esz", [4, 2], ids=["fp32", "bf16"])
+def test_count_plan_fits_the_card(built, esz):
+    """COUNT keeps the forward's block (threads, queries a warp, segment,
+    shared memory) and holds out and the counts of its queries in
+    registers: a lane takes 4 channels (fp32 16 bytes, bf16 8), two 16-bit
+    counts a word, so out and counts stay within half a thread's share of
+    registers, as the forward's maxima do."""
+    cp, fp = built["count"][esz], built["plan"][(esz, 16 // esz)]
+    assert cp["vec"] == 4 and cp["lane_bytes"] == 4 * esz and cp["cs"] == 128
+    assert cp["row_bytes"] == cp["cs"] * esz and cp["cnt_words"] == 2
+    assert (cp["threads"], cp["qpw"], cp["smem"]) == (fp["threads"], fp["qpw"], fp["smem"])
+    assert cp["acc_regs"] == cp["qpw"] * (cp["lane_bytes"] // 4 + cp["cnt_words"])
+    assert cp["acc_regs"] <= cp["reg_budget"] == REGS_PER_SM // cp["threads"] // 2
+    # a count is at most the band, at most N: the largest level's 20480 rows fit 16 bits
+    assert max(KITTIConfig().pyramid_sizes) < 1 << 16
+
+
+@pytest.mark.parametrize("c", [128, 256, 512, 1024, 20, 1100])
+def test_count_slices_cover_every_channel(built, c):
+    """The COUNT builds walk C in slices of 128 channels in both dtypes."""
+    cs = built["count"][4]["cs"]
+    assert built["count"][2]["cs"] == cs
+    n = built["slices"][c][0]  # pool_slices(C, 128)
+    assert (n - 1) * cs < c <= n * cs
+
+
+@pytest.mark.parametrize("esz", [4, 2], ids=["fp32", "bf16"])
+def test_route_plan_fits_the_card(built, esz):
+    """The routing's block: 64 support rows (a bit each of a query's
+    64-bit word; the wrapper's ROUTE_TS), the warps covering them, a lane
+    4 channels (16 bytes of gs), chunks of 32 listed queries (one ballot
+    word), shared memory within the block's and the SM's, and the rows'
+    features and fp64 sums within half a thread's registers."""
+    p = built["route"][esz]
+    assert p["ts"] == ROUTE_TS == 64
+    assert p["rpw"] * p["warps"] == p["ts"] and p["warps"] * 32 == p["threads"]
+    assert p["vec"] == 4 and p["cs"] == 128 and p["rb"] == 32
+    assert p["qrow_bytes"] == p["cs"] * (esz + 4) and p["pieces"] * 16 == p["qrow_bytes"]
+    assert p["smem"] <= SMEM_PER_BLOCK and p["min_blocks"] * (p["smem"] + 1024) <= SMEM_PER_SM
+    assert p["acc_regs"] == 3 * p["rpw"] * p["vec"] <= p["reg_budget"]  # fp32 features, fp64 sums
+    assert p["reg_budget"] == REGS_PER_SM // (p["threads"] * p["min_blocks"]) // 2
+    assert p["qseg"] % 128 == 0 and p["qseg"] <= 1 << 16
+
+
+def test_route_tiles_divide_every_knn_shortcut(built):
+    """Each strided shortcut of `banded_knn` training (the only path that
+    runs #15) at its real shape: 64-row support tiles divide the support
+    level, and the window of query tiles a support tile walks
+    (ops/banded.py::bwd_geometry, as the wrapper plans it) fits one
+    segment of membership words."""
+    cfg = KITTIConfig(kpconv_impl="banded_knn")
+    qseg = built["route"][4]["qseg"]
+    for name, ql, sl, c, band, windowed in strided_shortcuts(cfg):
+        m, n = cfg.pyramid_sizes[ql], cfg.pyramid_sizes[sl]
+        assert not windowed and n % ROUTE_TS == 0, name
+        tile, num_tiles, band = band_plan(m, n, 128, band, None)
+        stile, ns, q_win, qstart = bwd_geometry(m, n, tile, band, _band_starts_np(m, n, tile, band, num_tiles),
+                                                ROUTE_TS)
+        assert stile == ROUTE_TS and ns * stile == n and len(qstart) == ns, name
+        assert q_win <= qseg, name
+        assert (qstart >= 0).all() and (qstart + q_win // tile <= num_tiles).all(), name
