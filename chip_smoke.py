@@ -41,9 +41,11 @@ the last line):
            tie counts bit-equal (the tie count at the four strided
            shortcuts, C = 128 to 1024, by radius on static bands, on w256
            windows and by tau, also in bf16 at C = 256, the same bits on
-           two launches), transposes rel <= 1e-4, the tau transpose and
-           the tau maxpool backward (at the four tau shortcuts) the same
-           bits on two launches, maxpool backwards rel <= 1e-5,
+           two launches), transposes rel <= 1e-4, the tau transpose the
+           same bits on two launches, maxpool backwards rel <= 1e-5 and
+           the same bits on two launches (the static one at the four
+           strided shortcuts, also bf16 at C = 256; the window one at the
+           three windowed shortcuts; the tau one at the four tau ones),
            the window scatter bit-equal on the kernel's own stack; the fused residual
            band pass (#16) at the four strided blocks' serving shapes (bf16,
            w192) and the three fp32 static ones it takes, on clouds with
@@ -192,7 +194,7 @@ KERNELS = {
     "kpconv_aggregate": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:228"),
     "kpconv_transpose": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:516"),
     "maxpool_count": ("cofii2p_tpu_torch/csrc/maxpool_fwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:315"),
-    "maxpool_bwd": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:537"),
+    "maxpool_bwd": ("cofii2p_tpu_torch/csrc/maxpool_route.cu", "cofii2p_tpu/ops/maxpool_kernel.py:537"),
     "knn_tau": ("cofii2p_tpu_torch/csrc/knn_tau.cu", "cofii2p_tpu/ops/tau_kernel.py:110"),
     "kpconv_aggregate_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:691"),
     "kpconv_fused_tau": ("cofii2p_tpu_torch/csrc/kpconv_tau_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1212"),
@@ -201,7 +203,7 @@ KERNELS = {
                              "cofii2p_tpu/ops/kpconv_kernel.py:442"),
     "kpconv_transpose_tau": ("cofii2p_tpu_torch/csrc/kpconv_transpose_mma.cuh",
                              "cofii2p_tpu/ops/kpconv_kernel.py:826"),
-    "maxpool_bwd_dyn": ("cofii2p_tpu_torch/csrc/maxpool_bwd.cu", "cofii2p_tpu/ops/maxpool_kernel.py:452"),
+    "maxpool_bwd_dyn": ("cofii2p_tpu_torch/csrc/maxpool_route.cu", "cofii2p_tpu/ops/maxpool_kernel.py:452"),
     "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_route.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
     "residual_fused": ("cofii2p_tpu_torch/csrc/residual_fused.cu", "cofii2p_tpu/ops/residual_kernel.py:386"),
 }
@@ -499,8 +501,9 @@ def check_training_kernels(device, gen, tally, cfg):
     transpose (#9) also on encoder4_2's 2176-row band, where the CUDA-core
     templates they replaced redid their membership for every kernel point;
     #9 at C = 512 in two channel blocks, and the same bits on two launches;
-    the tie count (#12) at the four strided shortcuts, in bf16 too at C =
-    256, bit-equal and the same bits on two launches."""
+    the tie count (#12) and the maxpool backward (#13) at the four strided
+    shortcuts, in bf16 too at C = 256: counts bit-equal, #13 rel <= 1e-5,
+    both the same bits on two launches."""
     import torch
 
     from cofii2p_tpu_torch.ops.banded import kernel_reach
@@ -568,9 +571,9 @@ def check_training_kernels(device, gen, tally, cfg):
         del g, out, out2, ref
 
     # --- #12 tie count and #13 maxpool backward, with tied maxima -------------
-    # #12 at the four strided shortcuts (C = 128 .. 1024 on their levels),
-    # fp32, and in bf16 at C = 256; #13 at C = 128 and 1024; the C = 256
-    # and 512 cases draw from generators of their own
+    # both at the four strided shortcuts (C = 128 .. 1024 on their levels),
+    # fp32, and in bf16 at C = 256; the C = 256 and 512 cases draw from
+    # generators of their own
     for c, ql, sl, fgen in ((128, 1, 0, gen), (256, 2, 1, torch.Generator().manual_seed(8)),
                             (512, 3, 2, torch.Generator().manual_seed(9)), (1024, 4, 3, gen)):
         q, s = levels[ql], levels[sl]
@@ -580,6 +583,7 @@ def check_training_kernels(device, gen, tally, cfg):
         base = torch.randn(b, sizes[0], c, generator=fgen).to(device)
         f = torch.gather(base, 1, idents[sl][..., None].expand(-1, -1, c))  # duplicated points tie
         # bf16 first, so that the fp32 case's out and counts are kept
+        pooled = {}
         for dtype in (torch.bfloat16, torch.float32) if c == 256 else (torch.float32,):
             fd = f.to(dtype)
             out = banded_maxpool_fused(fd, q, s, ra, 128, bw)
@@ -593,6 +597,7 @@ def check_training_kernels(device, gen, tally, cfg):
             ties = int((cnt > 1).sum())
             if ties == 0:
                 raise PhaseError(f"maxpool_count C={c} {dtype}: no tied maximum in a cloud with duplicated points")
+            pooled[dtype] = (fd, out, cnt)
         k_ms = time_ms(lambda: banded_maxpool_tie_count_fused(f, q, s, out, ra, 128, bw))
         p_ms = time_ms(lambda: banded_maxpool_tie_count_plain(f, q, s, out, ra, 128, bw), 3)
         bd = call_bound("banded_maxpool_tie_count_fused", (f, q, s, out, ra, 128, bw))
@@ -600,23 +605,29 @@ def check_training_kernels(device, gen, tally, cfg):
         say("kernels", f"maxpool_count C={c} lvl{ql}<-lvl{sl} B={b} M={m} N={n}: counts equal"
             f"{' fp32+bf16' if c == 256 else ''}, the same bits on two launches, {ties} tied (query, channel) "
             f"maxima; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
-        if c in (256, 512):
-            del base, f, fd, out, ref, cnt, again
-            continue
-        gs = torch.randn(b, m, c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
-        ref = banded_maxpool_route_plain(gs, f, q, s, out, ra, 128, bw)
-        got = banded_maxpool_backward_fused(gs, f, q, s, out, ra, 128, bw)
-        torch.cuda.synchronize()
-        e13 = rel_err(got, ref)
-        if e13 > 1e-5:
-            raise PhaseError(f"maxpool_bwd C={c}: rel err {e13:.3e} > 1e-5")
-        k_ms = time_ms(lambda: banded_maxpool_backward_fused(gs, f, q, s, out, ra, 128, bw))
-        p_ms = time_ms(lambda: banded_maxpool_route_plain(gs, f, q, s, out, ra, 128, bw), 3)
-        bd = call_bound("banded_maxpool_backward_fused", (gs, f, q, s, out, ra, 128, bw))
-        tally.add("maxpool_bwd", (got - ref).abs().max().item(), k_ms, p_ms, bd)
-        say("kernels", f"maxpool_bwd C={c} B={b} M={m} N={n}: rel {e13:.2e}; "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
-        del base, f, fd, out, ref, cnt, again, gs, got
+        # #13 on the same out and counts, bf16 first where there is one
+        g = torch.randn(b, m, c, generator=gen if c in (128, 1024) else fgen).to(device)
+        for dtype, (fd, out, cnt) in pooled.items():
+            gs = g / torch.clamp(cnt, min=1.0)
+            ref = banded_maxpool_route_plain(gs, fd, q, s, out, ra, 128, bw)
+            got = banded_maxpool_backward_fused(gs, fd, q, s, out, ra, 128, bw)
+            again = banded_maxpool_backward_fused(gs, fd, q, s, out, ra, 128, bw)
+            torch.cuda.synchronize()
+            e13 = rel_err(got, ref)
+            if e13 > 1e-5 or not torch.equal(got, again):
+                raise PhaseError(f"maxpool_bwd C={c} {dtype}: rel err {e13:.3e} (<= 1e-5), the same bits on two "
+                                 f"launches {torch.equal(got, again)}")
+            if dtype == torch.bfloat16:
+                say("kernels", f"maxpool_bwd C={c} bf16 B={b} M={m} N={n}: rel {e13:.2e}, the same bits on two "
+                    "launches")
+                continue
+            k_ms = time_ms(lambda: banded_maxpool_backward_fused(gs, fd, q, s, out, ra, 128, bw))
+            p_ms = time_ms(lambda: banded_maxpool_route_plain(gs, fd, q, s, out, ra, 128, bw), 3)
+            bd = call_bound("banded_maxpool_backward_fused", (gs, fd, q, s, out, ra, 128, bw))
+            tally.add("maxpool_bwd", (got - ref).abs().max().item(), k_ms, p_ms, bd)
+            say("kernels", f"maxpool_bwd C={c} lvl{ql}<-lvl{sl} B={b} M={m} N={n}: rel {e13:.2e}, the same bits "
+                f"on two launches; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+        del base, f, fd, out, ref, cnt, again, g, gs, got, pooled
 
 
 def check_knn_kernels(device, gen, tally, cfg):
@@ -765,10 +776,11 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
     (tau transpose) and #15 (tau maxpool backward) on the k-NN pairs'
     static bands (up to 2304 rows), with #12 by tau and per-layer kernel
     points.  Tie counts bit-equal (on windows and by tau at the four
-    strided shortcuts), #10/#11 rel <= 1e-4, #14/#15 rel <= 1e-5 (#15 at
-    the four tau shortcuts), #10's and #14's scatter bit-equal to its plain
-    version on the kernel's own stack, and #10, #11, #12 and #15 the same
-    bits on two launches."""
+    strided shortcuts), #10/#11 rel <= 1e-4, #14/#15 rel <= 1e-5 (#14 at
+    the three windowed shortcuts of --fast, #15 at the four tau
+    shortcuts), #10's and #14's scatter bit-equal to its plain version on
+    the kernel's own stack, and #10, #11, #12, #14 and #15 the same bits on
+    two launches."""
     import torch
 
     from cofii2p_tpu_torch.ops.banded import _load_kernel_points, band_plan, dynamic_band_starts, kernel_reach
@@ -838,7 +850,7 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
               f"bit-equal on the kernel's {mb:.1f} MiB stack")
         del g, ref, out, out2, stack, scat
 
-    # --- #12 on windows: the four shortcuts; #14: encoder3_1 and 5_1 ----------
+    # --- #12 on windows: the four shortcuts; #14: encoder3_1, 4_1 and 5_1 -----
     # (the C = 128 and 512 cases draw from generators of their own)
     for c, ql, sl, fgen in ((128, 1, 0, torch.Generator().manual_seed(10)), (256, 2, 1, gen),
                             (512, 3, 2, torch.Generator().manual_seed(11)), (1024, 4, 3, gen)):
@@ -860,26 +872,29 @@ def check_window_and_tau_backward_kernels(device, gen, tally, cfg):
         timed("maxpool_count", banded_maxpool_tie_count_fused, banded_maxpool_tie_count_plain, cargs, 0.0,
               f"maxpool_count on windows C={c} lvl{ql}<-lvl{sl} w{w} B={b} M={q.shape[1]}: counts equal, the same "
               f"bits on two launches, {ties} tied maxima")
-        if c in (128, 512):
+        if c == 128:  # encoder2_1 runs on static bands under --fast
             del f, out, ref, cnt, again
             continue
-        gs = torch.randn(b, q.shape[1], c, generator=gen).to(device) / torch.clamp(cnt, min=1.0)
+        g = torch.randn(b, q.shape[1], c, generator=gen if c != 512 else fgen).to(device)
+        gs = g / torch.clamp(cnt, min=1.0)
         args = (gs, f, q, s, out, st, ra, 128, w)
         ref = banded_maxpool_route_dyn_plain(*args)
         got = banded_maxpool_backward_dyn_fused(*args)
         got2, stack = route_dyn_with_stack(*args)
+        got3, stack2 = route_dyn_with_stack(*args)
         scat = band_scatter_plain(stack, st, s.shape[1])
         torch.cuda.synchronize()
         e14 = rel_err(got, ref)
-        if e14 > 1e-5 or not torch.equal(got2, scat) or not torch.equal(got, got2):
+        same = torch.equal(got, got2) and torch.equal(got2, got3) and torch.equal(stack, stack2)
+        if e14 > 1e-5 or not torch.equal(got2, scat) or not same:
             raise PhaseError(f"maxpool_bwd_dyn C={c}: rel err {e14:.3e} (<= 1e-5), scatter bit-equal "
-                             f"{torch.equal(got2, scat)}, repeatable {torch.equal(got, got2)}")
+                             f"{torch.equal(got2, scat)}, the same bits on two launches {same}")
         mb = stack.numel() * 4 / 2**20
         timed("maxpool_bwd_dyn", banded_maxpool_backward_dyn_fused, banded_maxpool_route_dyn_plain, args,
               (got - ref).abs().max().item(),
               f"maxpool_bwd_dyn C={c} w{w} B={b} M={q.shape[1]} N={s.shape[1]}: rel {e14:.2e}, scatter bit-equal "
-              f"on the kernel's {mb:.1f} MiB stack")
-        del f, out, ref, cnt, again, gs, got, got2, stack, scat
+              f"on the kernel's {mb:.1f} MiB stack, the same bits on two launches")
+        del f, out, ref, cnt, again, g, gs, got, got2, got3, stack, stack2, scat
 
     # --- #11 tau transpose: encoder1_2, 4_2 (band 2176) and 5_1 (band 2304) ---
     kgen = torch.Generator().manual_seed(2)

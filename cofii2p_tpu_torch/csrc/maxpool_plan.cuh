@@ -1,8 +1,8 @@
 // Block plans of the banded maxpool's kernels: the forward band max
 // (maxpool_fwd.cu), kernels #3 (radius membership) and #8 (k-NN
 // membership, d2 <= tau[m]), and its COUNT mode, the tie count (#12), in
-// fp32 and bf16; and the k-NN routing of the backward (maxpool_route.cu,
-// #15).
+// fp32 and bf16; and the routing of the backward (maxpool_route.cu: #13
+// and #14 by radius, on static bands and on windows, #15 by tau).
 //
 // Plain constexpr C++ with no CUDA in it, so that a host compiler can
 // evaluate the same plan the kernel is built with
@@ -107,9 +107,10 @@ constexpr int kRouteTS = 64;        // support rows a block: one bit each of a q
 constexpr int kRouteQSeg = 4096;    // window queries a block keeps membership words of at once
 constexpr int kRouteRows = 32;      // listed queries a staged chunk: one ballot word a warp
 
-// The k-NN routing (#15, maxpool_route.cu): a block owns TS support rows
-// and every channel.  It walks the window of query tiles whose bands touch
-// its rows in segments of QSEG window queries, tests each (query, row)
+// The routing (#13, #14, #15, maxpool_route.cu): a block owns TS support
+// rows and every channel.  It walks the window of query tiles whose bands
+// touch its rows (in window mode, #14, TS rows of one tile's window and
+// that one tile) in segments of QSEG window queries, tests each (query, row)
 // pair once and keeps a 64-bit word a query, lists the queries with any
 // bit in query order, then walks the channels in slices of CS: the listed
 // queries' out and gs slices are staged by cp.async, RB queries a chunk,

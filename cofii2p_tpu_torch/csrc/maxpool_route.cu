@@ -1,28 +1,37 @@
-// The routing of the banded maxpool's backward for Hopper under the k-NN
-// (tau) semantics: kernel #15.
+// The routing of the banded maxpool's backward for Hopper: kernels #13
+// (radius membership, static bands), #14 (radius membership, dynamic
+// windows) and #15 (k-NN membership, static bands), one kernel.
 //
-// Replaces: cofii2p_tpu/ops/maxpool_kernel.py::_tau_bwd (body
-// _maxpool_bwd_kernel_tau).  For each support row j and channel c,
+// Replaces: cofii2p_tpu/ops/maxpool_kernel.py::_bwd (body
+// _maxpool_bwd_kernel, #13), ::_bwd_dyn (body _mp_bwd_dyn_kernel, #14) and
+// ::_tau_bwd (body _maxpool_bwd_kernel_tau, #15).  For each support row j
+// and channel c,
 //   g_feats[j, c] = sum_m gs[m, c] * [j in m's neighbourhood] * [f[j, c] == out[m, c]]
-// where the neighbourhood is the forward's (kernel #8, maxpool_fwd.cu): j
-// in the static band of m's 128-query tile and d2 <= tau[m], centred on
-// that tile's first query, with no radius mask; gs is the cotangent
-// already divided by max(tie count, 1) (#12), so exact duplicates split
-// it evenly, and out is the forward's output.
+// where the neighbourhood is the forward's (maxpool_fwd.cu): j in the band
+// of m's 128-query tile (static, or the tile's dynamic window for #14)
+// and, centred on that tile's first query, d2 <= r2 (#3's radius, for #13
+// and #14) or d2 <= tau[m] with no radius mask (#8's, for #15); gs is the
+// cotangent already divided by max(tie count, 1) (#12), so exact
+// duplicates split it evenly, and out is the forward's output.
 //
 // What bounds it on the H100: moving out and gs, (B, M, C) each, to every
-// support row that a query holds.  Under k-NN membership every query holds
-// ~128 rows, so a kernel that reads out[m, c] and gs[m, c] per (row,
-// member query, channel) from global memory reads them ~128 times over.
-// The design (plan RoutePlan in maxpool_plan.cuh) follows the transposed
-// KPConv (kpconv_transpose_mma.cuh):
-//  - a block owns TS = 64 support rows and every channel, and walks the
-//    window of query tiles whose bands touch its rows
+// support row that a query holds.  A query holds tens (radius) to ~128
+// (k-NN) rows, so a kernel that reads out[m, c] and gs[m, c] per (row,
+// member query, channel) from global memory reads them that many times
+// over.  The design (plan RoutePlan in maxpool_plan.cuh) follows the
+// transposed KPConv (kpconv_transpose_mma.cuh):
+//  - static bands: a block owns TS = 64 support rows and every channel,
+//    and walks the window of query tiles whose bands touch its rows
 //    (ops/banded.py::bwd_geometry, on the host);
+//  - windows (WINDOW, #14): a block owns TS rows of one query tile's
+//    dynamic window (its start read on the device), so its window of
+//    query tiles is that one tile, and it writes its rows' sums to the
+//    tile's slice of a (B, num_tiles, band, C) stack, each element once;
+//    band_scatter.cu adds the overlapping windows up in tile order;
 //  - membership is tested once a block: each (window query, row) pair
 //    once, kept as a 64-bit word a query (a bit a row), and the queries
 //    with any bit listed in query order; the member test is a policy
-//    (TauOnly here), so that the radius routings can take the kernel;
+//    (RadiusMember for #13/#14, TauOnly for #15);
 //  - the channels go in slices of CS = 128: the listed queries' out and gs
 //    slices are staged into shared memory by cp.async, 32 queries a
 //    chunk, two chunks in flight, each read from global memory once per
@@ -32,20 +41,21 @@
 //    which of its 32 queries hold any of its rows, then for each such
 //    query reads the lane's out and gs from shared memory once and adds
 //    gs where a held row's feature equals out.
-// Each (row, channel) sum is taken by one thread in query order (tiles
-// ascending, then queries), in fp64, and rounded to fp32 once, with no
-// atomics: the same bits on every launch.  A row that is the maximum of
-// many queries (a dense level, k = 128) sums ~64 terms; summed in fp32 in
-// query order, such sums on the densest shortcut (encoder2_1) strayed
-// from the plain version's per-tile fp32 sums by more than the 1e-5
-// (rms-relative) gate.
+// Each (row, channel) sum (WINDOW: each stack entry) is taken by one
+// thread in query order (tiles ascending, then queries), in fp64, and
+// rounded to fp32 once, with no atomics: the same bits on every launch.
+// A row that is the maximum of many queries (a dense level, k = 128) sums
+// ~64 terms; summed in fp32 in query order, such sums on the densest
+// shortcut (encoder2_1) strayed from the plain version's per-tile fp32
+// sums by more than the 1e-5 (rms-relative) gate.
 //
 // Exactness: membership is bit-identical to the forward's (the same
-// centring, cofii2p::membership_d2 and threshold), so no maximum loses its
-// gradient and no tied row gets a share it did not earn; features and out
-// are compared in fp32 (bf16 widened exactly); each sum is within half an
-// fp32 ulp of the exact one, the plain version's fp32 sums the farther
-// from it.
+// centring on the tile's first query, cofii2p::membership_d2 with the
+// round-to-nearest intrinsics of common.cuh, and the same threshold), so
+// no maximum loses its gradient and no tied row gets a share it did not
+// earn; features and out are compared in fp32 (bf16 widened exactly);
+// each sum is within half an fp32 ulp of the exact one, the plain
+// version's fp32 sums the farther from it.
 
 #include "maxpool_plan.cuh"
 #include "mma.cuh"
@@ -53,6 +63,14 @@
 namespace {
 
 using cofii2p::RoutePlan;
+
+// Radius membership of a (query, support row) pair: within the forward's
+// r2 (#13 and #14, as the forward #3)
+struct RadiusMember {
+  float r2;
+  __device__ __forceinline__ float threshold(long) const { return r2; }
+  __device__ __forceinline__ bool member(float d2, float thr) const { return d2 <= thr; }
+};
 
 // k-NN membership of a (query, support row) pair: within the query's tau,
 // no radius mask (#15, as the forward #8)
@@ -174,10 +192,13 @@ __device__ __forceinline__ void load4(const unsigned char* p, bool vec, int n, f
   }
 }
 
-// grid (N / TS, B); P's threads and shared memory.  qstart_blk (N / TS):
-// each block's first query tile of its window of n_qtiles tiles; nslice
-// channel slices of CS.
-template <bool BF16, class Member>
+// grid (N / TS, B), or (num_tiles * band / TS, B) in WINDOW mode; P's
+// threads and shared memory.  qstart_blk (N / TS): each block's first
+// query tile of its window of n_qtiles tiles (not read in WINDOW mode);
+// nslice channel slices of CS.  WINDOW: blockIdx.x = t * (band / TS) +
+// chunk owns rows chunk * TS .. of tile t's window, and g_feats is the
+// (B, num_tiles, band, C) stack.
+template <bool BF16, bool WINDOW, class Member>
 __global__ void __launch_bounds__(cofii2p::kRouteThreads, 1) maxpool_route_kernel(
     const float* __restrict__ q_pts, const float* __restrict__ s_pts, const void* __restrict__ feats,
     const void* __restrict__ pooled, const float* __restrict__ gs, const int* __restrict__ starts,
@@ -194,9 +215,16 @@ __global__ void __launch_bounds__(cofii2p::kRouteThreads, 1) maxpool_route_kerne
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const int s0 = blockIdx.x * TS;
-  const int t_first = qstart_blk[blockIdx.x];
-  const int t_end = min(t_first + n_qtiles, num_tiles);
+  // the block's support rows s0 .. s0 + TS and its query tiles t_first ..
+  // t_end; WINDOW: rows wrow0 .. wrow0 + TS of tile t_first's window, so
+  // every row lies in that tile's band (lo = 0, hi = TS below)
+  const int per_tile = WINDOW ? band / TS : 1;
+  const int t_first = WINDOW ? blockIdx.x / per_tile : qstart_blk[blockIdx.x];
+  const int wrow0 = WINDOW ? (blockIdx.x % per_tile) * TS : 0;
+  const int s0 = WINDOW ? starts[b * num_tiles + t_first] + wrow0 : blockIdx.x * TS;
+  const int t_end = WINDOW ? t_first + 1 : min(t_first + n_qtiles, num_tiles);
+  // the first output row: g_feats[b, s0] or stack[b, t_first, wrow0]
+  const long orow0 = WINDOW ? ((long)b * num_tiles + t_first) * band + wrow0 : (long)b * N + s0;
   const int tiles_per_seg = P::QSEG / tile;
   const int nseg = (t_end - t_first + tiles_per_seg - 1) / tiles_per_seg;
   const int row0 = warp * P::RPW;  // the warp's rows of the block
@@ -271,7 +299,7 @@ __global__ void __launch_bounds__(cofii2p::kRouteThreads, 1) maxpool_route_kerne
 #pragma unroll
     for (int r = 0; r < P::RPW; ++r) {
       if (row0 + r >= TS || nc <= 0) continue;
-      float* dst = g_feats + ((long)b * N + s0 + row0 + r) * C + c;
+      float* dst = g_feats + (orow0 + row0 + r) * C + c;
       float sum[P::VEC];
 #pragma unroll
       for (int x = 0; x < P::VEC; ++x) sum[x] = static_cast<float>(acc[r][x]);
@@ -286,46 +314,79 @@ __global__ void __launch_bounds__(cofii2p::kRouteThreads, 1) maxpool_route_kerne
   }
 }
 
-template <bool BF16, class Member>
+template <bool BF16, bool WINDOW, class Member>
 int launch_route(const void* q, const void* s, const void* f, const void* pooled, const void* gs, const void* starts,
                  const void* qstart_blk, void* g_feats, int B, int M, int N, int C, int tile, int num_tiles, int band,
                  int TS, int n_qtiles, const Member& member, cudaStream_t stream) {
   using P = RoutePlan<BF16 ? 2 : 4>;
-  auto kern = maxpool_route_kernel<BF16, Member>;
+  auto kern = maxpool_route_kernel<BF16, WINDOW, Member>;
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int esz = BF16 ? 2 : 4;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   const int vec = C % (16 / esz) == 0 && aligned(f) && aligned(pooled) && aligned(gs) && aligned(g_feats);
-  kern<<<dim3(N / TS, B), P::THREADS, P::SMEM, stream>>>(
+  const int blocks = WINDOW ? num_tiles * (band / TS) : N / TS;
+  kern<<<dim3(blocks, B), P::THREADS, P::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(s), f, pooled, static_cast<const float*>(gs),
       static_cast<const int*>(starts), static_cast<const int*>(qstart_blk), static_cast<float*>(g_feats), M, N, C,
       tile, num_tiles, band, TS, n_qtiles, cofii2p::pool_slices(C, P::CS), vec, member);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The checks every launcher makes (WINDOW: TS divides the window width
+// band, else N), then the build of the features' dtype.  Refused shapes
+// return cudaErrorInvalidValue before anything runs.
+template <bool WINDOW, class Member>
+int route(const void* q, const void* s, const void* f, int f_bf16, const void* pooled, const void* gs,
+          const void* starts, const void* qstart_blk, void* g_feats, int B, int M, int N, int C, int tile,
+          int num_tiles, int band, int TS, int n_qtiles, const Member& member, void* stream) {
+  if (TS < 1 || TS > cofii2p::kRouteTS || (WINDOW ? band : N) % TS || tile < 1 || tile > 128 || M % tile ||
+      M / tile != num_tiles || band < 1 || band > N || C < 1 || n_qtiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0 || num_tiles == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f_bf16)
+    return launch_route<true, WINDOW>(q, s, f, pooled, gs, starts, qstart_blk, g_feats, B, M, N, C, tile,
+                                      num_tiles, band, TS, n_qtiles, member, st);
+  return launch_route<false, WINDOW>(q, s, f, pooled, gs, starts, qstart_blk, g_feats, B, M, N, C, tile, num_tiles,
+                                     band, TS, n_qtiles, member, st);
+}
+
 }  // namespace
 
-// Kernel #15.  q (B, M, 3), s (B, N, 3) fp32; f (B, N, C) and pooled
+// Kernel #13.  q (B, M, 3), s (B, N, 3) fp32; f (B, N, C) and pooled
 // (B, M, C), the forward's input and output, fp32 or bf16; gs (B, M, C)
 // fp32 cotangent divided by the tie count; starts (B, num_tiles) int32
 // static band starts; qstart_blk (N / TS) int32 first query tile of each
-// support tile's window of n_qtiles tiles; tau (B, M) fp32 the per-query
-// squared k-NN thresholds; g_feats (B, N, C) fp32.  TS divides N, TS <= 64,
-// tile <= 128; other shapes are refused before anything runs.
+// support tile's window of n_qtiles tiles; g_feats (B, N, C) fp32; r2 the
+// forward's squared radius.  TS divides N, TS <= 64, tile <= 128; other
+// shapes are refused before anything runs.
+extern "C" int maxpool_bwd_launch(const void* q, const void* s, const void* f, int f_bf16, const void* pooled,
+                                  const void* gs, const void* starts, const void* qstart_blk, void* g_feats, int B,
+                                  int M, int N, int C, int tile, int num_tiles, int band, int TS, int n_qtiles,
+                                  float r2, void* stream) {
+  return route<false>(q, s, f, f_bf16, pooled, gs, starts, qstart_blk, g_feats, B, M, N, C, tile, num_tiles, band,
+                      TS, n_qtiles, RadiusMember{r2}, stream);
+}
+
+// Kernel #14's stack: q, s, f, pooled, gs and r2 as above; starts
+// (B, num_tiles) int32 dynamic window starts of width band (each in
+// [0, N - band]); stack (B, num_tiles, band, C) fp32, every element
+// written (band_scatter.cu adds it up).  TS divides band, TS <= 64.
+extern "C" int maxpool_bwd_dyn_launch(const void* q, const void* s, const void* f, int f_bf16, const void* pooled,
+                                      const void* gs, const void* starts, void* stack, int B, int M, int N, int C,
+                                      int tile, int num_tiles, int band, int TS, float r2, void* stream) {
+  return route<true>(q, s, f, f_bf16, pooled, gs, starts, nullptr, stack, B, M, N, C, tile, num_tiles, band, TS, 1,
+                     RadiusMember{r2}, stream);
+}
+
+// Kernel #15.  q, s, f, pooled, gs, starts, qstart_blk and g_feats as
+// #13's; tau (B, M) fp32 the per-query squared k-NN thresholds.  TS
+// divides N, TS <= 64, tile <= 128.
 extern "C" int maxpool_bwd_tau_launch(const void* q, const void* s, const void* f, int f_bf16, const void* pooled,
                                       const void* gs, const void* starts, const void* qstart_blk, const void* tau,
                                       void* g_feats, int B, int M, int N, int C, int tile, int num_tiles, int band,
                                       int TS, int n_qtiles, void* stream) {
-  if (TS < 1 || TS > cofii2p::kRouteTS || N % TS || tile < 1 || tile > 128 || M % tile || M / tile != num_tiles ||
-      band < 1 || band > N || C < 1 || n_qtiles < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || N == 0) return 0;
-  const TauOnly member{static_cast<const float*>(tau)};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f_bf16)
-    return launch_route<true>(q, s, f, pooled, gs, starts, qstart_blk, g_feats, B, M, N, C, tile, num_tiles, band,
-                              TS, n_qtiles, member, st);
-  return launch_route<false>(q, s, f, pooled, gs, starts, qstart_blk, g_feats, B, M, N, C, tile, num_tiles, band,
-                             TS, n_qtiles, member, st);
+  return route<false>(q, s, f, f_bf16, pooled, gs, starts, qstart_blk, g_feats, B, M, N, C, tile, num_tiles, band,
+                      TS, n_qtiles, TauOnly{static_cast<const float*>(tau)}, stream);
 }

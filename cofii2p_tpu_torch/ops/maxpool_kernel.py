@@ -12,19 +12,19 @@ Counterpart of cofii2p_tpu/ops/maxpool_kernel.py.  Six kernels:
    the forward max in place of the max; replaces _match_count) counts the
    member rows tied at the max, on static bands or dynamic windows, by
    radius or by tau;
- - :func:`banded_maxpool_backward_fused` (csrc/maxpool_bwd.cu; replaces
-   _bwd) routes the tie-divided cotangent to those rows, transposed over
-   support tiles, on static bands;
-   :func:`banded_maxpool_backward_dyn_fused` (the same source in window
-   mode, then csrc/band_scatter.cu; replaces _bwd_dyn) on dynamic windows;
+ - :func:`banded_maxpool_backward_fused` (csrc/maxpool_route.cu with
+   radius membership; replaces _bwd) routes the tie-divided cotangent to
+   those rows on static bands: a block 64 support rows and every channel,
+   membership once a block as a 64-bit word a window query, the listed
+   queries' out and gs staged once per channel slice (plan:
+   csrc/maxpool_plan.cuh); :func:`banded_maxpool_backward_dyn_fused` (the
+   same kernel in window mode, a block 64 rows of one tile's window, then
+   csrc/band_scatter.cu; replaces _bwd_dyn) on dynamic windows;
  - :func:`banded_maxpool_tau` (csrc/maxpool_fwd.cu with tau thresholds;
    replaces banded_maxpool_tau_pallas) is the reference's k-NN maxpool:
    membership d2 <= tau[m], no radius mask;
-   :func:`banded_maxpool_backward_tau_fused` (csrc/maxpool_route.cu;
-   replaces _tau_bwd) its routing: a block 64 support rows and every
-   channel, membership once a block as a 64-bit word a window query, the
-   listed queries' out and gs staged once per channel slice (plan:
-   csrc/maxpool_plan.cuh).
+   :func:`banded_maxpool_backward_tau_fused` (csrc/maxpool_route.cu with
+   tau membership; replaces _tau_bwd) its routing.
 
 Each wrapper takes its plain version (ops/banded.py) for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no other fallback.
@@ -56,8 +56,7 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import (
     pick_tq,
 )
 
-_MAX_TS = 32  # support rows per block of the radius routings (csrc/maxpool_bwd.cu)
-ROUTE_TS = 64  # support rows per block of the k-NN routing (RoutePlan::TS, csrc/maxpool_plan.cuh)
+ROUTE_TS = 64  # support rows per block of the routings #13, #14, #15 (RoutePlan::TS, csrc/maxpool_plan.cuh)
 
 banded_maxpool_plain = banded_maxpool
 
@@ -210,9 +209,8 @@ def _check_tau(tau, b, m):
 def _route_static(launcher, g_scaled, s_feats, q_points, s_points, out, tile, band_width, r2=None, tau=None):
     """Launch a maxpool routing pass on static bands (kernel #13 with
     ``r2``, #15 with ``tau``) through the library's ``launcher``, its
-    windows planned for support tiles of the largest power of two <= the
-    kernel's rows a block (#13 32, #15 :data:`ROUTE_TS`) that divides N;
-    returns (B, N, C) fp32."""
+    windows planned for support tiles of the largest power of two <=
+    :data:`ROUTE_TS` that divides N; returns (B, N, C) fp32."""
     gs = g_scaled.float().contiguous()
     b, m, n, c = _check_pool(s_feats, q_points, s_points, out)
     _check_cuda(g_scaled=gs)
@@ -220,8 +218,7 @@ def _route_static(launcher, g_scaled, s_feats, q_points, s_points, out, tile, ba
         raise ValueError(f"cotangent shape {tuple(gs.shape)} != {(b, m, c)}")
     tile, num_tiles, band, _ = _band_geometry(m, n, tile, band_width)
     st = static_starts(m, n, tile, band, num_tiles, b, gs.device).contiguous()
-    ts_max = _MAX_TS if tau is None else ROUTE_TS
-    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, ts_max), gs.device)
+    ts, qstart_blk, n_qtiles = _transpose_plan(m, n, tile, band, num_tiles, pick_tq(n, ROUTE_TS), gs.device)
     g_feats = torch.empty(b, n, c, dtype=torch.float32, device=gs.device)
     err = getattr(cuda_lib.lib(), launcher)(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(),
@@ -252,8 +249,9 @@ banded_maxpool_backward_fused.launches = 0
 
 def route_dyn_with_stack(g_scaled, s_feats, q_points, s_points, out, starts, r_active, tile=128, band_width=256):
     """Kernel #14's two launches on CUDA tensors: the window stack
-    (B, num_tiles, band, C) fp32, then its scatter; returns (g_feats
-    (B, N, C) fp32, stack).  Counts nothing: the wrapper
+    (B, num_tiles, band, C) fp32, each window sliced into
+    ``pick_tq(band, ROUTE_TS)`` rows a block, then its scatter; returns
+    (g_feats (B, N, C) fp32, stack).  Counts nothing: the wrapper
     :func:`banded_maxpool_backward_dyn_fused` does."""
     gs = g_scaled.float().contiguous()
     b, m, n, c = _check_pool(s_feats, q_points, s_points, out)
@@ -266,7 +264,7 @@ def route_dyn_with_stack(g_scaled, s_feats, q_points, s_points, out, starts, r_a
     err = cuda_lib.lib().maxpool_bwd_dyn_launch(
         q_points.data_ptr(), s_points.data_ptr(), s_feats.data_ptr(), int(s_feats.dtype == torch.bfloat16),
         out.data_ptr(), gs.data_ptr(), st.data_ptr(), stack.data_ptr(), b, m, n, c, tile, num_tiles, band,
-        pick_tq(band, _MAX_TS), float(np.float32(r_active * r_active)), cuda_lib.stream_of(gs),
+        pick_tq(band, ROUTE_TS), float(np.float32(r_active * r_active)), cuda_lib.stream_of(gs),
     )
     cuda_lib.check(err, "maxpool_bwd_dyn")
     return band_scatter(stack, st, n), stack

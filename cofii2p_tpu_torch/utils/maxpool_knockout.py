@@ -1,8 +1,9 @@
 """Time the banded maxpool's kernels by part on the card, with knock-out
 builds, and beside variants of their block plans: the forward band max
-(kernels #3 and #8), the tie count (#12) and the k-NN routing (#15).
+(kernels #3 and #8), the tie count (#12), the k-NN routing (#15) and the
+radius routings (#13 on static bands, #14 on dynamic windows).
 
-    python -m cofii2p_tpu_torch.utils.maxpool_knockout [--tree DIR] [--kernel forward|count|route ...]
+    python -m cofii2p_tpu_torch.utils.maxpool_knockout [--tree DIR] [--kernel forward|count|route|radius ...]
         [--path t7] [--path serve] [--reps 10] [--variant NAME=VALUE[,NAME=VALUE...] ...]
 
 ``--tree`` is the root of a checkout of the port (default: this one); its
@@ -31,15 +32,20 @@ picks it):
    its COUNT mode): no_loads drops the cp.async of feature rows into
    shared memory (the walk reads stale shared memory); no_member gives
    every query the first query's test, as above.
- - ``csrc/maxpool_bwd.cu`` (the CUDA-core routing, #15 in its TAU mode
-   until its redesign): no_loads replaces the two global loads of the
-   walk, out[m, c] and gs[m, c], by values made from the address;
-   no_member tests each row of the block against the tile's first query
-   once (32 lanes, one ballot) and gives every query those bits.
- - ``csrc/maxpool_route.cu`` (the redesigned routing): no_loads drops the
-   cp.async of the listed queries' out and gs slices; no_member tests only
-   each tile's first query and gives every query of the tile its word, so
-   every query of such a tile is listed (the walk grows).
+ - ``csrc/maxpool_bwd.cu`` (the CUDA-core routing: #15 in its TAU mode
+   until its redesign, #13 and, in its DYN mode, #14 until theirs deleted
+   the file): no_loads replaces the two global loads of the walk, out[m,
+   c] and gs[m, c], by values made from the address; no_member tests each
+   row of the block against the tile's first query once (32 lanes, one
+   ballot, d2 <= r2) and gives every query of the tile those bits, on
+   static bands and on windows alike.
+ - ``csrc/maxpool_route.cu`` (the redesigned routing: #15 by tau, #13 by
+   radius on static bands, #14 by radius in its window mode): no_loads
+   drops the cp.async of the listed queries' out and gs slices (the walk
+   reads stale shared memory); no_member tests only each tile's first
+   query and gives every query of the tile its word, so every query of
+   such a tile is listed (the walk grows).  A static block walks every
+   tile of its window so; a window block its one tile.
 The knocked-out builds compute wrong results: their times are the only
 output.  Needs a CUDA device.
 """
@@ -63,6 +69,8 @@ SOURCES = {
     "forward": ("banded_maxpool_fused,banded_maxpool_tau", ("maxpool_fwd.cu", "maxpool.cu")),
     "count": ("banded_maxpool_tie_count_fused", ("maxpool.cu", "maxpool_fwd.cu")),
     "route": ("banded_maxpool_backward_tau_fused", ("maxpool_route.cu", "maxpool_bwd.cu")),
+    "radius": ("banded_maxpool_backward_fused,banded_maxpool_backward_dyn_fused",
+               ("maxpool_bwd.cu", "maxpool_route.cu")),
 }
 
 PARTS = ("no_loads", "no_member")
@@ -86,13 +94,12 @@ KNOCKOUTS = {
                       "if (__int_as_float((int)o) == fv[s]) acc[s] += __int_as_float((int)o & 0x3fffffff);")],
         "no_member": [("    for (int s = 0; s < TS; ++s) {\n      const bool in = valid && s >= lo && s < hi &&\n"
                        "                      cofii2p::membership_d2(qc, pc_s[3 * s], pc_s[3 * s + 1], pc_s[3 * s + 2]) "
-                       "<= thr;",
+                       "<= r2;",
                        "    const float q0[3] = {0.f, 0.f, 0.f};\n"
-                       "    const float thr0 = TAU ? tau[(long)b * M + (long)t * tile] : r2;\n"
-                       "    const unsigned row0 = __ballot_sync(0xffffffffu, lane < TS && cofii2p::membership_d2(q0, "
-                       "pc_s[3 * lane], pc_s[3 * lane + 1], pc_s[3 * lane + 2]) <= thr0);\n"
+                       "    const unsigned bits0 = __ballot_sync(0xffffffffu, lane < TS && cofii2p::membership_d2(q0, "
+                       "pc_s[3 * lane], pc_s[3 * lane + 1], pc_s[3 * lane + 2]) <= r2);\n"
                        "    for (int s = 0; s < TS; ++s) {\n"
-                       "      const bool in = valid && s >= lo && s < hi && ((row0 >> s) & 1u);")],
+                       "      const bool in = valid && s >= lo && s < hi && ((bits0 >> s) & 1u);")],
     },
     "maxpool_route.cu": {
         "no_loads": [("cofii2p::cp_async16(d, src, 16);", "(void)src;")],
@@ -170,7 +177,7 @@ def totals(out: str) -> dict:
 
 
 def main():
-    ap = argparse.ArgumentParser(description="time kernels #3/#8, #12 and #15 by part with knock-out builds")
+    ap = argparse.ArgumentParser(description="time kernels #3/#8, #12, #13/#14 and #15 by part with knock-out builds")
     ap.add_argument("--tree", default=_ROOT, help="root of the checkout whose kernels are timed")
     ap.add_argument("--kernel", action="append", choices=sorted(SOURCES), help="kernels timed (default forward)")
     ap.add_argument("--path", action="append", choices=("serve", "train", "fast", "knn_train", "t7", "val"))

@@ -30,7 +30,11 @@ the same bits on two launches; #9 and #11 also at C = 512 on a 2304-row
 band, #10 at C = 512 and on windows over 2048 rows, #11 in bf16 rel <=
 1e-3 against the plain version's bf16 rounding points), #14/#15
 rel <= 1e-5, and the window scatter bit-equal to its plain version on the
-kernel's own stack.
+kernel's own stack.  The radius routings #13 and #14 (the routing
+kernel's radius policy and window mode): rel <= 1e-5 and the same bits on
+two launches, #13 also in bf16, at an N that 64 does not divide and on a
+2304-row band, both on constant features (every member ties, at four
+reaches), #14 on windows placed at row 0, an odd row and N - band.
 The fused residual band pass (#16): counts equal and shortcuts bit-equal
 to the plain version and to the pair it fuses (#1, #3), the conv
 bit-equal to #1's (the same kernel code at the same block size) and
@@ -482,7 +486,8 @@ def test_training_kpconv_kernels_match_plain(cuda_device, mode):
 @pytest.mark.parametrize("c", POOL_WIDTHS)
 def test_maxpool_backward_kernels_match_plain(cuda_device, c):
     """The tie count on static bands bit-equal and the same on two
-    launches, kernel #13 rel <= 1e-5, at every shortcut width."""
+    launches, kernel #13 rel <= 1e-5 and the same bits on two launches, at
+    every shortcut width."""
     q, s = clouds(512, 2048, cuda_device)
     s, f = tied_features(s, c, cuda_device)
     out = banded_maxpool_fused(f, q, s, R_ACT, 128, 256)
@@ -491,7 +496,73 @@ def test_maxpool_backward_kernels_match_plain(cuda_device, c):
     assert torch.equal(cnt, banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, 256))
     gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(cuda_device) / cnt.clamp(min=1)
     got = banded_maxpool_backward_fused(gs, f, q, s, out, R_ACT, 128, 256)
+    again = banded_maxpool_backward_fused(gs, f, q, s, out, R_ACT, 128, 256)
+    torch.cuda.synchronize()
     assert rel_err(got, banded_maxpool_route_plain(gs, f, q, s, out, R_ACT, 128, 256)) <= 1e-5
+    assert torch.equal(got, again)
+
+
+# kernel #13 (csrc/maxpool_route.cu, radius policy): (M, N, C, band width,
+# dtype); bf16 at one width, N = 2080 (32 * 65), where the wrapper plans
+# 32-row support tiles under the kernel's 64, and encoder5_1's 2304-row
+# band (the whole query level in one window)
+RADIUS_ROUTE_CASES = [(512, 2048, 256, 256, "bf16"), (1024, 2080, 128, 256, "fp32"), (1280, 2560, 256, 1024, "fp32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,c,bw,dtype", RADIUS_ROUTE_CASES)
+def test_radius_maxpool_backward_kernel_matches_plain(cuda_device, m, n, c, bw, dtype):
+    """Kernel #13 on duplicated points in bf16, with support tiles under 64
+    rows and on a 2304-row band: the tie count bit-equal, rel <= 1e-5
+    against the plain version, the same bits on two launches."""
+    q, s = clouds(m, n, cuda_device)
+    s, f = tied_features(s, c, cuda_device, seed=5)
+    if (m, n) == (1280, 2560):
+        q = s[:, ::2].contiguous()  # a Morton subset, as the pyramid's next level: band 2304
+    f = f.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    out = banded_maxpool_fused(f, q, s, R_ACT, 128, bw)
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, bw)
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, bw))
+    assert (cnt > 1).any()
+    gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(13)).to(cuda_device) / cnt.clamp(min=1)
+    got = banded_maxpool_backward_fused(gs, f, q, s, out, R_ACT, 128, bw)
+    again = banded_maxpool_backward_fused(gs, f, q, s, out, R_ACT, 128, bw)
+    torch.cuda.synchronize()
+    assert rel_err(got, banded_maxpool_route_plain(gs, f, q, s, out, R_ACT, 128, bw)) <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windowed", [False, True], ids=["static", "w256"])
+@pytest.mark.parametrize("scale", [0.25, 0.5, 1.0, 2.0])
+def test_radius_routing_on_constant_features(cuda_device, scale, windowed):
+    """On features equal in every row each member ties with the max, so the
+    tie count is the number of members and each member row gets every
+    holding query's g / count: kernels #13 (static bands) and #14 (w256
+    windows) at reaches of 0.25 to 2 times the level-2 one (a few members
+    a query to some hundred; lone queries none), rel <= 1e-5 against the
+    plain version, the same bits on two launches.  A pair whose membership
+    differed from the forward's would leave a member without its share."""
+    q, s = clouds(1024, 2048, cuda_device, lone=4)
+    ra = R_ACT * scale
+    starts = dynamic_band_starts(q, s, ra, 128, 256, "best", 1) if windowed else None
+    f = torch.full((2, 2048, 128), 0.5, device=cuda_device)
+    out = banded_maxpool_fused(f, q, s, ra, 128, 256, starts)
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, ra, 128, 256, starts)
+    members = banded_pair_count(q, s, ra, 128, 256, starts)
+    assert torch.equal(cnt, members[..., None].float().expand_as(cnt))
+    assert (members == 0).any() and (members > 1).any()
+    gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(14)).to(cuda_device) / cnt.clamp(min=1)
+    if windowed:
+        run = lambda: banded_maxpool_backward_dyn_fused(gs, f, q, s, out, starts, ra, 128, 256)  # noqa: E731
+        ref = banded_maxpool_route_dyn_plain(gs, f, q, s, out, starts, ra, 128, 256)
+    else:
+        run = lambda: banded_maxpool_backward_fused(gs, f, q, s, out, ra, 128, 256)  # noqa: E731
+        ref = banded_maxpool_route_plain(gs, f, q, s, out, ra, 128, 256)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) <= 1e-5
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -638,7 +709,40 @@ def test_window_maxpool_backward_kernels_match_plain(cuda_device, c):
     got = banded_maxpool_backward_dyn_fused(gs, f, q, s, out, starts, R_ACT, 128, 256)
     assert rel_err(got, banded_maxpool_route_dyn_plain(gs, f, q, s, out, starts, R_ACT, 128, 256)) <= 1e-5
     g2, stack = route_dyn_with_stack(gs, f, q, s, out, starts, R_ACT, 128, 256)
+    g3, stack2 = route_dyn_with_stack(gs, f, q, s, out, starts, R_ACT, 128, 256)
+    torch.cuda.synchronize()
     assert torch.equal(g2, band_scatter_plain(stack, starts, s.shape[1]))
+    assert torch.equal(stack, stack2) and torch.equal(g2, g3) and torch.equal(got, g2)  # the same bits twice
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,dtype", [(256, "fp32"), (160, "fp32"), (256, "bf16")])
+def test_window_maxpool_backward_at_the_support_edges(cuda_device, w, dtype):
+    """Kernel #14 on windows placed by hand: tile 0's at row 0, tile 1's at
+    an odd row, tiles 3 and 7 at N - w (the last rows; tile 3's queries lie
+    elsewhere and hold few of them), so a block's first row, starts[b, t]
+    + its offset read on the device, reaches the support's end; w160 slices
+    each window into 32-row blocks (TS < 64); fp32 and bf16.  The stack's
+    scatter bit-equal to its plain version, rel <= 1e-5, the same bits on
+    two launches."""
+    q, s = clouds(1024, 2048, cuda_device)
+    s, f = tied_features(s, 128, cuda_device, seed=6)
+    f = f.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    n = s.shape[1]
+    starts = dynamic_band_starts(q, s, R_ACT, 128, w, "best", 1).to(torch.int32).clone()
+    starts[:, 0], starts[:, 1], starts[:, 3], starts[:, 7] = 0, 37, n - w, n - w
+    out = banded_maxpool_fused(f, q, s, R_ACT, 128, w, starts)
+    cnt = banded_maxpool_tie_count_fused(f, q, s, out, R_ACT, 128, w, starts)
+    assert torch.equal(cnt, banded_maxpool_tie_count_plain(f, q, s, out, R_ACT, 128, w, starts))
+    gs = torch.randn(out.shape, generator=torch.Generator().manual_seed(15)).to(cuda_device) / cnt.clamp(min=1)
+    args = (gs, f, q, s, out, starts, R_ACT, 128, w)
+    got, stack = route_dyn_with_stack(*args)
+    again, stack2 = route_dyn_with_stack(*args)
+    torch.cuda.synchronize()
+    assert rel_err(got, banded_maxpool_route_dyn_plain(*args)) <= 1e-5
+    assert torch.equal(got, band_scatter_plain(stack, starts, n))
+    assert torch.equal(stack, stack2) and torch.equal(got, again)
+    assert stack[:, 7].abs().sum() > 0  # the last rows took gradient
 
 
 @pytest.mark.gpu

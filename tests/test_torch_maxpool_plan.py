@@ -1,6 +1,6 @@
 """The banded maxpool's block plans (csrc/maxpool_plan.cuh) on the CPU: the
 forward band max (kernels #3 and #8), its COUNT mode (the tie count, #12)
-and the k-NN routing (#15), so that a launch the card would refuse (too
+and the routing (#13, #14 and #15), so that a launch the card would refuse (too
 much shared memory, too many registers, a segment walk that misses band
 rows) shows here and not on the card.
 
@@ -15,9 +15,10 @@ membership on static bands): C = 128 to 1024 in both dtypes, its band in
 whole segments of kept membership bits, and a band longer than one
 segment.  The launchers take no TQ: the plan sizes the block.  The
 COUNT builds keep the forward's block within the same registers; the
-routing's 64-row support tiles divide every `banded_knn` shortcut's
-support level, and each shortcut's query window fits one segment of
-membership words.
+routing's 64-row support tiles divide every static shortcut's support
+level (radius and k-NN), each such shortcut's query window fits one
+segment of membership words, and 64 divides every window width of
+`--fast`.
 """
 
 import inspect
@@ -33,6 +34,7 @@ from cofii2p_tpu_torch.evaluation.eval_all import reference_ckpt_config
 from cofii2p_tpu_torch.models.kpconv import KPConvFPN
 from cofii2p_tpu_torch.ops import cuda_lib
 from cofii2p_tpu_torch.ops.banded import _band_starts_np, band_plan, bwd_geometry
+from cofii2p_tpu_torch.ops.kpconv_kernel import pick_tq
 from cofii2p_tpu_torch.ops.maxpool_kernel import (
     ROUTE_TS,
     banded_maxpool_fused,
@@ -281,32 +283,57 @@ def test_knockouts_apply_to_the_forward_source(part):
     assert "constexpr int kPoolThreads = 256;" in got and "constexpr int kPoolWalk = 2;" in got
 
 
-@pytest.mark.parametrize("kernel,part", [(k, p) for k in ("count", "route") for p in maxpool_knockout.PARTS])
+@pytest.mark.parametrize("kernel,part", [(k, p) for k in ("count", "route", "radius")
+                                         for p in maxpool_knockout.PARTS])
 def test_knockouts_apply_to_the_count_and_route_sources(kernel, part):
     """The knock-out tool finds the tie count in csrc/maxpool_fwd.cu (its
-    COUNT mode) and the k-NN routing in csrc/maxpool_route.cu, and each of
-    its edits finds its text once there."""
+    COUNT mode) and the k-NN and radius routings in csrc/maxpool_route.cu,
+    and each of its edits finds its text once there."""
     src = maxpool_knockout.kernel_source(cuda_lib.CSRC, kernel)
-    assert src == {"count": "maxpool_fwd.cu", "route": "maxpool_route.cu"}[kernel]
+    assert src == {"count": "maxpool_fwd.cu", "route": "maxpool_route.cu", "radius": "maxpool_route.cu"}[kernel]
     with open(os.path.join(cuda_lib.CSRC, src)) as fh:
         assert maxpool_knockout.patch(fh.read(), maxpool_knockout.KNOCKOUTS[src][part])
 
 
+def _launcher_body(text, launcher):
+    """The body of an ``extern "C"`` launcher in a source's text."""
+    start = text.index(f'extern "C" int {launcher}(')
+    return text[start:text.index("\n}\n", start)]
+
+
 def test_count_kernel_file_is_gone_and_the_radius_backward_has_no_tau_mode():
     """#12 runs as the forward's COUNT mode, so csrc/maxpool.cu is gone;
-    #15 has its own source, so csrc/maxpool_bwd.cu keeps only #13 and #14
-    (no TAU parameter, branch or launcher)."""
+    #13 and #14 run the routing kernel of csrc/maxpool_route.cu with its
+    radius policy, which reads no tau (no TAU parameter or branch), and
+    their launchers take no tau; #15's launcher is there with TauOnly."""
     assert not os.path.exists(os.path.join(cuda_lib.CSRC, "maxpool.cu"))
-    with open(os.path.join(cuda_lib.CSRC, "maxpool_bwd.cu")) as fh:
-        bwd = fh.read()
-    assert "TAU" not in bwd and "tau[" not in bwd and "tau_launch" not in bwd
-    assert re.findall(r'extern "C" int (\w+)\(', bwd) == ["maxpool_bwd_launch", "maxpool_bwd_dyn_launch"]
     with open(os.path.join(cuda_lib.CSRC, "maxpool_route.cu")) as fh:
-        assert 'extern "C" int maxpool_bwd_tau_launch(' in fh.read()
+        route = fh.read()
+    policy = route[route.index("struct RadiusMember {"):route.index("};", route.index("struct RadiusMember {"))]
+    assert "TAU" not in route and "tau" not in policy and "r2" in policy
+    for launcher in ("maxpool_bwd_launch", "maxpool_bwd_dyn_launch"):
+        body = _launcher_body(route, launcher)
+        assert "tau" not in body and "RadiusMember{r2}" in body, launcher
+    assert "TauOnly{" in _launcher_body(route, "maxpool_bwd_tau_launch")
     with open(os.path.join(cuda_lib.CSRC, "maxpool_fwd.cu")) as fh:
         fwd = fh.read()
     for launcher in ("maxpool_count_launch", "maxpool_count_tau_launch"):
         assert f'extern "C" int {launcher}(' in fwd
+
+
+def test_the_routing_source_holds_the_three_routing_launchers():
+    """csrc/maxpool_bwd.cu, the CUDA-core routing of #13 and #14, is gone:
+    csrc/maxpool_route.cu holds exactly the three routing launchers (#13,
+    #14 in window mode, #15), with the C signatures their ctypes
+    declarations give."""
+    assert not os.path.exists(os.path.join(cuda_lib.CSRC, "maxpool_bwd.cu"))
+    with open(os.path.join(cuda_lib.CSRC, "maxpool_route.cu")) as fh:
+        route = fh.read()
+    launchers = ["maxpool_bwd_launch", "maxpool_bwd_dyn_launch", "maxpool_bwd_tau_launch"]
+    assert re.findall(r'extern "C" int (\w+)\(', route) == launchers
+    for launcher in launchers:
+        assert _c_params(launcher).count(",") + 1 == len(cuda_lib.SIGNATURES[launcher]), launcher
+    assert [len(cuda_lib.SIGNATURES[x]) for x in launchers] == [20, 18, 20]
 
 
 @pytest.mark.parametrize("esz", [4, 2], ids=["fp32", "bf16"])
@@ -353,15 +380,13 @@ def test_route_plan_fits_the_card(built, esz):
     assert p["qseg"] % 128 == 0 and p["qseg"] <= 1 << 16
 
 
-def test_route_tiles_divide_every_knn_shortcut(built):
-    """Each strided shortcut of `banded_knn` training (the only path that
-    runs #15) at its real shape: 64-row support tiles divide the support
-    level, and the window of query tiles a support tile walks
-    (ops/banded.py::bwd_geometry, as the wrapper plans it) fits one
-    segment of membership words."""
-    cfg = KITTIConfig(kpconv_impl="banded_knn")
+def _check_static_route_tiles(built, cfg, calls):
+    """64-row support tiles divide each static shortcut's support level, and
+    the window of query tiles a support tile walks (ops/banded.py::
+    bwd_geometry, as the wrapper plans it) fits one segment of membership
+    words."""
     qseg = built["route"][4]["qseg"]
-    for name, ql, sl, c, band, windowed in strided_shortcuts(cfg):
+    for name, ql, sl, c, band, windowed in calls:
         m, n = cfg.pyramid_sizes[ql], cfg.pyramid_sizes[sl]
         assert not windowed and n % ROUTE_TS == 0, name
         tile, num_tiles, band = band_plan(m, n, 128, band, None)
@@ -370,3 +395,34 @@ def test_route_tiles_divide_every_knn_shortcut(built):
         assert stile == ROUTE_TS and ns * stile == n and len(qstart) == ns, name
         assert q_win <= qseg, name
         assert (qstart >= 0).all() and (qstart + q_win // tile <= num_tiles).all(), name
+
+
+def test_route_tiles_divide_every_knn_shortcut(built):
+    """Each strided shortcut of `banded_knn` training (the only path that
+    runs #15) at its real shape, as _check_static_route_tiles checks."""
+    cfg = KITTIConfig(kpconv_impl="banded_knn")
+    _check_static_route_tiles(built, cfg, strided_shortcuts(cfg))
+
+
+@pytest.mark.parametrize("path", ["train_and_fp32_eval", "fast"])
+def test_route_tiles_divide_every_radius_shortcut(built, path):
+    """Each static strided shortcut of the paths that run #13 (the static
+    trainer's four, `--fast`'s encoder2_1) at its real shape, as
+    _check_static_route_tiles checks."""
+    cfg, kw, _ = PATHS[path]
+    calls = [c for c in strided_shortcuts(cfg, **kw) if not c[5]]
+    assert len(calls) == {"train_and_fp32_eval": 4, "fast": 1}[path]
+    _check_static_route_tiles(built, cfg, calls)
+
+
+def test_route_tiles_divide_every_window_shortcut(built):
+    """`--fast`'s three windowed shortcuts (encoder3_1 .. 5_1, the calls of
+    #14): 64 divides the window width, so a window is whole blocks of
+    ROUTE_TS rows (pick_tq(band, ROUTE_TS) == 64, as the wrapper passes),
+    and a block's one query tile fits a segment of membership words."""
+    cfg, kw, _ = PATHS["fast"]
+    calls = [c for c in strided_shortcuts(cfg, **kw) if c[5]]
+    assert [c[0] for c in calls] == ["encoder3_1", "encoder4_1", "encoder5_1"]
+    for name, ql, sl, c, band, _ in calls:
+        assert band % ROUTE_TS == 0 and pick_tq(band, ROUTE_TS) == ROUTE_TS, name
+        assert band_plan(cfg.pyramid_sizes[ql], cfg.pyramid_sizes[sl], 128, band, True)[0] <= built["route"][4]["qseg"]
