@@ -29,8 +29,10 @@ the last line):
            tau KPConv fused and aggregate, tau maxpool) at the `.t7`
            path's fp32 shapes, B=8, on the same clouds, so that k-th and
            (k+1)-th distances and maxima tie: tau and the maxpool
-           bit-equal (the maxpool at the four strided shortcuts, C = 128 to
-           1024, fp32 and bf16, the same bits on two launches),
+           bit-equal (tau at the 9 level pairs, on w256 windows and with
+           kk = band, the last two the same bits on two launches; the
+           maxpool at the four strided shortcuts, C = 128 to 1024, fp32
+           and bf16, the same bits on two launches),
            the KPConvs (tensor cores, fp32 by 3xTF32) at every width of the
            FPN, on bands of one membership segment and of two (2176 and
            2304 rows), with equal active-row counts; the backward kernels of
@@ -634,7 +636,8 @@ def check_knn_kernels(device, gen, tally, cfg):
     """The four kernels of the `.t7` path against their plain versions at
     its fp32 shapes, B=8, on clouds with duplicated points: tau on every
     (query level, support level) pair of the FPN, bit-equal (its
-    library_ms is torch.topk over the same (tile, band) d2 blocks); the tau
+    library_ms is torch.topk over the same (tile, band) d2 blocks), also on
+    w256 windows and with kk = band, the same bits on two launches; the tau
     KPConvs with per-layer kernel points and features of both signs, equal
     active-row counts, fp32 rel <= 1e-4 and bf16 rel <= 5e-2 (kernel #1's),
     at every width of the FPN (#6 at Cin 512, where the FPN takes it, and
@@ -643,7 +646,13 @@ def check_knn_kernels(device, gen, tally, cfg):
     bit-equal in fp32 and bf16."""
     import torch
 
-    from cofii2p_tpu_torch.ops.banded import _load_kernel_points, _membership_d2, _tiles, band_plan
+    from cofii2p_tpu_torch.ops.banded import (
+        _load_kernel_points,
+        _membership_d2,
+        _tiles,
+        band_plan,
+        dynamic_knn_starts,
+    )
     from cofii2p_tpu_torch.ops.kpconv_kernel import (
         banded_kpconv_aggregate_tau,
         banded_kpconv_aggregate_tau_plain,
@@ -683,6 +692,25 @@ def check_knn_kernels(device, gen, tally, cfg):
             f"{ties} queries with tied k-th/(k+1)-th distances; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"torch.topk {l_ms:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
         del d2, qt, pb
+    # beside the 9 pairs: tau over w256 windows (lvl1 <- lvl0, placed by
+    # dynamic_knn_starts) and with kk = band (a 128-row level: no (k+1)-th
+    # row), bit-equal; not in the tally, whose sums are the forward's 9 calls
+    q, s = levels[1], levels[0]
+    starts = dynamic_knn_starts(q, s, taus[(1, 0)], 128, 256, 1)
+    lone = levels[4][:, :128].contiguous()
+    for name, args in (("w256 windows lvl1<-lvl0", (q, s, k, 128, 256, starts)),
+                       ("kk = band = 128", (lone, lone, k, 128, 64))):
+        ref = banded_knn_tau_plain(*args)
+        got = banded_knn_tau_kernel(*args)
+        again = banded_knn_tau_kernel(*args)
+        torch.cuda.synchronize()
+        bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        if bad or not torch.equal(got, again):
+            raise PhaseError(f"knn_tau {name}: {bad} of {ref.numel()} thresholds differ in their bits, the same "
+                             f"bits on two launches {torch.equal(got, again)}")
+        say("kernels", f"knn_tau {name} B={b} M={args[0].shape[1]}: bit-equal, the same bits on two launches; "
+            f"kernel {time_ms(lambda: banded_knn_tau_kernel(*args)):.3f} ms")
+    del q, s, starts, lone, ref, got, again
 
     # --- #7 fused and #6 aggregate tau KPConvs -------------------------------
     kgen = torch.Generator().manual_seed(1)

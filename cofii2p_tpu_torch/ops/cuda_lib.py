@@ -48,7 +48,7 @@ SIGNATURES = {
     "maxpool_bwd_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "knn_tau_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "knn_tau_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "maxpool_tau_launch": [_P, _P, _P, _I, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
     "kpconv_fused_tau_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,

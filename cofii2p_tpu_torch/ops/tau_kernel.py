@@ -5,7 +5,9 @@ Counterpart of cofii2p_tpu/ops/tau_kernel.py.  :func:`banded_knn_tau_kernel`
 (csrc/knn_tau.cu, kernel #5; replaces banded_knn_tau_pallas) gives each
 query of a band tile the threshold tau = max(0.5 * (kth + nxt),
 kth * (1 + 1e-5) + 1e-12) from the kk-th and (kk+1)-th smallest band d2,
-bit-equal to the plain version ops/banded.py::banded_knn_tau.  Unlike the
+bit-equal to the plain version ops/banded.py::banded_knn_tau; the kernel
+takes its block (queries, warps, whether d2 is kept) from
+csrc/knn_tau_plan.cuh.  Unlike the
 TPU kernel it also takes dynamic window ``starts``, so the windowed tau of
 ``kpconv_knn_window_plan`` runs through it too.
 
@@ -20,9 +22,9 @@ import torch
 
 from cofii2p_tpu_torch.ops import cuda_lib
 from cofii2p_tpu_torch.ops.banded import band_plan, banded_knn_tau
-from cofii2p_tpu_torch.ops.kpconv_kernel import _check_cuda, _starts_arg, pick_tq
+from cofii2p_tpu_torch.ops.kpconv_kernel import _check_cuda, _starts_arg
 
-MAX_BAND = 16384  # band rows whose coordinates fit the kernel's shared memory
+MAX_BAND = 16384  # band rows whose coordinates fit the kernel's shared memory (kTauMaxBand)
 
 banded_knn_tau_plain = banded_knn_tau
 
@@ -47,7 +49,7 @@ def banded_knn_tau_kernel(q_points, s_points, k=128, tile=128, band_width=1024, 
     tau = torch.empty(b, m, dtype=torch.float32, device=q_points.device)
     err = cuda_lib.lib().knn_tau_launch(
         q_points.data_ptr(), s_points.data_ptr(), st.data_ptr(), tau.data_ptr(),
-        b, m, n, tile, num_tiles, band, pick_tq(tile, 32), min(k, band),
+        b, m, n, tile, num_tiles, band, min(k, band),
         cuda_lib.stream_of(q_points),
     )
     cuda_lib.check(err, "knn_tau")

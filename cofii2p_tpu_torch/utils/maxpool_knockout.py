@@ -1,10 +1,11 @@
-"""Time the banded maxpool's kernels by part on the card, with knock-out
-builds, and beside variants of their block plans: the forward band max
-(kernels #3 and #8), the tie count (#12), the k-NN routing (#15) and the
-radius routings (#13 on static bands, #14 on dynamic windows).
+"""Time the banded maxpool's kernels and the k-NN threshold by part on the
+card, with knock-out builds, and beside variants of their block plans: the
+forward band max (kernels #3 and #8), the tie count (#12), the k-NN routing
+(#15), the radius routings (#13 on static bands, #14 on dynamic windows)
+and the banded k-NN threshold (#5, ``--kernel tau``).
 
-    python -m cofii2p_tpu_torch.utils.maxpool_knockout [--tree DIR] [--kernel forward|count|route|radius ...]
-        [--path t7] [--path serve] [--reps 10] [--variant NAME=VALUE[,NAME=VALUE...] ...]
+    python -m cofii2p_tpu_torch.utils.maxpool_knockout [--tree DIR] [--kernel forward|count|route|radius|tau ...]
+        [--path t7] [--path serve] [--reps 10] [--variant NAME=VALUE[,NAME=VALUE...] ...] [--cut]
 
 ``--tree`` is the root of a checkout of the port (default: this one); its
 package is copied under ``build/knockout/`` of this checkout: as it is
@@ -12,7 +13,8 @@ package is copied under ``build/knockout/`` of this checkout: as it is
 membership tests knocked out (``no_member``) and once for each
 ``--variant``, which sets ``constexpr int`` constants of
 ``csrc/maxpool_plan.cuh`` (e.g. ``kPoolThreads=256,kPoolWalk=2``), each
-built on its own.  Each copy then replays the calls of the wrappers of the
+built on its own.  ``--kernel tau`` has parts of its own, ``no_hist`` and
+``no_d2``, and its variants set constants of ``csrc/knn_tau_plan.cuh``.  Each copy then replays the calls of the wrappers of the
 ``--kernel``s (default ``forward``) on the given paths with
 ``utils/kernel_bench.py --only`` (this checkout's, copied in), and the
 per-path totals of each wrapper are printed side by side.  A copy patches
@@ -46,6 +48,19 @@ picks it):
    query and gives every query of the tile its word, so every query of
    such a tile is listed (the walk grows).  A static block walks every
    tile of its window so; a window block its one tile.
+ - ``csrc/knn_tau.cu`` (#5).  Before its redesign (a radix select of
+   8-bit digits over d2 recomputed on every pass): no_hist drops the
+   ``__match_any_sync`` and the shared atomic of each 32-row step, keeping
+   the walk, the d2 and the prefix test; no_d2 makes d2_of the square of
+   the row's distance to an index made from the query (``_ROW_VALUE``)
+   instead of the coordinates' squared distance.  After it (d2 once into a
+   slab of bits, ballot-counted bins): no_hist drops the five ballots of
+   each counting step (a lane tests its own row's bits, so its count still
+   estimates its bin's), keeping the walk, the candidate ballot and the
+   popcounts; no_d2 puts the same stand-in in the one d2 pass.  --cut
+   adds builds whose queries stop after the d2 walk (to_d2), after the
+   first counting pass (to_pass1) and after the compaction into the list
+   (to_compact), each writing a dummy tau: the time up to each phase.
 The knocked-out builds compute wrong results: their times are the only
 output.  Needs a CUDA device.
 """
@@ -71,9 +86,37 @@ SOURCES = {
     "route": ("banded_maxpool_backward_tau_fused", ("maxpool_route.cu", "maxpool_bwd.cu")),
     "radius": ("banded_maxpool_backward_fused,banded_maxpool_backward_dyn_fused",
                ("maxpool_bwd.cu", "maxpool_route.cu")),
+    "tau": ("banded_knn_tau_kernel", ("knn_tau.cu",)),
 }
 
 PARTS = ("no_loads", "no_member")
+TAU_PARTS = ("no_hist", "no_d2")
+# --cut: builds of #5 whose queries stop after a phase (the d2 walk, the
+# first counting pass, the compaction into the list) and write a dummy tau
+TAU_CUTS = ("to_d2", "to_pass1", "to_compact")
+# what each part's time difference is the cost of
+PART_LABELS = {"no_loads": "loads", "no_member": "membership", "no_hist": "histogram", "no_d2": "d2",
+               "to_d2": "after it", "to_pass1": "after it", "to_compact": "after it"}
+_STOP = "if (lane == 0) tau[(long)b * M + m0 + q] = __uint_as_float(s.hi); __syncwarp(); continue;"
+
+
+def parts_of(kernels, cut=False):
+    """The knock-outs of the kernels timed together: tau's (with --cut, its
+    cut-short builds too), or the maxpool's."""
+    if "tau" in kernels and len(kernels) > 1:
+        raise SystemExit("--kernel tau is timed on its own")
+    if cut and "tau" not in kernels:
+        raise SystemExit("--cut times --kernel tau")
+    return (TAU_PARTS + (TAU_CUTS if cut else ())) if "tau" in kernels else PARTS
+
+
+def plan_header(kernels):
+    return "knn_tau_plan.cuh" if "tau" in kernels else "maxpool_plan.cuh"
+
+# no_d2's stand-in for a query's d2 to row j: the square of j's distance to
+# an index made from the query, so that the select meets ties and a spread
+# of values as with real clouds, without the coordinates' loads and math
+_ROW_VALUE = "__int2float_rn(j - (int)(__float_as_uint(qc[0]) & 255u))"
 
 # (source, part) -> [(text, replacement)]; each text must occur once.
 # maxpool.cu's and maxpool_bwd.cu's apply to the CUDA-core kernels of a
@@ -106,7 +149,36 @@ KNOCKOUTS = {
         "no_member": [("for (int r = r_lo; r < r_hi; ++r) {", "for (int r = r_lo; r < (q == 0 ? r_hi : r_lo); ++r) {"),
                       ("return bits_s[jq];", "return bits_s[jq - jq % tile];")],
     },
+    # the CUDA-core radix select of a tree before the redesign of #5
+    "knn_tau.cu:match_any": {
+        "no_hist": [("const unsigned peers = __match_any_sync(kFull, bin);\n"
+                     "        if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));",
+                     "if (bin == kk + 4096) hist[lane] = j;")],
+        "no_d2": [("return cofii2p::membership_d2(qc, band_s[3 * j], band_s[3 * j + 1], band_s[3 * j + 2]);",
+                   "const float dj = " + _ROW_VALUE + ";\n  return __fmul_rn(dj, dj);")],
+    },
+    "knn_tau.cu": {
+        "no_hist": [("for (int i = 0; i < 5; ++i) m &= __ballot_sync(kFull, (t & bit[i]) != 0u) ^ x[i];",
+                     "for (int i = 0; i < 5; ++i) m &= ((t & bit[i]) != 0u ? kFull : 0u) ^ x[i];")],
+        "no_d2": [("auto d2_once = [&](int j) { return d2_bits(j); };",
+                   "auto d2_once = [&](int j) {\n      const float dj = " + _ROW_VALUE
+                   + ";\n      return __float_as_uint(__fmul_rn(dj, dj));\n    };")],
+        "to_d2": [("Range s{0u, __reduce_max_sync(kFull, mx), kk, band};",
+                   "Range s{0u, __reduce_max_sync(kFull, mx), kk, band};\n    " + _STOP)],
+        "to_pass1": [("      choose_bin(cnt, lane, kFirst, s);\n    }\n",
+                      "      choose_bin(cnt, lane, kFirst, s);\n    }\n    " + _STOP + "\n")],
+        "to_compact": [("      n = compact(band_walk, list, kList);\n",
+                        "      n = compact(band_walk, list, kList);\n      " + _STOP + "\n")],
+    },
 }
+
+
+def knockout_edits(src: str, text: str, part: str):
+    """The edits of ``part`` for a source's text: csrc/knn_tau.cu before
+    its redesign is told apart by its call of ``__match_any_sync``."""
+    if src == "knn_tau.cu" and "__match_any_sync(kFull" in text:
+        src = "knn_tau.cu:match_any"
+    return KNOCKOUTS[src][part]
 
 
 def kernel_source(csrc: str, kernel: str) -> str:
@@ -143,7 +215,7 @@ def _rewrite(path: str, edit) -> None:
         fh.write(text)
 
 
-def make_copy(tree: str, variant: str, kernels=("forward",)) -> str:
+def make_copy(tree: str, variant: str, kernels=("forward",), cut=False) -> str:
     """This variant's copy of the tree's package, the sources of
     ``kernels`` patched; returns its root."""
     dst = os.path.join(_ROOT, "build", "knockout", re.sub(r"[^\w]", "_", variant))
@@ -155,11 +227,12 @@ def make_copy(tree: str, variant: str, kernels=("forward",)) -> str:
     shutil.copytree(os.path.join(tree, disp), os.path.join(dst, disp))
     shutil.copy(os.path.join(_PKG, "utils", "kernel_bench.py"), os.path.join(dst, "cofii2p_tpu_torch", "utils"))
     csrc = os.path.join(dst, "cofii2p_tpu_torch", "csrc")
-    if variant in PARTS:
+    if variant in parts_of(kernels, cut):
         for src in dict.fromkeys(kernel_source(csrc, k) for k in kernels):
-            _rewrite(os.path.join(csrc, src), lambda text, src=src: patch(text, KNOCKOUTS[src][variant]))
+            _rewrite(os.path.join(csrc, src),
+                     lambda text, src=src: patch(text, knockout_edits(src, text, variant)))
     elif variant != "full":
-        _rewrite(os.path.join(csrc, "maxpool_plan.cuh"), lambda text: patch(text, plan_edits(text, variant)))
+        _rewrite(os.path.join(csrc, plan_header(kernels)), lambda text: patch(text, plan_edits(text, variant)))
     return dst
 
 
@@ -177,18 +250,20 @@ def totals(out: str) -> dict:
 
 
 def main():
-    ap = argparse.ArgumentParser(description="time kernels #3/#8, #12, #13/#14 and #15 by part with knock-out builds")
+    ap = argparse.ArgumentParser(description="time kernels #3/#8, #12, #13/#14, #15 and #5 by part with knock-out builds")
     ap.add_argument("--tree", default=_ROOT, help="root of the checkout whose kernels are timed")
     ap.add_argument("--kernel", action="append", choices=sorted(SOURCES), help="kernels timed (default forward)")
     ap.add_argument("--path", action="append", choices=("serve", "train", "fast", "knn_train", "t7", "val"))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--variant", action="append", default=[], help="NAME=VALUE[,NAME=VALUE...] of the plan header")
+    ap.add_argument("--cut", action="store_true", help="with --kernel tau: also builds cut short after each phase")
     args = ap.parse_args()
     kernels = args.kernel or ["forward"]
     paths = args.path or ["t7", "serve"]
     only = ",".join(SOURCES[k][0] for k in kernels)
-    variants = ("full", *PARTS, *args.variant)
-    roots = {v: make_copy(os.path.abspath(args.tree), v, kernels) for v in variants}
+    parts = parts_of(kernels, args.cut)
+    variants = ("full", *parts, *args.variant)
+    roots = {v: make_copy(os.path.abspath(args.tree), v, kernels, args.cut) for v in variants}
     build = ["-c", "from cofii2p_tpu_torch.ops import cuda_lib; cuda_lib.build()"]
     with ThreadPoolExecutor(len(variants)) as ex:
         for v, res in zip(variants, ex.map(lambda v: run(roots[v], build), variants)):
@@ -208,11 +283,10 @@ def main():
             last = res.stdout.strip().splitlines()[-1]
         for name in sorted(row["full"]):
             n, full, bound = row["full"][name]
-            no_loads, no_member = row["no_loads"][name][1], row["no_member"][name][1]
-            parts = (f", no_loads {no_loads:.3f} (loads {full - no_loads:.3f}), no_member {no_member:.3f} "
-                     f"(membership {full - no_member:.3f})")
+            split = "".join(f", {p} {row[p][name][1]:.3f} ({PART_LABELS[p]} {full - row[p][name][1]:.3f})"
+                            for p in parts)
             others = "".join(f", {v} {row[v][name][1]:.3f}" for v in args.variant)
-            print(f"{path:9s} {name:33s} {n} calls: full {full:.3f} ms{parts}{others}, bound {bound:.3f}")
+            print(f"{path:9s} {name:33s} {n} calls: full {full:.3f} ms{split}{others}, bound {bound:.3f}")
         print(last)
 
 

@@ -51,6 +51,7 @@ import torch
 from cofii2p_tpu_torch.ops.attention_kernel import fused_attention, fused_attention_plain
 from cofii2p_tpu_torch.ops.banded import (
     _load_kernel_points,
+    band_plan,
     banded_pair_count,
     dynamic_band_starts,
     dynamic_knn_starts,
@@ -95,7 +96,7 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
 )
 from cofii2p_tpu_torch.ops.pyramid import morton_order
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_fused, banded_residual_fused_plain
-from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel, banded_knn_tau_plain
+from cofii2p_tpu_torch.ops.tau_kernel import MAX_BAND, banded_knn_tau_kernel, banded_knn_tau_plain
 from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
 # by its bare name, as pytest puts tests/ on the path: on the card another
 # installed package may be named ``tests``
@@ -590,22 +591,34 @@ def test_autograd_functions_match_plain_autograd(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n,k,width,windowed", [
     (1024, 2048, 128, 256, False), (1024, 2048, 16, 256, True), (2048, 2048, 128, 2304, False),
-    (128, 128, 128, 256, False),
+    (128, 128, 128, 256, False), (256, 16384, 128, 8192, False), (1024, 1024, 128, 192, "constant"),
+    (384, 384, 16, 128, "constant"),
 ])
 def test_knn_tau_kernel_bitequal_to_plain(cuda_device, m, n, k, width, windowed):
-    """Static bands, windows, a band of the whole level with k = band, and
-    duplicated points whose k-th and (k+1)-th distances tie."""
+    """Static bands, windows, a band of the whole level with k = band, a
+    band of MAX_BAND rows (the kernel's mode that recomputes d2 on every
+    walk), constant points (every d2 +0 ties: tau 1e-12), and duplicated
+    points whose k-th and (k+1)-th distances tie; the same bits on two
+    launches."""
     q, s = clouds(m, n, cuda_device)
     s, _ = tied_features(s, 1, cuda_device)
     if m == n:
         q = s
+    if windowed == "constant":
+        q = s = torch.full_like(s, 3.25)
     starts = None
-    if windowed:
+    if windowed is True:
         starts = dynamic_knn_starts(q, s, banded_knn_tau_plain(q, s, k, 128, 2 * width), 128, width, 1)
     ref = banded_knn_tau_plain(q, s, k, 128, width, starts)
     got = banded_knn_tau_kernel(q, s, k, 128, width, starts)
+    again = banded_knn_tau_kernel(q, s, k, 128, width, starts)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if n == 16384:
+        assert band_plan(m, n, 128, width)[2] == MAX_BAND
+    if windowed == "constant":
+        assert (ref == torch.tensor(1e-12, dtype=torch.float32)).all()
 
 
 @pytest.mark.gpu
