@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and `.t7` eval paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training and `.t7` eval paths, and its
+on-disk KITTI and nuScenes data paths, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,serve --requests 3
+    python3 chip_smoke.py --phases device,build,kitti,nuscenes
 
 Phases (each prints one or more lines; any failure exits non-zero before
 the last line):
@@ -120,6 +121,24 @@ the last line):
   train_knn  as train with kpconv_impl=banded_knn: the same checks, and
            every tau KPConv and tau maxpool of a B=1 step with per-layer
            rotated and jittered kernel points replayed likewise.
+  kitti    the on-disk KITTI path: a fixture tree in the real layout
+           (cofii2p_tpu_torch/data/fixtures.py; 376x1241 images, 7 x 120000
+           clouds; 16 frames of sequence 00, 8 of 09 and 4 of 10) written
+           from --seed into a temporary directory; the loader alone over
+           its 24 val frames (frames/s); `train kitti data_path=<tree>
+           --steps 4 --batch_size 8` through train.main (launches per step
+           as PER_STEP, finite losses, steps 2-4 fed by the loader in
+           frames/s); then `eval_all <its checkpoint> kitti
+           data_path=<tree> --batch_size 8` through eval_all.main (3
+           batches, launches per batch as PER_EVAL_FORWARD, the dumps and
+           error arrays, finite poses wherever RANSAC succeeded; batches
+           2-3 in frames/s, with and without the wait for the loader).
+  nuscenes the same on a nuScenes tree in the builder's layout (320x640
+           images, 4 x 50000 camera-frame clouds, 16 frames a split) at
+           NuScenesConfig (160x320 crops, intensity-only features): the
+           loader alone, 2 train steps (the has_normals=False supervision)
+           and `eval_all none nuscenes data_path=<tree>` on seeded random
+           weights.
 The second line before the last is the JSON kernel summary, then the
 nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
 Long logs go to chiprun_out/.
@@ -128,6 +147,7 @@ Long logs go to chiprun_out/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -138,11 +158,18 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "serve_resfuse", "train", "t7", "train_fast",
-          "train_knn")
+          "train_knn", "kitti", "nuscenes")
 BATCH = 8
 REQUESTS = 10  # timed requests a serve phase: a request is ~0.13 s, where host jitter of a few ms shows
 TRAIN_STEPS = 4
 EVAL_BATCHES = 3  # batches of the fp32 static eval reading; the first is a warm-up
+# the real-data phases' fixture trees: KITTI sequence 00's 16 frames make
+# 32 train samples (4 steps of 8), sequences 09 and 10 24 val samples (3
+# eval batches); nuScenes 16 frames a split (2 steps, 2 eval batches)
+KITTI_FIXTURE_FRAMES = {0: 16, 9: 8, 10: 4}
+NUSCENES_FIXTURE_FRAMES = {"train": 16, "test": 16}
+NUSCENES_TRAIN_STEPS = 2
+FIXTURE_POINTS = {"kitti": 120000, "nuscenes": 50000}  # a frame's cloud, as the datasets' sweeps hold
 PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0}
 # with kpconv_residual_fused: the 4 strided blocks' conv and shortcut in one
 # pass each (all fit residual_fused_fits in bf16 at w192), the other 10 convs
@@ -1314,6 +1341,81 @@ def replay_step_layers(cfg, device, seed, windows_only):
     return check_layer_grads(calls, device, expect)
 
 
+@contextlib.contextmanager
+def recording_train_steps(steps, captured):
+    """train.main's steps timed: train_lib.make_train_step patched so that
+    each step syncs the device before and after and appends (seconds,
+    launches, metrics, end time) to ``steps``; ``captured`` gets the model,
+    the config, has_normals and the parameters before the first step."""
+    import torch
+
+    from cofii2p_tpu_torch import train_lib
+
+    make_step = train_lib.make_train_step
+
+    def recording_make_train_step(cfg, model, optimizer, has_normals=True):
+        captured["model"], captured["cfg"], captured["has_normals"] = model, cfg, has_normals
+        captured["before"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_step(cfg, model, optimizer, has_normals)
+
+        def timed_step(host_batch, draws):
+            torch.cuda.synchronize()
+            before = read_launches()
+            t0 = time.perf_counter()
+            metrics = step(host_batch, draws)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            per_step = {k: v - before[k] for k, v in read_launches().items()}
+            steps.append((t1 - t0, per_step, {k: float(v) for k, v in metrics.items()}, t1))
+            return metrics
+
+        return timed_step
+
+    train_lib.make_train_step = recording_make_train_step
+    try:
+        yield
+    finally:
+        train_lib.make_train_step = make_step
+
+
+@contextlib.contextmanager
+def recording_eval_batches(batches, workdir):
+    """eval_all.main's batches timed, run from ``workdir`` (the error
+    arrays go to the working directory): eval_all.make_eval_body patched
+    so that each batch syncs the device before and after and appends
+    (seconds, launches, outputs, frames, end time) to ``batches``."""
+    import torch
+
+    from cofii2p_tpu_torch.evaluation import eval_all
+
+    make_body = eval_all.make_eval_body
+
+    def recording_make_eval_body(cfg_, model, has_normals=True):
+        run = make_body(cfg_, model, has_normals)
+
+        def timed(hb, generator=None, draws=None):
+            torch.cuda.synchronize()
+            before = read_launches()
+            t0 = time.perf_counter()
+            out = run(hb, generator, draws)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            per = {k: v - before[k] for k, v in read_launches().items()}
+            batches.append((t1 - t0, per, out, hb["pc"].shape[0], t1))
+            return out
+
+        return timed
+
+    cwd = os.getcwd()
+    eval_all.make_eval_body = recording_make_eval_body
+    try:
+        os.chdir(workdir)
+        yield
+    finally:
+        eval_all.make_eval_body = make_body
+        os.chdir(cwd)
+
+
 TRAIN_PHASES = {
     # phase: (extra train.main arguments, launches per step, kernel_bench path, what it runs)
     "train": ([], PER_STEP, "train", "fp32 static bands"),
@@ -1340,36 +1442,15 @@ def train(device, seed, smi_line, phase="train"):
     extra, per_step_want, bench_path, what = TRAIN_PHASES[phase]
     steps, frames_total = [], 40
     captured = {}
-    make_step = train_lib.make_train_step
-
-    def recording_make_train_step(cfg, model, optimizer, has_normals=True):
-        captured["model"], captured["cfg"] = model, cfg
-        captured["before"] = {n: p.detach().clone() for n, p in model.named_parameters()}
-        step = make_step(cfg, model, optimizer, has_normals)
-
-        def timed_step(host_batch, draws):
-            torch.cuda.synchronize()
-            before = read_launches()
-            t0 = time.perf_counter()
-            metrics = step(host_batch, draws)
-            torch.cuda.synchronize()
-            per_step = {k: v - before[k] for k, v in read_launches().items()}
-            steps.append((time.perf_counter() - t0, per_step, {k: float(v) for k, v in metrics.items()}))
-            return metrics
-
-        return timed_step
 
     root = tempfile.mkdtemp(prefix=f"{phase}_", dir=OUT_DIR)
     argv = ["kitti", f"root_path={root}", f"val_freq={TRAIN_STEPS}", "--synthetic", "--steps", str(TRAIN_STEPS),
             "--batch_size", str(BATCH), "--synthetic_frames", str(frames_total), *extra]
-    train_lib.make_train_step = recording_make_train_step
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    try:
+    with recording_train_steps(steps, captured):
         save_dir = train_cli.main(argv)
-    finally:
-        train_lib.make_train_step = make_step
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()  # every step and the validation at the last one
@@ -1380,7 +1461,7 @@ def train(device, seed, smi_line, phase="train"):
         raise PhaseError(f"{phase}: train.main ran {captured['cfg']}, expected {cfg}")
     if len(steps) != TRAIN_STEPS:
         raise PhaseError(f"{phase}: {len(steps)} steps ran, expected {TRAIN_STEPS}")
-    for i, (_, per_step, metrics) in enumerate(steps):
+    for i, (_, per_step, metrics, _) in enumerate(steps):
         for name, want in per_step_want.items():
             if per_step[name] != want:
                 raise PhaseError(f"{phase}: step {i} launched {name} {per_step[name]} times, expected {want}")
@@ -1409,11 +1490,11 @@ def train(device, seed, smi_line, phase="train"):
     del model, restored, captured
     torch.cuda.empty_cache()
 
-    ms = [dt * 1e3 for dt, _, _ in steps]
+    ms = [dt * 1e3 for dt, *_ in steps]
     steady = sum(ms[1:]) / max(len(ms) - 1, 1)
     say(phase, f"{TRAIN_STEPS} steps x {BATCH} frames ({cfg.img_H}x{cfg.img_W}, {cfg.num_pc} pts), {what}, "
         "through train.main "
-        f"in {wall:.1f} s: losses " + " -> ".join(f"{m['loss']:.4f}" for _, _, m in steps)
+        f"in {wall:.1f} s: losses " + " -> ".join(f"{m['loss']:.4f}" for _, _, m, _ in steps)
         + f", grad norm {steps[-1][2]['grad_norm']:.3f}; ms/step " + ", ".join(f"{x:.1f}" for x in ms)
         + f" (steady {steady:.1f} ms, {BATCH * 1e3 / steady:.2f} frames/s); peak {peak:.2f} GiB; "
         + "launches/step " + ", ".join(f"{k} {v}" for k, v in steps[-1][1].items() if v)
@@ -1741,11 +1822,9 @@ def check_resfuse_fp32(device, seed):
 def t7(device, seed, smi_line):
     """The `.t7` eval path through its CLI entry point, then one B=1 forward
     of the same model through the kernels and through the plain versions."""
-    import glob
     import shutil
     import tempfile
 
-    import numpy as np
     import torch
 
     from cofii2p_tpu_torch.config import KITTIConfig
@@ -1761,61 +1840,20 @@ def t7(device, seed, smi_line):
         export_t7(t7_model(cfg, seed, "cpu"), ckpt)
 
         batches = []
-        make_body = eval_all.make_eval_body
-
-        def recording_make_eval_body(cfg_, model, has_normals=True):
-            run = make_body(cfg_, model, has_normals)
-
-            def timed(hb, generator=None, draws=None):
-                torch.cuda.synchronize()
-                before = read_launches()
-                t0 = time.perf_counter()
-                out = run(hb, generator, draws)
-                torch.cuda.synchronize()
-                per = {k: v - before[k] for k, v in read_launches().items()}
-                batches.append((time.perf_counter() - t0, per, out, hb["pc"].shape[0]))
-                return out
-
-            return timed
-
         argv = [ckpt, "kitti", "--synthetic", "--synthetic_frames", str(frames_total), "--batch_size", str(BATCH),
                 "--eval_path", root]
-        cwd = os.getcwd()
-        eval_all.make_eval_body = recording_make_eval_body
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        try:
-            os.chdir(root)  # the error arrays go to the working directory
+        with recording_eval_batches(batches, root):
             r_errs, _ = eval_all.main(argv)
-        finally:
-            eval_all.make_eval_body = make_body
-            os.chdir(cwd)
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
 
-        dumps = sorted(glob.glob(os.path.join(root, "kitti", "*", "*.npy")))
-        if len(dumps) != frames_total:
-            raise PhaseError(f"t7: {len(dumps)} per-frame dumps, expected {frames_total}")
-        for path in dumps:
-            keys = set(np.load(path, allow_pickle=True).item())
-            if keys != T7_DUMP_KEYS:
-                raise PhaseError(f"t7: {os.path.basename(path)} holds {sorted(keys)}, expected {sorted(T7_DUMP_KEYS)}")
-        for arr in ("kitti_t_error.npy", "kitti_r_error.npy"):
-            if not os.path.exists(os.path.join(root, arr)):
-                raise PhaseError(f"t7: {arr} was not written")
-        if len(batches) != frames_total // BATCH:
-            raise PhaseError(f"t7: {len(batches)} batches ran, expected {frames_total // BATCH}")
-        for i, (_, per, out, _) in enumerate(batches):
-            for name, want in PER_T7_FORWARD.items():
-                if per[name] != want:
-                    raise PhaseError(f"t7: batch {i} launched {name} {per[name]} times, expected {want}")
-            finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
-            if not finite[out.success].all():
-                raise PhaseError(f"t7: batch {i} has a non-finite pose where RANSAC succeeded")
+        dumps = check_eval_all_run("t7", batches, PER_T7_FORWARD, frames_total, root, "kitti")
         fps = batches[1][3] / batches[1][0]
-        succ = sum(int(o.success.sum()) for _, _, o, _ in batches)
+        succ = sum(int(o.success.sum()) for _, _, o, *_ in batches)
         say("t7", "eval_all.main on ref.t7 (seeded weights, per-layer kernel points), "
-            f"{frames_total} frames x B={BATCH}, fp32 {cfg.kpconv_impl}, attention {cfg.attention}: {len(dumps)} "
+            f"{frames_total} frames x B={BATCH}, fp32 {cfg.kpconv_impl}, attention {cfg.attention}: {dumps} "
             "dumps with the reference's keys and both error arrays; second batch "
             f"{batches[1][0] * 1e3:.1f} ms ({fps:.2f} frames/s), first {batches[0][0] * 1e3:.1f} ms; "
             f"peak {peak:.2f} GiB; launches/forward "
@@ -1884,6 +1922,159 @@ def check_t7_forward(cfg, device, seed):
     return (f"B=1 fp32 forward, kernels vs kpconv_kernel='xla': 9 pair taus bit-equal; 14 tau KPConvs on their own "
             f"inputs, counts equal, worst rel {worst:.2e}; FPN outputs rel "
             + ", ".join(f"{e:.2e}" for e in errs))
+
+
+def loader_reading(dataset, cfg):
+    """The loader alone, no model: BatchLoader over the dataset, B = 8, the
+    configuration's worker threads, every batch of one epoch; returns
+    (frames/s, seconds, frames)."""
+    from cofii2p_tpu_torch.data.loader import BatchLoader
+
+    t0 = time.perf_counter()
+    count = sum(len(b["index"]) for b in BatchLoader(dataset, BATCH, num_workers=cfg.num_workers).epoch(0))
+    dt = time.perf_counter() - t0
+    return count / dt, dt, count
+
+
+def check_fed_steps(phase, steps, n_steps):
+    """Per-step launch counts of a loader-fed train.main run against
+    PER_STEP, finite metrics; returns the line of its readings: the steps'
+    own ms, and frames/s of steps 2..n fed by the loader (end of step 1 to
+    end of step n, the wait for each batch included)."""
+    if len(steps) != n_steps:
+        raise PhaseError(f"{phase}: {len(steps)} steps ran, expected {n_steps}")
+    for i, (_, per_step, metrics, _) in enumerate(steps):
+        for name, want in PER_STEP.items():
+            if per_step[name] != want:
+                raise PhaseError(f"{phase}: step {i} launched {name} {per_step[name]} times, expected {want}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise PhaseError(f"{phase}: step {i} metrics not finite: {metrics}")
+    steady = sum(dt for dt, *_ in steps[1:]) * 1e3 / (n_steps - 1)
+    fed = BATCH * (n_steps - 1) / (steps[-1][3] - steps[0][3])
+    return (f"{n_steps} steps x {BATCH} frames through train.main: losses "
+            + " -> ".join(f"{m['loss']:.4f}" for _, _, m, _ in steps) + "; ms/step "
+            + ", ".join(f"{dt * 1e3:.1f}" for dt, *_ in steps) + f"; steps 2-{n_steps} {steady:.1f} ms "
+            f"({BATCH * 1e3 / steady:.2f} frames/s), fed by the loader {fed:.2f} frames/s; launches/step "
+            + ", ".join(f"{k} {v}" for k, v in steps[-1][1].items() if v))
+
+
+def check_eval_all_run(phase, batches, per_forward, n_frames, workdir, dataset):
+    """What an eval_all.main run with ``--eval_path <workdir>`` from
+    ``workdir`` must leave: every frame in full batches of BATCH, launches
+    per batch as ``per_forward``, finite poses wherever RANSAC succeeded,
+    one dump a frame with the reference's keys and both error arrays;
+    returns the number of dumps."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    if len(batches) != n_frames // BATCH or any(b[3] != BATCH for b in batches):
+        raise PhaseError(f"{phase}: batches of {[b[3] for b in batches]} frames ran, expected {n_frames // BATCH} "
+                         f"of {BATCH}")
+    for i, (_, per, out, *_) in enumerate(batches):
+        for name, want in per_forward.items():
+            if per[name] != want:
+                raise PhaseError(f"{phase}: batch {i} launched {name} {per[name]} times, expected {want}")
+        finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
+        if not finite[out.success].all():
+            raise PhaseError(f"{phase}: batch {i} has a non-finite pose where RANSAC succeeded")
+    dumps = sorted(glob.glob(os.path.join(workdir, dataset, "*", "*.npy")))
+    if len(dumps) != n_frames:
+        raise PhaseError(f"{phase}: {len(dumps)} per-frame dumps, expected {n_frames}")
+    for path in dumps:
+        keys = set(np.load(path, allow_pickle=True).item())
+        if keys != T7_DUMP_KEYS:
+            raise PhaseError(f"{phase}: {os.path.basename(path)} holds {sorted(keys)}, expected {sorted(T7_DUMP_KEYS)}")
+    for arr in (f"{dataset}_t_error.npy", f"{dataset}_r_error.npy"):
+        if not os.path.exists(os.path.join(workdir, arr)):
+            raise PhaseError(f"{phase}: {arr} was not written")
+    return len(dumps)
+
+
+def fed_eval_line(batches):
+    """The readings of a loader-fed eval_all.main run: the median ms of
+    batches 2.. and their frames/s fed by the loader (end of batch 1 to
+    end of the last, the wait for each batch included)."""
+    ms = sorted(b[0] * 1e3 for b in batches[1:])
+    med = (ms[(len(ms) - 1) // 2] + ms[len(ms) // 2]) / 2
+    fed = BATCH * (len(batches) - 1) / (batches[-1][4] - batches[0][4])
+    succ = sum(int(b[2].success.sum()) for b in batches)
+    return ("batches " + ", ".join(f"{b[0] * 1e3:.1f}" for b in batches) + f" ms, median of batches "
+            f"2-{len(batches)} {med:.1f} ms ({BATCH * 1e3 / med:.2f} frames/s), fed by the loader {fed:.2f} "
+            "frames/s; launches/batch "
+            + ", ".join(f"{k} {batches[-1][1][k]}" for k in PER_EVAL_FORWARD if batches[-1][1][k])
+            + f"; RANSAC success {succ}/{BATCH * len(batches)}, finite poses")
+
+
+def real_data(device, seed, smi_line, dataset):
+    """The on-disk data path: a fixture tree in the real layout at the real
+    sizes (cofii2p_tpu_torch/data/fixtures.py), written from the seed into
+    a temporary directory; the loader alone over its val split; then
+    train.main and eval_all.main on it without --synthetic (kitti: 4
+    steps, val at step 4, and the trained checkpoint through eval_all;
+    nuscenes: 2 steps, which run the has_normals=False supervision, and
+    eval_all on seeded random weights), launches per step and per eval
+    batch as the synthetic paths' (PER_STEP, PER_EVAL_FORWARD)."""
+    import tempfile
+
+    import torch
+
+    from cofii2p_tpu_torch import native
+    from cofii2p_tpu_torch import train as train_cli
+    from cofii2p_tpu_torch.config import get_config
+    from cofii2p_tpu_torch.data import fixtures
+    from cofii2p_tpu_torch.evaluation import eval_all
+    from cofii2p_tpu_torch.train import build_dataset
+    from cofii2p_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    t0 = time.perf_counter()
+    native.lib()  # g++ builds the host ops on first use
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix=f"{dataset}_") as tmp:
+        tree = os.path.join(tmp, dataset)
+        t0 = time.perf_counter()
+        points = FIXTURE_POINTS[dataset]
+        if dataset == "kitti":
+            fixtures.write_kitti_tree(tree, seed, KITTI_FIXTURE_FRAMES, points)
+            n_steps, n_val, hw = TRAIN_STEPS, 2 * (KITTI_FIXTURE_FRAMES[9] + KITTI_FIXTURE_FRAMES[10]), \
+                fixtures.KITTI_IMAGE_HW
+        else:
+            fixtures.write_nuscenes_tree(tree, seed, NUSCENES_FIXTURE_FRAMES, points)
+            n_steps, n_val, hw = NUSCENES_TRAIN_STEPS, NUSCENES_FIXTURE_FRAMES["test"], fixtures.NUSCENES_IMAGE_HW
+        write_s = time.perf_counter() - t0
+        cfg = get_config(dataset).replace(data_path=tree)
+        fps, dt, count = loader_reading(build_dataset(dataset, cfg, "val", False), cfg)
+        say(dataset, f"fixture tree ({points}-point clouds, {hw[0]}x{hw[1]} images) written in {write_s:.1f} s, "
+            f"host ops built in {build_s:.1f} s; the loader alone (BatchLoader, B={BATCH}, {cfg.num_workers} threads, "
+            f"no model): {count} val frames in {dt:.2f} s, {fps:.2f} frames/s; card {smi_line}")
+
+        steps, captured = [], {}
+        argv = [dataset, f"data_path={tree}", f"root_path={tmp}", "--steps", str(n_steps), "--batch_size", str(BATCH)]
+        if dataset == "kitti":
+            argv.append(f"val_freq={n_steps}")
+        reset_launches()
+        with recording_train_steps(steps, captured):
+            save_dir = train_cli.main(argv)
+        if captured["has_normals"] != (dataset == "kitti"):
+            raise PhaseError(f"{dataset}: train.main ran has_normals={captured['has_normals']}")
+        say(dataset, check_fed_steps(dataset, steps, n_steps) + f"; card {smi_line}")
+        del captured
+        torch.cuda.empty_cache()
+
+        ckpt = latest_checkpoint(save_dir) if dataset == "kitti" else "none"
+        if ckpt is None:
+            raise PhaseError(f"{dataset}: no checkpoint under {save_dir}")
+        batches, workdir = [], os.path.join(tmp, "eval")
+        os.makedirs(workdir)
+        reset_launches()
+        with recording_eval_batches(batches, workdir):
+            eval_all.main([ckpt, dataset, f"data_path={tree}", "--batch_size", str(BATCH), "--eval_path", workdir])
+        dumps = check_eval_all_run(dataset, batches, PER_EVAL_FORWARD, n_val, workdir, dataset)
+        what = "the trained checkpoint" if dataset == "kitti" else "seeded random weights"
+        say(dataset, f"eval_all.main on {what}, {n_val} frames x B={BATCH}: {dumps} dumps and both error arrays; "
+            + fed_eval_line(batches) + f"; card {smi_line}")
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1957,6 +2148,9 @@ def main():
             if phase in phases:
                 trained = run(phase, train, device, args.seed, smi_line, phase)
                 launches.update({k: trained[k] for k in names})
+        for dataset in ("kitti", "nuscenes"):
+            if dataset in phases:
+                run(dataset, real_data, device, args.seed, smi_line, dataset)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

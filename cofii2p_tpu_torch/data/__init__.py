@@ -1,1 +1,2 @@
-"""Sample preparation on the device and numpy synthetic frames (torch)."""
+"""Host data (the KITTI and nuScenes loaders, numpy synthetic frames, fixture
+trees) and sample preparation on the device (torch)."""

@@ -1,6 +1,8 @@
 """Evaluation CLI (counterpart of cofii2p_tpu/evaluation/eval_all.py, with
 the same flags plus ``--device``):
 
+    python -m cofii2p_tpu_torch.evaluation.eval_all ref.t7 kitti data_path=/data/kitti_i2p --batch_size 8
+    python -m cofii2p_tpu_torch.evaluation.eval_all <port checkpoint> nuscenes data_path=/data/nuscenes_i2p
     python -m cofii2p_tpu_torch.evaluation.eval_all ref.t7 kitti --synthetic --batch_size 8
     python -m cofii2p_tpu_torch.evaluation.eval_all ref.t7 tiny --synthetic --device cpu   # tests
 
@@ -12,7 +14,9 @@ evaluation/calc_result.py and evaluation/ir_rmse.py read.
 ``<ckpt>`` is a reference ``.t7``/``.pth`` state dict (utils/checkpoint.py::
 import_t7, with the k-NN configuration of :func:`reference_ckpt_config`),
 one of the port's own training checkpoints, or ``none``/``random`` for
-seeded random weights.  Runs on the card (``--device cuda``, the default)
+seeded random weights.  The frames are the val split of the on-disk
+dataset under ``data_path`` (train.py::build_dataset), or synthetic ones
+with ``--synthetic``.  Runs on the card (``--device cuda``, the default)
 and raises when there is none; ``--device cpu`` runs the kernels' plain
 versions, for tests.
 """

@@ -2,9 +2,9 @@
 
 The JAX package generates the 15-point disposition deterministically and
 caches it in ``cofii2p_tpu/models/dispositions/k_015_3d.npy``, a tracked
-file.  The port reads that same file by path (importing ``cofii2p_tpu``
-would import JAX), so both packages convolve with bit-identical kernel
-points.
+file.  The port ships a byte-identical copy in its own
+``dispositions/`` beside this module, so both packages convolve with
+bit-identical kernel points and the port reads nothing of the JAX tree.
 """
 
 from __future__ import annotations
@@ -14,10 +14,7 @@ import os
 
 import numpy as np
 
-_DISPOSITIONS = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "cofii2p_tpu", "models", "dispositions",
-)
+_DISPOSITIONS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dispositions")
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,8 +24,7 @@ def kernel_dispositions(num_points: int = 15, dimension: int = 3) -> np.ndarray:
     path = os.path.join(_DISPOSITIONS, f"k_{num_points:03d}_{dimension}d.npy")
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"{path}: the port reads the JAX package's tracked disposition "
-            "file; only the shipped (15, 3) disposition exists"
+            f"{path}: only the shipped (15, 3) disposition exists"
         )
     return np.load(path)
 

@@ -1,13 +1,18 @@
 """Training CLI: ``python -m cofii2p_tpu_torch.train {kitti|nuscenes|tiny} [options]``
 (counterpart of cofii2p_tpu/train.py, with the same flags plus ``--device``).
 
+    python -m cofii2p_tpu_torch.train kitti data_path=/data/kitti_i2p
+    python -m cofii2p_tpu_torch.train nuscenes data_path=/data/nuscenes_i2p
     python -m cofii2p_tpu_torch.train kitti --synthetic --steps 4 --batch_size 8
     python -m cofii2p_tpu_torch.train kitti --synthetic --fast --steps 4 --batch_size 8
     python -m cofii2p_tpu_torch.train kitti --synthetic kpconv_impl=banded_knn --steps 4 --batch_size 8
     python -m cofii2p_tpu_torch.train tiny --synthetic --steps 2 --device cpu   # tests
 
-Runs on the card (``--device cuda``, the default) and raises when there is
-none; ``--device cpu`` runs the kernels' plain versions, for tests.
+``kitti`` reads the on-disk KITTI Odometry frames under ``data_path``
+(data/kitti.py), ``nuscenes`` the builder's frames (data/nuscenes.py,
+written by data/build_nuscenes.py); ``--synthetic`` needs no data.  Runs on
+the card (``--device cuda``, the default) and raises when there is none;
+``--device cpu`` runs the kernels' plain versions, for tests.
 ``--fast`` trains with the w256 dynamic windows of config.FAST_DYNAMIC_PLAN
 (``with_fast_windows``, after the overrides: an explicit window plan wins,
 and a ``banded_knn`` config is left alone).
@@ -37,9 +42,15 @@ def build_dataset(name: str, cfg, mode: str, synthetic: bool, length: int = 64):
         from cofii2p_tpu_torch.data.synthetic import SyntheticDataset
 
         return SyntheticDataset(cfg, mode, length=length)
-    raise NotImplementedError(
-        f"the {name!r} dataset loaders are not ported yet (ROADMAP queue 1 item 2); use --synthetic"
-    )
+    if name == "kitti":
+        from cofii2p_tpu_torch.data.kitti import KittiDataset
+
+        return KittiDataset(cfg, mode)
+    if name == "nuscenes":
+        from cofii2p_tpu_torch.data.nuscenes import NuScenesDataset
+
+        return NuScenesDataset(cfg, mode)
+    raise ValueError(name)
 
 
 def resolve_device(name: str) -> torch.device:

@@ -222,9 +222,11 @@ def make_copy(tree: str, variant: str, kernels=("forward",), cut=False) -> str:
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(tree, "cofii2p_tpu_torch"), os.path.join(dst, "cofii2p_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__", "build"))
-    # the kernel points the port reads by path
-    disp = os.path.join("cofii2p_tpu", "models", "dispositions")
-    shutil.copytree(os.path.join(tree, disp), os.path.join(dst, disp))
+    # a tree whose port has no kernel points of its own reads them from the
+    # JAX package's path: give it this port's (byte-identical) copy there
+    if not os.path.isdir(os.path.join(tree, "cofii2p_tpu_torch", "models", "dispositions")):
+        shutil.copytree(os.path.join(_PKG, "models", "dispositions"),
+                        os.path.join(dst, "cofii2p_tpu", "models", "dispositions"))
     shutil.copy(os.path.join(_PKG, "utils", "kernel_bench.py"), os.path.join(dst, "cofii2p_tpu_torch", "utils"))
     csrc = os.path.join(dst, "cofii2p_tpu_torch", "csrc")
     if variant in parts_of(kernels, cut):

@@ -6,7 +6,8 @@ under grad mode (its output would carry no autograd history), so
 gradients reach the kernels only through the autograd Functions, and each
 forward wrapper names the Function that differentiates through it; the
 Functions, too, take the plain versions for CPU tensors and never fall
-back for others; chip_smoke.py fails without a card."""
+back for others; chip_smoke.py fails without a card; no source imports
+OpenCV, and the package copied alone runs its host path."""
 
 import ast
 import ctypes
@@ -79,17 +80,62 @@ def test_importing_every_module_loads_no_jax():
     assert int(res.stdout.split()[-1]) >= 37  # 32 modules before training was ported
 
 
-@pytest.mark.parametrize("path", sorted(port_sources()), ids=lambda p: os.path.relpath(p, ROOT))
-def test_no_source_imports_jax_or_the_jax_package(path):
+def _imported_names(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
-        names = []
         if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
+            yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
-            names = [node.module]
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(port_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    for name in _imported_names(path):
+        assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("path", sorted(port_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_opencv(path):
+    """The card's machine has no OpenCV: the loaders resize with their own
+    numpy copy of its bilinear (data/kitti.py::resize_linear)."""
+    assert not any(name.split(".")[0] == "cv2" for name in _imported_names(path))
+
+
+def test_the_package_alone_runs_its_host_path(tmp_path):
+    """A copy of cofii2p_tpu_torch/ alone, imported from a process whose
+    cwd and sys.path hold that copy and nothing else of the repo, loads its
+    kernel points, builds and calls its host ops and reads a fixture
+    frame: the port reads no file of the JAX package."""
+    shutil.copytree(PKG, tmp_path / "cofii2p_tpu_torch", ignore=shutil.ignore_patterns("__pycache__"))
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        f"assert not any(p.startswith({ROOT!r}) for p in sys.path), sys.path\n"
+        "import numpy as np\n"
+        "import cofii2p_tpu_torch\n"
+        f"assert cofii2p_tpu_torch.__file__.startswith({str(tmp_path)!r})\n"
+        "from cofii2p_tpu_torch.models.kernel_points import load_kernel_points\n"
+        "kp = load_kernel_points(1.0)\n"
+        "assert kp.shape == (15, 3) and not kp[0].any()\n"
+        "from cofii2p_tpu_torch import native\n"
+        f"assert native.library_path().startswith({str(tmp_path)!r})\n"
+        "pts, _ = native.voxel_downsample(np.random.RandomState(0).rand(500, 3).astype(np.float32), None, 0.25)\n"
+        "assert 0 < len(pts) <= 64\n"
+        "from cofii2p_tpu_torch.config import TinyConfig\n"
+        "from cofii2p_tpu_torch.data.fixtures import write_kitti_tree\n"
+        "from cofii2p_tpu_torch.data.kitti import KittiDataset\n"
+        f"root = write_kitti_tree({str(tmp_path / 'kitti')!r}, 0, {{9: 1}}, points=3000)\n"
+        "frame = KittiDataset(TinyConfig(data_path=root), 'val')[0]\n"
+        "assert frame['img'].shape == (32, 64, 3) and frame['pc'].shape == (512, 3)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('cv2',)!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-I", "-c", code], cwd=tmp_path, capture_output=True, text=True, env=env)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    assert list((tmp_path / "build" / "cofii2p_tpu_torch").glob("libhost_ops_*.so"))
 
 
 def _inputs(device, dtype, grad):

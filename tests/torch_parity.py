@@ -54,7 +54,7 @@ def rel_err(a, ref) -> float:
     return float(np.max(np.abs(a - ref) / np.maximum(np.abs(ref), rms)))
 
 
-def jax_variables(jcfg, hb: dict, seed: int = 0):
+def jax_variables(jcfg, hb: dict, seed: int = 0, has_normals: bool = True):
     """Initialise the JAX CoFiI2P on one batch, then perturb every norm
     scale/bias and BatchNorm statistic so a mis-mapped weight shows up.
     Returns (model, params, batch_stats) as numpy trees."""
@@ -64,7 +64,7 @@ def jax_variables(jcfg, hb: dict, seed: int = 0):
     model = CoFiI2P(jcfg)
     batch = prepare_samples(
         jnp.asarray(hb["pc"]), jnp.asarray(hb["attrs"]), jnp.asarray(hb["P"]),
-        jnp.asarray(hb["K"]), jax.random.PRNGKey(0), jnp.asarray(hb["img"]), jcfg,
+        jnp.asarray(hb["K"]), jax.random.PRNGKey(0), jnp.asarray(hb["img"]), jcfg, has_normals=has_normals,
     )
     variables = jax.jit(model.init, static_argnames=("mode", "train"))(
         jax.random.PRNGKey(seed), batch, mode="train", train=True
@@ -180,7 +180,7 @@ def top2_gap(x, axis):
     return np.squeeze(top - below, axis=axis)
 
 
-def jax_test_mode(jcfg, jmodel, params, stats, jhb, rng, fpn=None):
+def jax_test_mode(jcfg, jmodel, params, stats, jhb, rng, fpn=None, has_normals=True):
     """The JAX model's test-mode outputs inside one make_eval_body call
     with key ``rng`` (its sample-prep key), and with ``fpn`` (a JAX
     KPConvFPN) also that FPN's outputs on the same batch, under "fpn"."""
@@ -188,7 +188,8 @@ def jax_test_mode(jcfg, jmodel, params, stats, jhb, rng, fpn=None):
 
     @jax.jit
     def run(params, stats, hb, rng):
-        batch = j_prepare(hb["pc"], hb["attrs"], hb["P"], hb["K"], jax.random.split(rng)[0], hb["img"], jcfg)
+        batch = j_prepare(hb["pc"], hb["attrs"], hb["P"], hb["K"], jax.random.split(rng)[0], hb["img"], jcfg,
+                          has_normals=has_normals)
         out = jmodel.apply({"params": params, "batch_stats": stats}, batch, mode="test", train=False)
         if fpn is not None:
             out["fpn"] = fpn.apply({"params": params["pc_encoder"]}, batch["feats"], batch["points"])
