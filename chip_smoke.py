@@ -6,6 +6,7 @@ on-disk KITTI and nuScenes data paths, on one NVIDIA GPU and check them.
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,serve --requests 3
     python3 chip_smoke.py --phases device,build,kitti,nuscenes
+    python3 chip_smoke.py --phases device,build,t7,t7_gather
 
 Phases (each prints one or more lines; any failure exits non-zero before
 the last line):
@@ -60,7 +61,10 @@ the last line):
            the card could take for the same work (the larger of bytes over
            3.35 TB/s and operations over the peak rate of their type); the
            fused KPConv and the attention also timed in fp32 (3xTF32), the
-           attention beside the library's fp32 attention
+           attention beside the library's fp32 attention; then every
+           KPConv kernel (#1 fp32 and bf16, #2, #6, #7, #9, #10, #11, #16)
+           again at K = 12 and K = 20 kernel points from the port's
+           generator, on its smallest shape, at the K = 15 gates
   fp32     the whole forward at B=1 in fp32 through the kernels and through
            the plain versions: FPN and transformer outputs agree
   grad     one fp32 train step at B=1 on a KITTI-scale frame through the
@@ -139,6 +143,30 @@ the last line):
            loader alone, 2 train steps (the has_normals=False supervision)
            and `eval_all none nuscenes data_path=<tree>` on seeded random
            weights.
+  t7_gather  the t7 phase's seeded ref.t7 through `eval_all ref.t7 kitti
+           --synthetic --batch_size 8 kpconv_impl=gather` (fp32, the k-NN
+           index maps built on the card, per-layer kernel points, fused
+           attention): 16 attention launches a forward and no other
+           kernel, the dumps and error arrays, finite poses wherever RANSAC
+           succeeded; ms and frames/s of the second batch, peak memory, the
+           13 k-NN map searches' time a batch (CUDA events) and its split
+           into the d2 chain, the k-th value and the tie pass; then the four
+           drift readings between one B=8 forward under gather and one
+           under banded_knn on the same weights, frames and draws (printed,
+           no limit).
+  train_gather  `train kitti --synthetic kpconv_impl=gather` for 2 steps at
+           B=8 through train.main (the largest of 4, 2, 1 that fits if B=8
+           does not): no kernel launched, finite losses, parameters moved,
+           a checkpoint; ms/step, frames/s, peak memory.
+  variants two bf16 B=8 serving requests through make_eval_body for each
+           of VARIANTS (linear attention, LayerNorm point blocks, centroid
+           windows, K = 20; span windows, K = 12): launches a forward as
+           fused_contraction_fits decides at that K, #4 only under
+           'pallas'; finite outputs and poses where RANSAC succeeded; ms a
+           request; then every kernel call of a third request held against
+           its plain version on its own inputs at the kernels phase's bf16
+           gates (#1 and #2 at K = 20 and 12 up to Cin 512 included, against
+           the bf16 plain version, which rounds as they do).
 The second line before the last is the JSON kernel summary, then the
 nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
 Long logs go to chiprun_out/.
@@ -158,7 +186,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "serve_resfuse", "train", "t7", "train_fast",
-          "train_knn", "kitti", "nuscenes")
+          "train_knn", "kitti", "nuscenes", "t7_gather", "train_gather", "variants")
 BATCH = 8
 REQUESTS = 10  # timed requests a serve phase: a request is ~0.13 s, where host jitter of a few ms shows
 TRAIN_STEPS = 4
@@ -215,6 +243,10 @@ PER_EVAL_FORWARD = {"kpconv_fused": 12, "kpconv_aggregate": 2, "maxpool": 4, "at
                     "kpconv_fused_tau": 0}
 PER_T7_FORWARD = {"knn_tau": 9, "kpconv_fused_tau": 12, "kpconv_aggregate_tau": 2, "maxpool_tau": 4, "attention": 16,
                   "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0, "residual_fused": 0}
+# the variants phase's serving configurations (the serving one otherwise)
+VARIANTS = (("linear attention, LayerNorm point blocks, centroid windows, K = 20",
+             dict(attention="linear", norm="ln", kpconv_dynamic_center="centroid", kernel_size=20)),
+            ("span windows, K = 12", dict(kpconv_dynamic_center="span", kernel_size=12)))
 T7_DUMP_KEYS = {"GT_P", "pred_P", "K", "fine_xy", "corr_mask", "object_points", "superpoints_score"}
 KERNELS = {
     "kpconv_fused": ("cofii2p_tpu_torch/csrc/kpconv_mma.cuh", "cofii2p_tpu/ops/kpconv_kernel.py:1007"),
@@ -236,6 +268,11 @@ KERNELS = {
     "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_route.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
     "residual_fused": ("cofii2p_tpu_torch/csrc/residual_fused.cu", "cofii2p_tpu/ops/residual_kernel.py:386"),
 }
+# the gather `.t7` forward (kpconv_impl=gather): the 16 attention calls and no
+# other kernel; each batch builds 13 k-NN maps (5 self, 4 subsampling, 4
+# upsampling)
+PER_T7_GATHER_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16}
+MAP_SEARCHES = 13
 # the path whose launch counts the summary reports for each kernel
 SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention")
 TRAIN_KERNELS = ("kpconv_aggregate", "kpconv_transpose", "maxpool_count", "maxpool_bwd")
@@ -522,6 +559,7 @@ def check_kernels(device, gen, tally):
     check_knn_kernels(device, gen, tally, cfg)
     check_window_and_tau_backward_kernels(device, gen, tally, cfg)
     check_residual_kernel(device, gen, tally, cfg)
+    check_kernel_sizes(device, cfg)
 
 
 def check_training_kernels(device, gen, tally, cfg):
@@ -1075,6 +1113,165 @@ def check_residual_kernel(device, gen, tally, cfg):
             f"bit-equal to plain and #3, conv bit-equal to #1, rel {err:.2e} vs plain; kernel {k_ms:.3f} ms, "
             f"pair #1+#3 {pair_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
         del fm, fa, out, ref, mp, ref_mp, p_out, p_mp
+
+
+def check_kernel_sizes(device, cfg):
+    """Every KPConv kernel at K = 12 and 20 kernel points, with the port's
+    generated dispositions (models/kernel_points.py), on its smallest
+    shape of the K = 15 checks, from a generator of its own, at the K = 15
+    gates: #1 at lvl0 C32 static (fp32 rel <= 1e-3 and bf16 <= 5e-2 against
+    the fp32 plain version, counts equal in both), #2 and #9 at lvl0 C32
+    (counts equal, rel <= 1e-3; rel <= 1e-4 and the same bits on two
+    launches), #7 and #6 at encoder1_2's lvl0 C32 with jittered kernel
+    points and the pair's tau (counts equal, fp32 rel <= 1e-4, bf16 <=
+    5e-2), #10 at encoder3_1's w256 windows (rel <= 1e-4, the scatter
+    bit-equal on the kernel's stack, the same bits on two launches), #11 at
+    lvl0 C32 (rel <= 1e-4, the same bits on two launches) and #16 at
+    encoder2_1's bf16 static shape (counts and shortcut equal to plain and
+    to #1 + #3, the conv bit-equal to #1, rel <= 5e-2).  Timed, not tallied:
+    the summary's sums are the K = 15 paths'."""
+    import torch
+
+    from cofii2p_tpu_torch.ops.banded import _load_kernel_points, dynamic_band_starts, kernel_reach
+    from cofii2p_tpu_torch.ops.kpconv_kernel import (
+        band_scatter_plain,
+        banded_kpconv_aggregate_fused,
+        banded_kpconv_aggregate_plain,
+        banded_kpconv_aggregate_tau,
+        banded_kpconv_aggregate_tau_plain,
+        banded_kpconv_fused,
+        banded_kpconv_fused_plain,
+        banded_kpconv_fused_tau,
+        banded_kpconv_fused_tau_plain,
+        banded_kpconv_transpose_dyn_plain,
+        banded_kpconv_transpose_fused,
+        banded_kpconv_transpose_plain,
+        banded_kpconv_transpose_tau_fused,
+        banded_kpconv_transpose_tau_plain,
+        transpose_dyn_with_stack,
+    )
+    from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_fused, banded_residual_fused_plain
+    from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_plain
+    from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
+    from cofii2p_tpu_torch.utils.kernel_bench import time_ms, unfused_pair
+
+    b, r0, s0, plan, kk = BATCH, cfg.init_radius, cfg.init_sigma, cfg.kpconv_band_plan, cfg.neighbor_num
+    gen = torch.Generator().manual_seed(20)
+    levels, idents = pyramid_with_duplicates(cfg.pyramid_sizes, b, gen, device)
+    q0 = levels[0]
+
+    def fail(msg):
+        raise PhaseError(f"kernel sizes: {msg}")
+
+    for K in (12, 20):
+        lines = []
+        # #1, lvl0 C32 static, fp32 and bf16
+        f = torch.randn(b, q0.shape[1], 32, generator=gen).to(device)
+        w = (torch.randn(K, 32, 32, generator=gen) / 32**0.5).to(device)
+        args = (f, q0, q0, w, r0, s0, K, 128, plan[0], torch.float32, None)
+        ref, ref_cnt = banded_kpconv_fused_plain(*args)
+        out, cnt = banded_kpconv_fused(*args)
+        fb = f.to(torch.bfloat16)
+        args16 = (fb,) + args[1:-2] + (torch.bfloat16, None)
+        out16, cnt16 = banded_kpconv_fused(*args16)
+        cnt16_ref = banded_kpconv_fused_plain(*args16)[1]
+        torch.cuda.synchronize()
+        e32, e16 = rel_err(out, ref), rel_err(out16, ref)
+        if not torch.equal(cnt, ref_cnt) or not torch.equal(cnt16, cnt16_ref) or e32 > 1e-3 or e16 > 5e-2:
+            fail(f"K={K} kpconv_fused lvl0 C32: counts equal {torch.equal(cnt, ref_cnt)}/"
+                 f"{torch.equal(cnt16, cnt16_ref)}, fp32 rel {e32:.3e} (<= 1e-3), bf16 rel {e16:.3e} (<= 5e-2)")
+        lines.append(f"#1 fp32 rel {e32:.2e} bf16 rel {e16:.2e} ({time_ms(lambda: banded_kpconv_fused(*args16)):.3f} "
+                     f"ms bf16, {time_ms(lambda: banded_kpconv_fused(*args)):.3f} ms fp32)")
+        # #2 and #9, lvl0 C32 on the static band
+        a2 = (f, q0, q0, r0, s0, K, 128, plan[0])
+        ref, ref_cnt = banded_kpconv_aggregate_plain(*a2)
+        out, cnt = banded_kpconv_aggregate_fused(*a2)
+        torch.cuda.synchronize()
+        e2 = rel_err(out, ref)
+        if not torch.equal(cnt, ref_cnt) or e2 > 1e-3:
+            fail(f"K={K} kpconv_aggregate lvl0 C32: counts equal {torch.equal(cnt, ref_cnt)}, rel {e2:.3e} (<= 1e-3)")
+        g = torch.randn(b, q0.shape[1], K, 32, generator=gen).to(device)
+        a9 = (g, q0, q0, r0, s0, K, 128, plan[0])
+        ref = banded_kpconv_transpose_plain(*a9)
+        out, out2 = banded_kpconv_transpose_fused(*a9), banded_kpconv_transpose_fused(*a9)
+        torch.cuda.synchronize()
+        e9 = rel_err(out, ref)
+        if e9 > 1e-4 or not torch.equal(out, out2):
+            fail(f"K={K} kpconv_transpose lvl0 C32: rel {e9:.3e} (<= 1e-4), repeatable {torch.equal(out, out2)}")
+        lines.append(f"#2 rel {e2:.2e} ({time_ms(lambda: banded_kpconv_aggregate_fused(*a2)):.3f} ms), #9 rel "
+                     f"{e9:.2e} ({time_ms(lambda: banded_kpconv_transpose_fused(*a9)):.3f} ms)")
+        del ref, out, out2, g
+        # #7 and #6 (and #11), encoder1_2 lvl0 C32 under k-NN membership
+        tau = banded_knn_tau_plain(q0, q0, kk, 128, plan[0])
+        kp = jittered_kernel_points(torch.tensor(_load_kernel_points(r0, K), dtype=torch.float32), gen).to(device)
+        ft = torch.gather(torch.randn(b, q0.shape[1], 32, generator=gen).to(device), 1,
+                          idents[0][..., None].expand(-1, -1, 32))
+        for name, kern, plain, targs in (
+                ("kpconv_fused_tau", banded_kpconv_fused_tau, banded_kpconv_fused_tau_plain,
+                 (ft, q0, q0, w, tau, kp, r0, s0, K, 128, plan[0])),
+                ("kpconv_aggregate_tau", banded_kpconv_aggregate_tau, banded_kpconv_aggregate_tau_plain,
+                 (ft, q0, q0, tau, kp, r0, s0, K, 128, plan[0]))):
+            ref, ref_cnt = plain(*targs)
+            out, cnt = kern(*targs)
+            t16 = (ft.to(torch.bfloat16),) + targs[1:] + (torch.bfloat16,)
+            out16, cnt16 = kern(*t16)
+            cnt16_ref = plain(*t16)[1]
+            torch.cuda.synchronize()
+            e32, e16 = rel_err(out, ref), rel_err(out16, ref)
+            if not torch.equal(cnt, ref_cnt) or not torch.equal(cnt16, cnt16_ref) or e32 > 1e-4 or e16 > 5e-2:
+                fail(f"K={K} {name} lvl0 C32: counts equal {torch.equal(cnt, ref_cnt)}/"
+                     f"{torch.equal(cnt16, cnt16_ref)}, fp32 rel {e32:.3e} (<= 1e-4), bf16 rel {e16:.3e} (<= 5e-2)")
+            lines.append(f"{'#7' if 'fused' in name else '#6'} fp32 rel {e32:.2e} bf16 rel {e16:.2e} "
+                         f"({time_ms(lambda: kern(*targs)):.3f} ms)")
+        g = torch.randn(b, q0.shape[1], K, 32, generator=gen).to(device)
+        a11 = (g, q0, q0, tau, kp, r0, s0, K, 128, plan[0])
+        ref = banded_kpconv_transpose_tau_plain(*a11)
+        out, out2 = banded_kpconv_transpose_tau_fused(*a11), banded_kpconv_transpose_tau_fused(*a11)
+        torch.cuda.synchronize()
+        e11 = rel_err(out, ref)
+        if e11 > 1e-4 or not torch.equal(out, out2):
+            fail(f"K={K} kpconv_transpose_tau lvl0 C32: rel {e11:.3e} (<= 1e-4), repeatable {torch.equal(out, out2)}")
+        lines.append(f"#11 rel {e11:.2e} ({time_ms(lambda: banded_kpconv_transpose_tau_fused(*a11)):.3f} ms)")
+        del ref, out, out2, g, ft
+        # #10, encoder3_1's w256 windows (lvl2 <- lvl1, C64)
+        q, s, r, sg = levels[2], levels[1], r0 * 2, s0 * 2
+        st = dynamic_band_starts(q, s, kernel_reach(r, sg, K), 128, 256, "best", max(1, s.shape[1] // 2560))
+        g = torch.randn(b, q.shape[1], K, 64, generator=gen).to(device)
+        a10 = (g, q, s, st, r, sg, K, 128, 256)
+        ref = banded_kpconv_transpose_dyn_plain(*a10)
+        out, stack = transpose_dyn_with_stack(*a10)
+        out2, _ = transpose_dyn_with_stack(*a10)
+        scat = band_scatter_plain(stack, st, s.shape[1])
+        torch.cuda.synchronize()
+        e10 = rel_err(out, ref)
+        if e10 > 1e-4 or not torch.equal(out, scat) or not torch.equal(out, out2):
+            fail(f"K={K} kpconv_transpose_dyn w256: rel {e10:.3e} (<= 1e-4), scatter bit-equal "
+                 f"{torch.equal(out, scat)}, repeatable {torch.equal(out, out2)}")
+        lines.append(f"#10 rel {e10:.2e} ({time_ms(lambda: transpose_dyn_with_stack(*a10)):.3f} ms)")
+        del ref, out, out2, stack, scat, g
+        # #16, encoder2_1's bf16 static shape (Cin 128, Cmid 32)
+        q, s = levels[1], levels[0]
+        rows = idents[0][..., None]
+        fm = torch.gather(torch.randn(b, q0.shape[1], 128, generator=gen).to(device), 1,
+                          rows.expand(-1, -1, 128)).to(torch.bfloat16)
+        fa = torch.gather(torch.randn(b, q0.shape[1], 32, generator=gen).to(device), 1,
+                          rows.expand(-1, -1, 32)).to(torch.bfloat16)
+        a16 = (fm, fa, w, q, s, r0, s0, K, 128, plan[0], torch.bfloat16, None)
+        out, cnt, mp = banded_residual_fused(*a16)
+        ref, ref_cnt, ref_mp = banded_residual_fused_plain(*a16)
+        p_out, p_cnt, p_mp = unfused_pair(*a16)
+        torch.cuda.synchronize()
+        e16 = rel_err(out, ref)
+        ok = (torch.equal(cnt, ref_cnt) and torch.equal(cnt, p_cnt) and torch.equal(mp, ref_mp)
+              and torch.equal(mp, p_mp) and torch.equal(out, p_out) and e16 <= 5e-2)
+        if not ok:
+            fail(f"K={K} residual_fused enc2_1 bf16: counts equal to plain {torch.equal(cnt, ref_cnt)} and to #1 "
+                 f"{torch.equal(cnt, p_cnt)}, shortcut bit-equal to plain {torch.equal(mp, ref_mp)} and to #3 "
+                 f"{torch.equal(mp, p_mp)}, conv bit-equal to #1 {torch.equal(out, p_out)}, rel {e16:.3e} (<= 5e-2)")
+        lines.append(f"#16 rel {e16:.2e}, bit-equal to #1 + #3 ({time_ms(lambda: banded_residual_fused(*a16)):.3f} "
+                     "ms)")
+        del fm, fa, out, ref, mp, ref_mp, p_out, p_mp
+        say("kernels", f"K={K} kernel points, B={b}, every gate of K = 15 met: " + "; ".join(lines))
 
 
 def frames(cfg, count, device, start=0):
@@ -1683,6 +1880,19 @@ def serve_outputs(model, batch, cfg):
                 score=out["coarse_pc_score"].float())
 
 
+def drift_readings(ref, got):
+    """tools/window_drift.py's four readings between two serve_outputs:
+    coarse-argmax drift, selection drift, fine-cell drift among the
+    superpoints either selects, max score drift; and that count."""
+    either = ref["mask"] | got["mask"]
+    n_sel = max(int(either.sum()), 1)
+    moved = (ref["fine_xy"] - got["fine_xy"]).abs().amax(-1) > 1e-6
+    return dict(argmax=float((ref["argmax"] != got["argmax"]).float().mean()),
+                selection=float((ref["mask"] != got["mask"]).float().mean()),
+                fine_cell=float((moved & either).sum()) / n_sel,
+                score=float((ref["score"] - got["score"]).abs().max())), n_sel
+
+
 def check_serve_drift(cfg, model, hb, device, seed):
     """tools/window_drift.py's four readings between one bf16 B=8 serving
     forward through the kernels and the same weights, frames and draws
@@ -1720,13 +1930,7 @@ def check_serve_drift(cfg, model, hb, device, seed):
     del plain
     if plain_launches != launches or launches["kpconv_fused"] != PER_FORWARD["kpconv_fused"]:
         raise PhaseError(f"drift: launches {launches} through the kernels, {plain_launches} after the plain forward")
-    either = ref["mask"] | got["mask"]
-    n_sel = max(int(either.sum()), 1)
-    moved = (ref["fine_xy"] - got["fine_xy"]).abs().amax(-1) > 1e-6
-    drift = dict(argmax=float((ref["argmax"] != got["argmax"]).float().mean()),
-                 selection=float((ref["mask"] != got["mask"]).float().mean()),
-                 fine_cell=float((moved & either).sum()) / n_sel,
-                 score=float((ref["score"] - got["score"]).abs().max()))
+    drift, n_sel = drift_readings(ref, got)
     over = {k: v for k, v in drift.items() if v > SERVE_DRIFT_LIMITS[k]}
     line = (f"drift of a B={BATCH} forward, kernels vs plain versions (same weights, frames, draws; {n_sel} "
             f"superpoints selected by either): coarse-argmax {drift['argmax']:.4f}, selection "
@@ -1922,6 +2126,347 @@ def check_t7_forward(cfg, device, seed):
     return (f"B=1 fp32 forward, kernels vs kpconv_kernel='xla': 9 pair taus bit-equal; 14 tau KPConvs on their own "
             f"inputs, counts equal, worst rel {worst:.2e}; FPN outputs rel "
             + ", ".join(f"{e:.2e}" for e in errs))
+
+
+KNN_PARTS = ("sq_dist_fma", "_kth_value", "_take_lowest")  # ops/knn.py: d2 chain, torch.topk, tie pass
+
+
+@contextlib.contextmanager
+def timed_knn(events, parts):
+    """The pyramid's k-NN searches (ops/pyramid.py's knn and
+    knn_index_order) timed by CUDA events: each call appends its (start,
+    end) events to ``events``, and within it each call of a KNN_PARTS
+    function of ops/knn.py appends its own to ``parts[name]``."""
+    import importlib
+
+    import torch
+
+    from cofii2p_tpu_torch.ops import pyramid
+
+    knn_mod = importlib.import_module("cofii2p_tpu_torch.ops.knn")  # the package exports knn, the function
+
+    originals = [(pyramid, name, getattr(pyramid, name)) for name in ("knn", "knn_index_order")]
+    originals += [(knn_mod, name, getattr(knn_mod, name)) for name in KNN_PARTS]
+    inside = [False]
+
+    def timed(fn, sink, search):
+        def call(*a, **kw):
+            if not search and not inside[0]:
+                return fn(*a, **kw)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            inside[0] = inside[0] or search
+            try:
+                out = fn(*a, **kw)
+            finally:
+                inside[0] = inside[0] and not search
+            end.record()
+            sink.append((start, end))
+            return out
+
+        return call
+
+    for mod, name, fn in originals:
+        search = mod is pyramid
+        setattr(mod, name, timed(fn, events if search else parts.setdefault(name, []), search))
+    try:
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def t7_gather(device, seed, smi_line):
+    """`eval_all <ref.t7> kitti ... kpconv_impl=gather` through its CLI entry
+    point on the t7 phase's seeded checkpoint, then the drift between one
+    B = 8 forward under gather and one under banded_knn."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cofii2p_tpu_torch.config import KITTIConfig, apply_overrides
+    from cofii2p_tpu_torch.evaluation import eval_all
+    from cofii2p_tpu_torch.utils.checkpoint import export_t7
+    from cofii2p_tpu_torch.utils.kernel_bench import t7_model
+
+    frames_total, overrides = 16, ["kpconv_impl=gather"]
+    knn_cfg = eval_all.reference_ckpt_config(KITTIConfig(), [], device)
+    cfg = eval_all.reference_ckpt_config(apply_overrides(KITTIConfig(), overrides), overrides, device)
+    root = tempfile.mkdtemp(prefix="t7_gather_", dir=OUT_DIR)
+    try:
+        ckpt = os.path.join(root, "ref.t7")
+        export_t7(t7_model(knn_cfg, seed, "cpu"), ckpt)  # the t7 phase's checkpoint, byte for byte
+        batches, events, parts = [], [], {}
+        argv = [ckpt, "kitti", "--synthetic", "--synthetic_frames", str(frames_total), "--batch_size", str(BATCH),
+                "--eval_path", root, *overrides]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with recording_eval_batches(batches, root), timed_knn(events, parts):
+            r_errs, _ = eval_all.main(argv)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.synchronize()
+        dumps = check_eval_all_run("t7_gather", batches, PER_T7_GATHER_FORWARD, frames_total, root, "kitti")
+        if len(events) != MAP_SEARCHES * len(batches):
+            raise PhaseError(f"t7_gather: {len(events)} k-NN map searches in {len(batches)} batches, expected "
+                             f"{MAP_SEARCHES} a batch")
+        knn_ms = [sum(a.elapsed_time(b) for a, b in events[i * MAP_SEARCHES:(i + 1) * MAP_SEARCHES])
+                  for i in range(len(batches))]
+        split = {}  # the second batch's share of each part (every batch makes the same calls)
+        for name in KNN_PARTS:
+            per = len(parts.get(name, [])) // len(batches)
+            if per == 0 or per * len(batches) != len(parts[name]):
+                raise PhaseError(f"t7_gather: {len(parts.get(name, []))} calls of ops/knn.py's {name} in "
+                                 f"{len(batches)} batches")
+            split[name] = sum(a.elapsed_time(b) for a, b in parts[name][per:2 * per])
+        ms = batches[1][0] * 1e3
+        succ = sum(int(o.success.sum()) for _, _, o, *_ in batches)
+        say("t7_gather", f"eval_all.main on ref.t7 with kpconv_impl=gather (seeded weights, per-layer kernel points), "
+            f"{frames_total} frames x B={BATCH}, fp32, attention {cfg.attention}: {dumps} dumps with the reference's "
+            f"keys and both error arrays; second batch {ms:.1f} ms ({BATCH * 1e3 / ms:.2f} frames/s), first "
+            f"{batches[0][0] * 1e3:.1f} ms; the {MAP_SEARCHES} k-NN map searches (CUDA events) "
+            + ", ".join(f"{x:.1f}" for x in knn_ms) + f" ms a batch ({knn_ms[1] / ms:.1%} of the second; of its "
+            f"{knn_ms[1]:.1f} ms the d2 chain {split['sq_dist_fma']:.1f}, torch.topk's k-th value "
+            f"{split['_kth_value']:.1f}, the tie pass {split['_take_lowest']:.1f}, the rest "
+            f"{knn_ms[1] - sum(split.values()):.1f}); peak "
+            f"{peak:.2f} GiB; launches/forward attention {batches[1][1]['attention']}, every other kernel 0; RANSAC "
+            f"success {succ}/{frames_total} ({len(r_errs)} errors written); card {smi_line}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("t7_gather", gather_drift(cfg, knn_cfg, device, seed))
+
+
+def gather_drift(cfg, knn_cfg, device, seed):
+    """serve_outputs' four drift readings between one B = 8 fp32 forward
+    of the `.t7` model under gather and one under banded_knn (kernels #5-#8
+    and #4), on the same weights, frames and draws: what the banded k-NN
+    plan costs at KITTI scale.  Printed, with no limit."""
+    import torch
+
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+    from cofii2p_tpu_torch.utils.kernel_bench import t7_model
+
+    hb = frames(cfg, BATCH, device)
+    draws = make_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device)
+    outs, launches, states = {}, {}, {}
+    for name, c in (("gather", cfg), ("banded_knn", knn_cfg)):
+        model = t7_model(c, seed, device)
+        states[name] = {k: v.sum().item() for k, v in model.state_dict().items()}
+        batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], c, draws["perms"])
+        with torch.no_grad():
+            reset_launches()
+            outs[name] = serve_outputs(model, batch, c)
+            torch.cuda.synchronize()
+            launches[name] = read_launches()
+        del model, batch
+    if states["gather"] != states["banded_knn"]:
+        raise PhaseError("t7_gather drift: the two models' weights differ")
+    for name, want in (("gather", PER_T7_GATHER_FORWARD), ("banded_knn", PER_T7_FORWARD)):
+        bad = {k: launches[name][k] for k, v in want.items() if launches[name][k] != v}
+        if bad:
+            raise PhaseError(f"t7_gather drift: the {name} forward launched {bad}, expected {want}")
+    drift, n_sel = drift_readings(outs["gather"], outs["banded_knn"])
+    return (f"drift of a B={BATCH} fp32 forward, gather vs banded_knn (kernels #5-#8; same weights, frames, draws; "
+            f"{n_sel} superpoints selected by either): coarse-argmax {drift['argmax']:.4f}, selection "
+            f"{drift['selection']:.4f}, fine-cell (selected) {drift['fine_cell']:.4f}, max score {drift['score']:.5f}")
+
+
+def train_gather(device, seed, smi_line):
+    """`train kitti --synthetic kpconv_impl=gather` for 2 steps through
+    train.main at B = 8, or at the largest of 4, 2, 1 that fits when B = 8
+    runs out of memory: no kernel launched, finite losses, parameters
+    moved, a checkpoint written; ms a step, frames/s and peak memory."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cofii2p_tpu_torch import train as train_cli
+    from cofii2p_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    steps_n, refused = 2, []
+    for bs in (BATCH, 4, 2, 1):
+        steps, captured = [], {}
+        root = tempfile.mkdtemp(prefix="train_gather_", dir=OUT_DIR)
+        argv = ["kitti", f"root_path={root}", "val_freq=1000", "--synthetic", "--steps", str(steps_n),
+                "--batch_size", str(bs), "--synthetic_frames", str(steps_n * bs), "kpconv_impl=gather"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            with recording_train_steps(steps, captured):
+                save_dir = train_cli.main(argv)
+        except torch.cuda.OutOfMemoryError:
+            refused.append((bs, torch.cuda.max_memory_allocated() / 2**30))
+            shutil.rmtree(root, ignore_errors=True)
+            continue
+        break
+    else:
+        raise PhaseError(f"train_gather: out of memory at every batch size: {refused}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    if len(steps) != steps_n or captured["cfg"].kpconv_impl != "gather":
+        raise PhaseError(f"train_gather: {len(steps)} steps of {captured['cfg'].kpconv_impl}, expected {steps_n} of "
+                         "gather")
+    for i, (_, per_step, metrics, _) in enumerate(steps):
+        launched = {k: v for k, v in per_step.items() if v}
+        if launched:
+            raise PhaseError(f"train_gather: step {i} launched {launched}; the gather path runs no kernel")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise PhaseError(f"train_gather: step {i} metrics not finite: {metrics}")
+    model = captured["model"]
+    moved = sum(int(not torch.equal(p.detach(), captured["before"][n])) for n, p in model.named_parameters())
+    path = latest_checkpoint(save_dir)
+    shutil.rmtree(root, ignore_errors=True)
+    del model, captured
+    torch.cuda.empty_cache()
+    if moved == 0 or path is None:
+        raise PhaseError(f"train_gather: {moved} parameter tensors moved, checkpoint {path}")
+    ms = [dt * 1e3 for dt, *_ in steps]
+    cut = (f"; B = {BATCH} ran out of memory (peak at the failure " + ", ".join(f"B={b}: {p:.2f} GiB" for b, p in refused)
+           + f"), cut to B = {bs}") if refused else ""
+    say("train_gather", f"{steps_n} steps x {bs} frames, fp32 gather (k = 128 maps, kernel points shared per level), "
+        f"through train.main: losses " + " -> ".join(f"{m['loss']:.4f}" for _, _, m, _ in steps)
+        + "; ms/step " + ", ".join(f"{x:.1f}" for x in ms) + f" ({bs * 1e3 / ms[-1]:.2f} frames/s at the second); "
+        f"peak {peak:.2f} GiB; no kernel launched; {moved} parameter tensors moved, checkpoint "
+        f"{os.path.basename(path)}{cut}; card {smi_line}")
+
+
+def check_recorded_calls(calls):
+    """Each kernel call a bf16 serving forward made, replayed on its own
+    inputs through the kernel and its plain version, at the kernels phase's
+    bf16 gates: #1 and #2 counts equal to and rel <= 5e-2 against the bf16
+    plain version, which rounds as the kernel does (#16's gate there; both
+    distances from the fp32 plain version are printed, not gated: on these
+    activations bf16's own rounding exceeds the 5e-2 that the phase's
+    synthetic features meet); #3 bit-equal; #4 within bf16's rounding of
+    the fp32 plain version plus ATTN_BF16_EXCESS (the phase's abs <= 2e-2
+    is for its synthetic inputs' magnitudes, so it is printed, not gated).
+    Returns a line; fails on the first call over a gate."""
+    import inspect
+
+    import torch
+
+    from cofii2p_tpu_torch.ops.attention_kernel import full_attention
+    from cofii2p_tpu_torch.utils.kernel_bench import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    seen = {}  # name -> (calls, worst reading, widest C)
+    far = {}  # #1 and #2: the worst distances of the kernel and of the bf16 plain version from the fp32 plain
+    with torch.no_grad():
+        for name, a, kw in calls:
+            _, kern, plain = wrappers[name]
+            arg = inspect.signature(kern).bind(*a, **kw)
+            arg.apply_defaults()
+            arg = dict(arg.arguments)
+            if name in ("banded_kpconv_fused", "banded_kpconv_aggregate_fused"):
+                cin = arg["s_feats"].shape[-1]
+                where = f"{name} Cin {cin} M {arg['q_points'].shape[1]} N {arg['s_points'].shape[1]} " \
+                        f"K {arg['kernel_size']}"
+                out, cnt = kern(**arg)
+                ref, cnt_ref = plain(**arg)
+                ref32 = plain(**{**arg, "s_feats": arg["s_feats"].float(), "dtype": torch.float32})[0]
+                torch.cuda.synchronize()
+                err, e32, p32 = rel_err(out, ref), rel_err(out, ref32), rel_err(ref, ref32)
+                if not torch.equal(cnt, cnt_ref) or err > 5e-2:
+                    raise PhaseError(f"{where} {arg['dtype']}: counts equal {torch.equal(cnt, cnt_ref)}, rel "
+                                     f"{err:.3e} against the bf16 plain version (<= 5e-2); from the fp32 plain "
+                                     f"version the kernel {e32:.3e}, the bf16 plain version {p32:.3e}")
+                w32, wp32 = far.get(name, (0.0, 0.0))
+                far[name] = (max(w32, e32), max(wp32, p32))
+            elif name == "banded_maxpool_fused":
+                cin = arg["s_feats"].shape[-1]
+                out, ref = kern(**arg), plain(**arg)
+                err = float((out != ref).sum())
+                if err:
+                    raise PhaseError(f"{name} C {cin} M {arg['q_points'].shape[1]}: {err:.0f} mismatches")
+            elif name == "fused_attention":
+                q, k, v = arg["q"], arg["k"], arg["v"]
+                cin = q.shape[-1]
+                out = kern(q, k, v)
+                err = (out.float() - full_attention(q.float(), k.float(), v.float())).abs().max().item()
+                excess = bf16_excess(out, full_attention(q, k, v))
+                if excess > ATTN_BF16_EXCESS:
+                    raise PhaseError(f"attention q {tuple(q.shape)}: abs {err:.2e}, beyond bf16's rounding "
+                                     f"{excess:.2e} (<= {ATTN_BF16_EXCESS:.0e})")
+            else:
+                raise PhaseError(f"{name} is not on the serving forward's path")
+            n, worst, wide = seen.get(name, (0, 0.0, 0))
+            seen[name] = (n + 1, max(worst, err), max(wide, cin))
+    what = {"banded_kpconv_fused": ("#1", "rel"), "banded_kpconv_aggregate_fused": ("#2", "rel"),
+            "banded_maxpool_fused": ("#3", "mismatches"), "fused_attention": ("#4", "abs")}
+    return "each call against its plain version on its own inputs: " + "; ".join(
+        f"{what[k][0]} x{n} (widest C {wide}) worst {what[k][1]} {worst:.2e}"
+        + (f" (from the fp32 plain version: kernel {far[k][0]:.2e}, bf16 plain {far[k][1]:.2e})" if k in far else "")
+        for k, (n, worst, wide) in seen.items())
+
+
+def variants(device, seed, smi_line):
+    """Two bf16 serving requests at B = 8 through make_eval_body for each
+    configuration of VARIANTS (the serving configuration otherwise): the
+    launches per forward follow JAX's dispatch (fused_contraction_fits at
+    the configuration's K decides #1 against #2 plus a matmul; #4 under
+    'pallas' only), finite outputs, finite poses wherever RANSAC
+    succeeded; ms a request.  Then every kernel call of a third request on
+    the first request's frames is held against its plain version on its
+    own inputs (check_recorded_calls)."""
+    import torch
+
+    from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body
+    from cofii2p_tpu_torch.models.kpconv import KPConv
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.ops.kpconv_kernel import fused_contraction_fits
+    from cofii2p_tpu_torch.utils.convert import randomize
+    from cofii2p_tpu_torch.utils.kernel_bench import recording, serve_config
+
+    for what, over in VARIANTS:
+        cfg = serve_config().replace(**over)
+        model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(device).eval()
+        convs = [m.weights.shape[1:] for m in model.pc_encoder.modules() if isinstance(m, KPConv)]
+        fits = sum(fused_contraction_fits(cfg.kernel_size, ci, co, cfg.kpconv_tile, 2) for ci, co in convs)
+        want = {name: 0 for name in KERNELS}
+        want.update(kpconv_fused=fits, kpconv_aggregate=len(convs) - fits, maxpool=4,
+                    attention=16 if cfg.attention == "pallas" else 0)
+        run = make_eval_body(cfg, model)
+        gen = torch.Generator(device).manual_seed(seed)
+        ms, succ, calls = [], 0, []
+        for i in range(2):
+            hb = frames(cfg, BATCH, device, start=i * BATCH)
+            torch.cuda.synchronize()
+            before = read_launches()
+            t0 = time.perf_counter()
+            out = run(hb, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per = {k: v - before[k] for k, v in read_launches().items()}
+            if per != want:
+                raise PhaseError(f"variants, {what}: request {i} launched {per}, expected {want}")
+            for field, val in out._asdict().items():
+                if field not in ("R", "t") and val.is_floating_point() and not torch.isfinite(val).all():
+                    raise PhaseError(f"variants, {what}: request {i} field {field} has non-finite values")
+            finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
+            if not finite[out.success].all():
+                raise PhaseError(f"variants, {what}: request {i} has a non-finite pose where RANSAC succeeded")
+            succ += int(out.success.sum())
+        say("variants", f"{what}: 2 bf16 requests x {BATCH} frames (160x512, 20480 pts) through make_eval_body: "
+            + ", ".join(f"{x:.1f}" for x in ms) + " ms a request; launches/forward "
+            + ", ".join(f"{k} {v}" for k, v in want.items() if v) + f", every other kernel 0; RANSAC success "
+            f"{succ}/{2 * BATCH}, finite poses; card {smi_line}")
+        with recording(calls):  # a third request, whose launches the recorder counts
+            run(frames(cfg, BATCH, device), gen)
+        torch.cuda.synchronize()
+        if len(calls) != sum(want.values()):
+            raise PhaseError(f"variants, {what}: {len(calls)} kernel calls recorded, {sum(want.values())} launched")
+        try:
+            say("variants", f"{what}: " + check_recorded_calls(calls))
+        except PhaseError as e:
+            raise PhaseError(f"variants, {what}: {e}") from None
+        del model, run, calls
+        torch.cuda.empty_cache()
 
 
 def loader_reading(dataset, cfg):
@@ -2151,6 +2696,12 @@ def main():
         for dataset in ("kitti", "nuscenes"):
             if dataset in phases:
                 run(dataset, real_data, device, args.seed, smi_line, dataset)
+        if "t7_gather" in phases:
+            run("t7_gather", t7_gather, device, args.seed, smi_line)
+        if "train_gather" in phases:
+            run("train_gather", train_gather, device, args.seed, smi_line)
+        if "variants" in phases:
+            run("variants", variants, device, args.seed, smi_line)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

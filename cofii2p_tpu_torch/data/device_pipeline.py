@@ -2,8 +2,8 @@
 cofii2p_tpu/data/device_pipeline.py::prepare_samples).
 
 Perturbs each cloud by its pose, assembles the point features, builds the
-Morton-ordered pyramid and the /2 intrinsics, and inverts the pose into the
-ground truth.  Given ``keypoint_noise``, it also derives the training
+Morton-ordered pyramid (with its k-NN maps under ``kpconv_impl='gather'``)
+and the /2 intrinsics, and inverts the pose into the ground truth.  Given ``keypoint_noise``, it also derives the training
 supervision: in-view and out-of-view superpoint keypoints, the /8 image
 occupancy and keypoint cells, and the fine /2 targets.  The random draws
 are inputs, as the pyramid permutations are: the parity tests hand in
@@ -116,7 +116,8 @@ def prepare_samples(pc, attrs, P, K, img, cfg: Config, perms: Sequence[torch.Ten
         feats = torch.cat([attrs[..., :1], n_w], dim=-1)
     else:
         feats = torch.cat([attrs[..., :1], pc_w], dim=-1)
-    pyr = build_pyramid(pc_w, perms, cfg.pyramid_sizes, ordering=cfg.pyramid_ordering)
+    pyr = build_pyramid(pc_w, perms, cfg.pyramid_sizes, ordering=cfg.pyramid_ordering,
+                        need_maps=cfg.kpconv_impl not in ("banded", "banded_knn"), neighbor_num=cfg.neighbor_num)
     feats = torch.gather(feats, 1, pyr["perm0"][..., None].expand(-1, -1, feats.shape[-1]))
     K2 = K * 0.5
     K2[:, 2, 2] = 1.0
@@ -127,6 +128,9 @@ def prepare_samples(pc, attrs, P, K, img, cfg: Config, perms: Sequence[torch.Ten
         "K": K2,
         "img": img,
     }
+    for key in ("neighbors", "subsampling", "upsampling"):
+        if key in pyr:
+            out[key] = pyr[key]
     if keypoint_noise is not None:
         out.update(_supervision(cfg, P, K, pyr["points"], keypoint_noise))
     return out

@@ -1,5 +1,7 @@
-"""KPConv point branch over banded neighborhoods (counterpart of
-cofii2p_tpu/models/kpconv.py with ``impl='banded'`` or ``'banded_knn'``).
+"""KPConv point branch (counterpart of cofii2p_tpu/models/kpconv.py) in
+its three formulations: ``impl='banded'`` and ``'banded_knn'`` over
+banded neighbourhoods, and ``'gather'`` over the pyramid's k-NN index
+maps.
 
 Module and parameter names follow the reference layout that
 cofii2p_tpu/utils/checkpoint.py::export_t7 writes (``encoder1_1.KPConv.
@@ -24,6 +26,18 @@ maxpool beside the conv from one band pass (kernel #16; all four strided
 blocks in bf16 serving, encoder2_1..4_1 on the fp32 static plan);
 differentiated, the unfused pair runs, as in the JAX package.
 
+``impl='gather'`` is the JAX package's exact k-NN formulation
+(kpconv.py:415-456): each KPConv gathers the features of its queries'
+``neighbor_num`` nearest support points through the pyramid's maps,
+weighs them by the kernel points' influence (:func:`kernel_influence`,
+shared by the blocks of a level when ``shared_influence`` is on) and
+divides by the reference's count of "active" neighbours, those whose
+gathered features sum to more than zero; a strided shortcut is the max
+over the ``subsampling`` neighbours (:func:`neighbor_maxpool`) and the
+decoder copies each fine point's nearest coarse feature
+(:func:`nearest_upsample`).  It is plain PyTorch: the JAX package reaches
+no Pallas kernel on it either.
+
 ``impl='banded_knn'`` is the k-NN semantics a reference checkpoint was
 trained with: per (query level, support level) pair one threshold tau per
 query (ops/tau_kernel.py, kernel #5) decides membership d2 <= tau, every
@@ -43,7 +57,7 @@ import torch
 from torch import nn
 
 from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
-from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu
+from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu, norm_factory
 from cofii2p_tpu_torch.ops.banded import (
     band_plan,
     banded_knn_tau,
@@ -52,6 +66,7 @@ from cofii2p_tpu_torch.ops.banded import (
     dynamic_knn_starts,
     kernel_reach,
 )
+from cofii2p_tpu_torch.ops.geometry import fma_dot, gather_neighbors
 from cofii2p_tpu_torch.ops.kpconv_kernel import (
     banded_kpconv_apply,
     banded_kpconv_fused_plain,
@@ -69,7 +84,66 @@ from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_apply, residua
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
 
 KERNELS = ("auto", "pallas", "xla")
-IMPLS = ("banded", "banded_knn")
+IMPLS = ("gather", "banded", "banded_knn")
+
+
+class NeighborMaxpoolFn(torch.autograd.Function):
+    """Max over gathered neighbour rows whose backward splits each output's
+    gradient evenly among the rows tied at the max, as JAX differentiates
+    ``jnp.max``, and keeps only the output: the (B, M, H, C) gather is
+    taken again in the backward rather than held."""
+
+    @staticmethod
+    def forward(ctx, feats, neighbor_indices):
+        out = gather_neighbors(feats, neighbor_indices).amax(-2)
+        ctx.save_for_backward(feats, neighbor_indices, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, idx, out = ctx.saved_tensors
+        b, n, c = feats.shape
+        tied = gather_neighbors(feats, idx) == out[..., None, :]  # (B, M, H, C)
+        share = grad.float() / tied.sum(-2).float()
+        contrib = torch.where(tied, share[..., None, :], 0.0).reshape(b, -1, c)
+        rows = (idx.long() + (n + 1) * torch.arange(b, device=idx.device)[:, None, None]).reshape(-1)
+        g = torch.zeros(b * (n + 1), c, dtype=torch.float32, device=grad.device)
+        g.index_add_(0, rows, contrib.reshape(-1, c))  # index n: the shadow row, dropped
+        return g.reshape(b, n + 1, c)[:, :n].to(feats.dtype), None
+
+
+def neighbor_maxpool(feats: torch.Tensor, neighbor_indices: torch.Tensor) -> torch.Tensor:
+    """Max over the features of each query's neighbours, shadow rows (index
+    N) counting as zeros: feats (B, N, C), neighbor_indices (B, M, H) ->
+    (B, M, C) (kpconv.py:43-47)."""
+    return NeighborMaxpoolFn.apply(feats, neighbor_indices)
+
+
+def nearest_upsample(feats: torch.Tensor, upsample_indices: torch.Tensor) -> torch.Tensor:
+    """Each fine point takes the coarse feature of its nearest coarse point,
+    column 0 of the upsampling map: feats (B, M, C), upsample_indices
+    (B, N, k) -> (B, N, C) (kpconv.py:50-56)."""
+    idx = upsample_indices[..., 0].long()
+    return torch.gather(feats, -2, idx[..., None].expand(*idx.shape, feats.shape[-1]))
+
+
+def kernel_influence(q_points, s_points, neighbor_indices, radius, sigma, kernel_size=15, kp=None):
+    """Linear-correlation influence max(1 - |offset - kp_k| / sigma, 0) of
+    each kernel point on each gathered neighbour, zero for shadow rows:
+    (B, M, H, K) fp32 (kpconv.py:59-94).  ``kp`` (K, 3): a layer's own
+    kernel points; None takes the canonical disposition at ``radius``.
+    The squared distances come by the matmul identity with every sum of
+    three products a fused chain (ops/geometry.py::fma_dot), the
+    arithmetic of the jitted JAX function, and no matmul (so no TF32)."""
+    n = s_points.shape[-2]
+    if kp is None:
+        kp = torch.as_tensor(np.asarray(load_kernel_points(radius, kernel_size, 3), np.float32))
+    kp = kp.to(device=q_points.device, dtype=torch.float32)
+    offsets = gather_neighbors(s_points, neighbor_indices) - q_points[..., None, :]  # (B, M, H, 3)
+    cross = fma_dot(offsets[..., None, :], kp)  # (B, M, H, K)
+    sq = (fma_dot(offsets, offsets)[..., None] + fma_dot(kp, kp)) - 2.0 * cross
+    influence = torch.clamp(1.0 - torch.sqrt(torch.clamp(sq, min=0.0)) / sigma, min=0.0)
+    return torch.where((neighbor_indices < n)[..., None], influence, 0.0)
 
 
 def knn_tau(kernel, q_points, s_points, k, tile, band_width, starts=None):
@@ -80,11 +154,14 @@ def knn_tau(kernel, q_points, s_points, k, tile, band_width, starts=None):
 
 
 class KPConv(nn.Module):
-    """Rigid kernel-point convolution over banded neighborhoods.
+    """Rigid kernel-point convolution.
 
     forward(s_feats (B, N, Cin), q_points (B, M, 3), s_points (B, N, 3),
     starts, tau) -> (B, M, Cout) fp32: the aggregation + contraction,
     divided by the count, plus bias (kpconv.py:224-299, 355-382).  Under
+    ``impl='gather'`` it takes ``neighbor_indices`` (B, M, H), N meaning
+    no neighbour, and optionally a shared ``influence`` (B, M, H, K)
+    (kpconv.py:415-456).  Under
     ``impl='banded_knn'`` ``tau`` (B, M) is the pair's k-NN threshold
     (computed here over the static band when not given) and the layer's
     own ``kernel_points`` place the influence.  With ``mp_feats`` (a
@@ -111,7 +188,10 @@ class KPConv(nn.Module):
         self.wbytes = torch.empty((), dtype=dtype).element_size()
         self.fused = fused_contraction_fits(kernel_size, in_channels, out_channels, tile, wbytes=self.wbytes)
 
-    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, mp_feats=None):
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, mp_feats=None, neighbor_indices=None,
+                influence=None):
+        if self.impl == "gather":
+            return self._gather(s_feats, q_points, s_points, neighbor_indices, influence)
         if mp_feats is not None:
             return self._residual(s_feats, q_points, s_points, starts, mp_feats)
         if self.impl == "banded_knn":
@@ -125,6 +205,25 @@ class KPConv(nn.Module):
                     self.kernel_size, self.tile, self.band_width, self.dtype, starts)
             plain, apply = banded_kpconv_fused_plain, banded_kpconv_apply
         out, count = plain(*args) if self.kernel == "xla" else apply(*args, fused=self.fused)
+        return out / count[..., None].to(out.dtype) + self.bias
+
+    def _gather(self, s_feats, q_points, s_points, neighbor_indices, influence):
+        """The gather formulation: both products at JAX's rounding points
+        (bf16 operands, fp32 accumulation and output), and the reference's
+        count of neighbours whose gathered features sum to more than zero
+        (kpconv.py:440-445)."""
+        dt = self.dtype
+        if influence is None:
+            influence = kernel_influence(q_points, s_points, neighbor_indices, self.radius, self.sigma,
+                                         self.kernel_size, kp=self.kernel_points)
+        nbr_feats = gather_neighbors(s_feats.to(dt), neighbor_indices)  # (B, M, H, C)
+        weighted = torch.matmul(influence.to(dt).transpose(-1, -2), nbr_feats)  # (B, M, K, C)
+        b, m, k, c = weighted.shape
+        # a product of two bf16 values is exact in fp32: this is the bf16
+        # contraction with fp32 accumulation
+        out = weighted.float().reshape(b, m, k * c) @ self.weights.to(dt).float().reshape(k * c, -1)
+        with torch.no_grad():
+            count = torch.clamp((nbr_feats.sum(-1) > 0).sum(-1), min=1)
         return out / count[..., None].to(out.dtype) + self.bias
 
     def _residual(self, s_feats, q_points, s_points, starts, mp_feats):
@@ -141,14 +240,15 @@ class KPConv(nn.Module):
 
 
 class UnaryBlock(nn.Module):
-    """Linear -> group norm -> LeakyReLU(0.1); ``norm=False`` leaves the
-    plain Linear (the FPN's last decoder)."""
+    """Linear -> norm -> LeakyReLU(0.1); ``norm=None`` leaves the plain
+    Linear (the FPN's last decoder).  ``norm`` 'gn' or 'ln' as
+    :func:`~cofii2p_tpu_torch.models.layers.norm_factory` builds it."""
 
-    def __init__(self, in_channels, out_channels, group_norm=32, has_relu=True, norm=True, dtype=torch.float32):
+    def __init__(self, in_channels, out_channels, group_norm=32, has_relu=True, norm="gn", dtype=torch.float32):
         super().__init__()
         self.mlp = Linear(in_channels, out_channels, dtype=dtype)
-        self.norm = GroupNormWrapper(group_norm, out_channels) if norm else None
-        self.has_relu = has_relu and norm
+        self.norm = norm_factory(norm, group_norm, out_channels) if norm else None
+        self.has_relu = has_relu and norm is not None
 
     def forward(self, x):
         x = self.mlp(x)
@@ -158,27 +258,30 @@ class UnaryBlock(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """KPConv -> group norm -> LeakyReLU (reference modules.py:115-159)."""
+    """KPConv -> norm -> LeakyReLU (reference modules.py:115-159)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm=32, **kw):
+    def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm=32, norm="gn", **kw):
         super().__init__()
         self.KPConv = KPConv(in_channels, out_channels, kernel_size, radius, sigma, **kw)
-        self.norm = GroupNormWrapper(group_norm, out_channels)
+        self.norm = norm_factory(norm, group_norm, out_channels)
 
-    def forward(self, s_feats, q_points, s_points, starts=None, tau=None):
-        return leaky_relu(self.norm(self.KPConv(s_feats, q_points, s_points, starts, tau)))
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, neighbor_indices=None, influence=None):
+        x = self.KPConv(s_feats, q_points, s_points, starts, tau, neighbor_indices=neighbor_indices,
+                        influence=influence)
+        return leaky_relu(self.norm(x))
 
 
 class ResidualBlock(nn.Module):
     """Bottleneck residual KPConv block; a strided block's shortcut is the
     banded maxpool of its input, over {d2 <= tau} under ``impl=
-    'banded_knn'`` (reference modules.py:162-240; kpconv.py:539-632).
+    'banded_knn'``, over the ``subsampling`` neighbours under 'gather'
+    (reference modules.py:162-240; kpconv.py:539-661).
     ``residual_fused`` requests the fused band pass, which a strided banded
     block on the kernels takes (kpconv.py:543-554)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm=32,
                  strided=False, dtype=torch.float32, tile=128, band_width=1024, kernel="auto",
-                 impl="banded", knn_k=128, residual_fused=False):
+                 impl="banded", knn_k=128, residual_fused=False, norm="gn"):
         super().__init__()
         mid = out_channels // 4
         self.strided, self.tile, self.band_width, self.kernel = strided, tile, band_width, kernel
@@ -186,29 +289,32 @@ class ResidualBlock(nn.Module):
         self.residual_fused = residual_fused and strided and impl == "banded" and kernel != "xla"
         self.r_active = kernel_reach(radius, sigma, kernel_size)
         self.unary1 = (
-            UnaryBlock(in_channels, mid, group_norm, dtype=dtype) if in_channels != mid else None
+            UnaryBlock(in_channels, mid, group_norm, norm=norm, dtype=dtype) if in_channels != mid else None
         )
         self.KPConv = KPConv(mid, mid, kernel_size, radius, sigma, dtype=dtype, tile=tile,
                              band_width=band_width, kernel=kernel, impl=impl, knn_k=knn_k)
-        self.norm_conv = GroupNormWrapper(group_norm, mid)
-        self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False, dtype=dtype)
+        self.norm_conv = norm_factory(norm, group_norm, mid)
+        self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False, norm=norm, dtype=dtype)
         self.unary_shortcut = (
-            UnaryBlock(in_channels, out_channels, group_norm, has_relu=False, dtype=dtype)
+            UnaryBlock(in_channels, out_channels, group_norm, has_relu=False, norm=norm, dtype=dtype)
             if in_channels != out_channels else None
         )
 
-    def forward(self, s_feats, q_points, s_points, starts=None, tau=None):
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, neighbor_indices=None, influence=None):
         x = s_feats if self.unary1 is None else self.unary1(s_feats)
         shortcut = None
         if self.residual_fused:
             x, shortcut = self.KPConv(x, q_points, s_points, starts, tau, mp_feats=s_feats)
         else:
-            x = self.KPConv(x, q_points, s_points, starts, tau)
+            x = self.KPConv(x, q_points, s_points, starts, tau, neighbor_indices=neighbor_indices,
+                            influence=influence)
         x = self.unary2(leaky_relu(self.norm_conv(x)))
         if not self.strided:
             shortcut = s_feats
         elif shortcut is None:  # not from the fused band pass
-            if self.impl == "banded_knn":
+            if self.impl == "gather":
+                shortcut = neighbor_maxpool(s_feats, neighbor_indices)
+            elif self.impl == "banded_knn":
                 if tau is None:
                     tau = knn_tau(self.kernel, q_points, s_points, self.knn_k, self.tile, self.band_width)
                 fn = banded_maxpool_tau_plain if self.kernel == "xla" else banded_maxpool_tau_apply
@@ -237,7 +343,7 @@ def norm_cancelled_biases(model: nn.Module) -> list:
         elif isinstance(mod, ConvBlock):
             pairs.append(("KPConv.bias", mod.norm))
         for name, norm in pairs:
-            if norm.norm.num_groups == norm.norm.weight.numel():
+            if isinstance(norm, GroupNormWrapper) and norm.norm.num_groups == norm.norm.weight.numel():
                 names.append(f"{prefix}.{name}" if prefix else name)
     return names
 
@@ -253,16 +359,22 @@ class KPConvFPN(nn.Module):
     one tau, shared by its blocks (``tau_for``, kpconv.py:855-876), over the
     static band or, with a ``knn_window_plan`` width, over each tile's
     max-in-tau-mass window (``knn_tau_starts``, kpconv.py:878-906).
-    ``shared_influence`` is kept for the config's sake: it selects a shared
-    influence tensor only in the gather formulation, which the port lacks;
-    the banded paths compute influence per layer from its own kernel points.
+
+    Under ``impl='gather'`` forward also takes the pyramid's maps
+    ``neighbors``, ``subsampling`` and ``upsampling`` (ops/pyramid.py).
+    With ``shared_influence`` one :func:`kernel_influence` of the canonical
+    kernel points per level serves the level's self blocks, and a strided
+    block's KPConv computes its own from its own kernel points
+    (kpconv.py:923-1003); without it every KPConv computes its own, as a
+    reference checkpoint's per-layer kernel points need.  The banded paths
+    always compute influence per layer from its own kernel points.
     """
 
     def __init__(self, input_dim=4, output_dim=64, init_dim=64, kernel_size=15, init_radius=0.425,
                  init_sigma=0.2, group_norm=32, dtype=torch.float32, tile=128, band_width=1024,
                  band_plan=None, kernel="auto", dynamic_plan=None, dynamic_plan_self=None,
                  dynamic_center="best", impl="banded", knn_k=128, knn_window_plan=None,
-                 shared_influence=True, residual_fused=False):
+                 shared_influence=True, residual_fused=False, norm="gn"):
         super().__init__()
         d, ks, r, s = init_dim, kernel_size, init_radius, init_sigma
         self.tile, self.band_width, self.band_plan = tile, band_width, band_plan
@@ -270,7 +382,7 @@ class KPConvFPN(nn.Module):
         self.dynamic_center, self.kernel_size, self.r, self.s = dynamic_center, ks, r, s
         self.impl, self.knn_k, self.knn_window_plan = impl, knn_k, knn_window_plan
         self.kernel, self.shared_influence = kernel, shared_influence
-        common = dict(group_norm=group_norm, dtype=dtype, tile=tile, kernel=kernel, impl=impl, knn_k=knn_k)
+        common = dict(group_norm=group_norm, dtype=dtype, tile=tile, kernel=kernel, impl=impl, knn_k=knn_k, norm=norm)
 
         self.encoder1_1 = ConvBlock(input_dim, d, ks, r, s, band_width=self._bw_for(0, True), **common)
         self.encoder1_2 = ResidualBlock(d, d * 2, ks, r, s, band_width=self._bw_for(0, True), **common)
@@ -285,9 +397,9 @@ class KPConvFPN(nn.Module):
                 cin, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), **common))
             setattr(self, f"encoder{stage}_3", ResidualBlock(
                 cout, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), **common))
-        self.decoder4 = UnaryBlock(d * 32 + d * 16, d * 16, group_norm, dtype=dtype)
-        self.decoder3 = UnaryBlock(d * 16 + d * 8, d * 8, group_norm, dtype=dtype)
-        self.decoder2 = UnaryBlock(d * 8 + d * 4, output_dim, norm=False, dtype=dtype)
+        self.decoder4 = UnaryBlock(d * 32 + d * 16, d * 16, group_norm, norm=norm, dtype=dtype)
+        self.decoder3 = UnaryBlock(d * 16 + d * 8, d * 8, group_norm, norm=norm, dtype=dtype)
+        self.decoder2 = UnaryBlock(d * 8 + d * 4, output_dim, norm=None, dtype=dtype)
 
     def bw(self, support_lvl: int) -> int:
         """Static half-band of a support level (kpconv.py:738-755)."""
@@ -353,22 +465,41 @@ class KPConvFPN(nn.Module):
             return self.knn_tau_starts(q_pts, s_pts, support_lvl)
         return None, self.starts_for(q_pts, s_pts, support_lvl, radius_scale, is_self)
 
-    def forward(self, feats, points):
+    def influence_for(self, q_pts, s_pts, nbr, radius_scale):
+        """A level's shared influence of the canonical kernel points, or None
+        (each KPConv then computes its own; kpconv.py:924-958)."""
+        if self.impl != "gather" or not self.shared_influence:
+            return None
+        return kernel_influence(q_pts, s_pts, nbr, self.r * radius_scale, self.s * radius_scale, self.kernel_size)
+
+    def forward(self, feats, points, neighbors=None, subsampling=None, upsampling=None):
+        gather = self.impl == "gather"
         enc = {}
+        nbr0 = neighbors[0] if gather else None
+        inf0 = self.influence_for(points[0], points[0], nbr0, 1)
         tau0, st0 = self.pair_aux(points[0], points[0], 0, 1, True)
-        x = self.encoder1_1(feats, points[0], points[0], st0, tau0)
-        enc[1] = self.encoder1_2(x, points[0], points[0], st0, tau0)
+        x = self.encoder1_1(feats, points[0], points[0], st0, tau0, neighbor_indices=nbr0, influence=inf0)
+        enc[1] = self.encoder1_2(x, points[0], points[0], st0, tau0, neighbor_indices=nbr0, influence=inf0)
         x = enc[1]
         for stage in range(2, 6):
             lvl = stage - 1
+            nbr = neighbors[lvl] if gather else None
+            sub = subsampling[lvl - 1] if gather else None
+            inf_s = self.influence_for(points[lvl], points[lvl], nbr, 2 ** (stage - 1))
             tau_c, st_c = self.pair_aux(points[lvl], points[lvl - 1], lvl - 1, 2 ** (stage - 2), False)
             tau_s, st_s = self.pair_aux(points[lvl], points[lvl], lvl, 2 ** (stage - 1), True)
-            x = getattr(self, f"encoder{stage}_1")(x, points[lvl], points[lvl - 1], st_c, tau_c)
-            x = getattr(self, f"encoder{stage}_2")(x, points[lvl], points[lvl], st_s, tau_s)
-            x = getattr(self, f"encoder{stage}_3")(x, points[lvl], points[lvl], st_s, tau_s)
+            # the gather maps go by keyword: a block's positional arguments
+            # stay (feats, q, s, starts, tau) on every path
+            strided = getattr(self, f"encoder{stage}_1")
+            x = strided(x, points[lvl], points[lvl - 1], st_c, tau_c, neighbor_indices=sub)
+            for i in (2, 3):
+                x = getattr(self, f"encoder{stage}_{i}")(x, points[lvl], points[lvl], st_s, tau_s,
+                                                         neighbor_indices=nbr, influence=inf_s)
             enc[stage] = x
 
         def upsample(coarse, lvl):
+            if gather:
+                return nearest_upsample(coarse, upsampling[lvl])
             idx = banded_nearest_index(points[lvl], points[lvl + 1], self.tile, self.bw(lvl + 1))
             return torch.gather(coarse, 1, idx[..., None].expand(-1, -1, coarse.shape[-1]))
 

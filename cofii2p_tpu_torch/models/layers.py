@@ -77,3 +77,28 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class PointLayerNorm(nn.LayerNorm):
+    """The point branch's LayerNorm over channels (eps 1e-5), fp32
+    statistics and an fp32 result whatever x's dtype, as flax's LayerNorm
+    promotes a bf16 input against its fp32 parameters
+    (cofii2p_tpu/models/layers.py:87-92).  State-dict keys
+    ``<block>.norm.weight``: the module sits where the reference's
+    get_norm puts its nn.LayerNorm."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+
+
+def norm_factory(norm: str, group_norm: int, channels: int) -> nn.Module:
+    """The point blocks' normalisation (cofii2p_tpu/models/layers.py:119-125):
+    'gn' a whole-cloud GroupNorm, 'ln' a LayerNorm; anything else raises."""
+    if norm == "gn":
+        return GroupNormWrapper(group_norm, channels)
+    if norm == "ln":
+        return PointLayerNorm(channels)
+    raise ValueError(f"unsupported point-branch norm {norm!r} (reference supports bn/ln/gn; only gn/ln are used)")

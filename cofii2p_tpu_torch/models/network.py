@@ -1,6 +1,7 @@
 """CoFiI2P network (counterpart of cofii2p_tpu/models/network.py).
 
-Two-stream encoders (ResNet-34 image branch, banded KPConv FPN), sine
+Two-stream encoders (ResNet-34 image branch, KPConv FPN: banded, or the
+gather formulation over the batch's k-NN maps), sine
 positional encodings, the 8-layer I2P transformer, overlap score heads,
 the /2 fine image map; then, in ``mode='test'``, the closed-form selection
 that replaces the reference's threshold-decay loop, or, in ``'train'`` and
@@ -90,24 +91,12 @@ class CoFiI2P(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.kpconv_impl not in ("banded", "banded_knn"):
-            raise NotImplementedError(
-                f"kpconv_impl={cfg.kpconv_impl!r}: the port runs 'banded' and 'banded_knn'; the gather "
-                "formulation is ROADMAP queue 1 item 4 (alternate paths)"
-            )
         # rejecting the compacted plans here also keeps a k-NN window plan
         # from meeting them (the guard ADVICE r5 asks of knn_w)
         if cfg.maxpool_compact_plan or cfg.aggregate_compact_plan:
             raise NotImplementedError(
                 "maxpool_compact_plan / aggregate_compact_plan: the compacted formulations are ROADMAP "
-                "queue 1 item 4 (alternate paths)"
-            )
-        # the point blocks build GroupNorm only; the JAX package's norm_factory
-        # builds TorchLayerNorm for 'ln' and refuses anything else
-        if cfg.norm != "gn":
-            raise NotImplementedError(
-                f"norm={cfg.norm!r}: the port's point blocks use GroupNorm ('gn') only; 'ln' is ROADMAP "
-                "queue 1 item 3 (the variants the network refuses)"
+                "queue 1 item 1 (the compacted formulations)"
             )
         self.cfg = cfg
         dtype = compute_dtype(cfg)
@@ -120,7 +109,7 @@ class CoFiI2P(nn.Module):
             dynamic_plan=cfg.kpconv_dynamic_plan, dynamic_plan_self=cfg.kpconv_dynamic_plan_self,
             dynamic_center=cfg.kpconv_dynamic_center, impl=cfg.kpconv_impl, knn_k=cfg.neighbor_num,
             knn_window_plan=cfg.kpconv_knn_window_plan, shared_influence=cfg.kpconv_shared_influence,
-            residual_fused=cfg.kpconv_residual_fused,
+            residual_fused=cfg.kpconv_residual_fused, norm=cfg.norm,
         )
         stage_sizes = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}[cfg.img_backbone]
         self.img_encoder = ResNetEncoder(stage_sizes, dtype=dtype)
@@ -140,7 +129,8 @@ class CoFiI2P(nn.Module):
         b = img.shape[0]
         h8, w8 = cfg.pe_H, cfg.pe_W
 
-        pc_feature_set = self.pc_encoder(batch["feats"], points)
+        pc_feature_set = self.pc_encoder(batch["feats"], points, batch.get("neighbors"), batch.get("subsampling"),
+                                         batch.get("upsampling"))
         img_feature_set = self.img_encoder(img)
 
         pc_fine = l2norm(pc_feature_set[0])

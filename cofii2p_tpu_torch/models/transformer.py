@@ -7,7 +7,8 @@ transformer.py:66-73), and trained checkpoints depend on it.
 
 ``attention='pallas'`` runs ops/attention_kernel.py::fused_attention (the
 CUDA kernel on the card, output in q's dtype); ``'full'`` the plain
-full_attention (fp32 output), as in the JAX package.
+full_attention and ``'linear'`` the reference's elu+1 linear attention
+(fp32 outputs), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +20,21 @@ from torch import nn
 from cofii2p_tpu_torch.models.layers import LayerNorm, Linear
 from cofii2p_tpu_torch.ops.attention_kernel import full_attention, fused_attention
 
-ATTENTIONS = ("full", "pallas")
+ATTENTIONS = ("full", "pallas", "linear")
+
+
+def linear_attention(q, k, v, eps: float = 1e-6):
+    """elu+1 feature-map linear attention over (B, L/S, H, D), fp32
+    (cofii2p_tpu/models/transformer.py:54-63): v is divided by S before the
+    products and the result multiplied by S after, the reference's
+    overflow guard."""
+    qf = F.elu(q.float()) + 1.0
+    kf = F.elu(k.float()) + 1.0
+    s = v.shape[1]
+    v = v.float() / s
+    kv = torch.einsum("bshd,bshv->bhdv", kf, v)
+    z = 1.0 / (torch.einsum("blhd,bhd->blh", qf, kf.sum(1)) + eps)
+    return torch.einsum("blhd,bhdv,blh->blhv", qf, kv, z) * s
 
 
 def _seq_l2norm(q: torch.Tensor) -> torch.Tensor:
@@ -54,7 +69,7 @@ class LoFTREncoderLayer(nn.Module):
         q = _seq_l2norm(self.q_proj(x).reshape(b, l, h, c // h))
         k = self.k_proj(source).reshape(b, -1, h, c // h)
         v = self.v_proj(source).reshape(b, -1, h, c // h)
-        attn = fused_attention if self.attention == "pallas" else full_attention
+        attn = {"pallas": fused_attention, "linear": linear_attention, "full": full_attention}[self.attention]
         message = attn(q, k, v).reshape(b, l, c)
         message = self.norm1(self.merge(message.to(self.dtype)))
         y = self.norm2(self.mlp(torch.cat([x.to(self.dtype), message], dim=-1)))

@@ -27,14 +27,16 @@ import functools
 import numpy as np
 import torch
 
-from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
-
 # elements of the largest intermediate one chunk of tiles may hold; bounds
 # the plain versions' memory at KITTI scale
 _CHUNK_ELEMS = 1 << 26
 
 
 def _load_kernel_points(radius: float, kernel_size: int) -> np.ndarray:
+    # imported here: the models package imports this module, so a
+    # module-level import would make ops and models import each other
+    from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
+
     return np.asarray(load_kernel_points(radius, kernel_size, 3))
 
 
@@ -473,19 +475,50 @@ def banded_nearest_index(q_points, s_points, tile=128, band_width=1024):
 
 def dynamic_band_starts(q_points, s_points, r_active, tile=128, width=256, center="best", stride=1):
     """Per-tile window starts measured from the frame's geometry
-    (cofii2p_tpu/ops/banded.py:96-190, ``center='best'``).
+    (cofii2p_tpu/ops/banded.py:96-190).  ``center`` picks the estimator:
 
-    For each query tile, the width-W window of support rows holding the most
-    in-reach (query, row) pairs, estimated on every ``stride``-th support
-    row.  As in the JAX package, the "has in-reach support" flag is taken
-    over the sampled rows only, so a sparse tile may fall back to the
-    static proportional start.  Returns (B, num_tiles) int32 starts clipped
-    to [0, N - width].
+    - ``'best'``: the width-W window of support rows holding the most
+      in-reach (query, row) pairs, estimated on every ``stride``-th row.  As
+      in the JAX package, the "has in-reach support" flag is taken over the
+      sampled rows only, so a sparse tile may fall back to the static start;
+    - ``'centroid'``: the window centred on the pair-weighted mean in-reach
+      row, truncated from fp32 ``sum(j * count_j) / max(sum(count_j), 1)``;
+    - ``'span'``: the window centred on the first and last in-reach rows.
+
+    The last two run over each tile's full (tile, N) distance block and
+    take no ``stride`` > 1.  A tile with no in-reach row takes the static
+    proportional start.  Returns (B, num_tiles) int32 starts clipped to
+    [0, N - width].
     """
-    if center != "best":
-        raise NotImplementedError("the port implements center='best' (the config default)")
     r2 = np.float32(np.float32(r_active * r_active) * np.float32(1.0001))
-    return _best_windows(q_points, s_points, lambda t0, t1: float(r2), tile, width, stride)
+    if center == "best":
+        return _best_windows(q_points, s_points, lambda t0, t1: float(r2), tile, width, stride)
+    if center not in ("centroid", "span"):
+        raise ValueError(f"center {center!r} is not 'best', 'centroid' or 'span'")
+    if stride > 1:
+        raise NotImplementedError("stride>1 is implemented for center='best'")
+    b, m = q_points.shape[:2]
+    n = s_points.shape[1]
+    tile, num_tiles = _dyn_tile(m, tile)
+    width = min(width, n)
+    qt = q_points.reshape(b, num_tiles, tile, 3)
+    rows = torch.arange(n, device=q_points.device)
+    out = torch.empty(b, num_tiles, dtype=torch.int64, device=q_points.device)
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * n):
+        wcnt = (_membership_d2(qt[:, t0:t1], s_points[:, None]) <= float(r2)).sum(dim=2)  # (B, t, N)
+        within = wcnt > 0
+        if center == "centroid":
+            w = wcnt.float()
+            mid = (rows.float() * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+            dyn = mid.to(torch.int64) - width // 2
+        else:
+            jmin = torch.argmax(within.to(torch.int8), dim=-1)
+            jmax = n - 1 - torch.argmax(within.flip(-1).to(torch.int8), dim=-1)
+            dyn = torch.div(jmin + jmax + 1 - width, 2, rounding_mode="floor")
+        t = torch.arange(t0, t1, device=q_points.device)
+        static = ((2 * t * tile + tile) * n) // (2 * m) - width // 2
+        out[:, t0:t1] = torch.where(within.any(-1), dyn, static)
+    return torch.clamp(out, 0, n - width).to(torch.int32)
 
 
 def dynamic_knn_starts(q_points, s_points, tau, tile=128, width=256, stride=1):

@@ -1,5 +1,8 @@
-"""Morton-ordered point pyramid (counterpart of cofii2p_tpu/ops/pyramid.py,
-``need_maps=False``: the banded KPConv path needs no neighbor maps).
+"""Morton-ordered point pyramid (counterpart of cofii2p_tpu/ops/pyramid.py).
+
+The banded KPConv paths need the levels alone (``need_maps=False``); the
+gather formulation also needs three k-NN index maps a level, built on the
+device by ops/knn.py.
 
 The random per-level subsampling is an injected input: ``perms[l-1]``
 holds, for every frame, the indices of level l-1 kept at level l (the
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from cofii2p_tpu_torch.ops.knn import knn, knn_index_order
 
 
 def _spread2(v: torch.Tensor) -> torch.Tensor:
@@ -68,12 +73,19 @@ def random_level_perms(batch: int, sizes: Sequence[int], generator: torch.Genera
     return perms
 
 
-def build_pyramid(points: torch.Tensor, perms: Sequence[torch.Tensor], sizes: Sequence[int], ordering: str = "xyz") -> dict:
+def build_pyramid(points: torch.Tensor, perms: Sequence[torch.Tensor], sizes: Sequence[int], ordering: str = "xyz",
+                  need_maps: bool = False, neighbor_num: int = 128, upsample_k: int = 8) -> dict:
     """Morton-sorted pyramid levels for a batch of clouds.
 
     points (B, N0, 3) with N0 == sizes[0]; perms as in the module docstring.
-    Returns {'points': [(B, N_l, 3)], 'lengths': sizes, 'perm0': (B, N0)}.
-    (cofii2p_tpu/ops/pyramid.py:88-140)
+    Returns {'points': [(B, N_l, 3)], 'lengths': sizes, 'perm0': (B, N0)}
+    and, with ``need_maps``, for each level l the k-NN maps
+    (cofii2p_tpu/ops/pyramid.py:88-169):
+      'neighbors'   [(B, N_l, k)]: self k-NN, sorted by index;
+      'subsampling' [(B, N_{l+1}, k)]: level l+1 queries into level l,
+                    sorted by index;
+      'upsampling'  [(B, N_l, upsample_k)]: level l queries into level l+1,
+                    by distance (column 0 the nearest).
     """
     if points.shape[1] != sizes[0]:
         raise ValueError(f"cloud of {points.shape[1]} points, pyramid expects {sizes[0]}")
@@ -82,4 +94,17 @@ def build_pyramid(points: torch.Tensor, perms: Sequence[torch.Tensor], sizes: Se
     for lvl in range(1, len(sizes)):
         sub = _take(levels[-1], perms[lvl - 1][:, : sizes[lvl]].long())
         levels.append(_take(sub, morton_order(sub, ordering=ordering)))
-    return {"points": levels, "lengths": list(sizes), "perm0": perm0}
+    out = {"points": levels, "lengths": list(sizes), "perm0": perm0}
+    if need_maps:
+        out["neighbors"] = [knn_index_order(cur, cur, neighbor_num) for cur in levels]
+        out["subsampling"] = [knn_index_order(levels[lvl + 1], levels[lvl], neighbor_num)
+                              for lvl in range(len(sizes) - 1)]
+        out["upsampling"] = [knn(levels[lvl], levels[lvl + 1], upsample_k) for lvl in range(len(sizes) - 1)]
+    return out
+
+
+def build_pyramid_batched(points: torch.Tensor, perms: Sequence[torch.Tensor], sizes: Sequence[int],
+                          neighbor_num: int = 128, need_maps: bool = True, ordering: str = "xyz") -> dict:
+    """cofii2p_tpu/ops/pyramid.py:172-192 (a vmap of build_pyramid there):
+    :func:`build_pyramid` is batched already; the maps are on by default."""
+    return build_pyramid(points, perms, sizes, ordering, need_maps, neighbor_num)

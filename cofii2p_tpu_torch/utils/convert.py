@@ -93,27 +93,38 @@ def jax_to_state_dict(params: dict, batch_stats: dict) -> dict:
     pe, fpe = "pc_encoder.", ("pc_encoder",)
     fpn = params["pc_encoder"]
 
+    def norm(fpath, tpath):
+        # 'gn': flax's PointGroupNorm_0 into the reference's GroupNorm
+        # wrapper (<tpath>.norm.weight); 'ln': TorchLayerNorm_0's LayerNorm
+        # into the nn.LayerNorm the reference's get_norm puts at <tpath>
+        block = params
+        for p in fpath:
+            block = block[p]
+        if "TorchLayerNorm_0" in block:
+            put(tpath + ".weight", _get(params, fpath + ("TorchLayerNorm_0", "LayerNorm_0", "scale")))
+            put(tpath + ".bias", _get(params, fpath + ("TorchLayerNorm_0", "LayerNorm_0", "bias")))
+        else:
+            put(tpath + ".norm.weight", _get(params, fpath + ("PointGroupNorm_0", "scale")))
+            put(tpath + ".norm.bias", _get(params, fpath + ("PointGroupNorm_0", "bias")))
+
     def unary(fpath, tpath, with_norm=True):
         put(tpath + "mlp.weight", _get(params, fpath + ("mlp", "Dense_0", "kernel")), "linear")
         put(tpath + "mlp.bias", _get(params, fpath + ("mlp", "Dense_0", "bias")))
         if with_norm:
-            put(tpath + "norm.norm.weight", _get(params, fpath + ("PointGroupNorm_0", "scale")))
-            put(tpath + "norm.norm.bias", _get(params, fpath + ("PointGroupNorm_0", "bias")))
+            norm(fpath, tpath + "norm")
 
     def kpconv(fpath, tpath):
         for nm in ("weights", "kernel_points", "bias"):
             put(tpath + nm, _get(params, fpath + (nm,)))
 
     kpconv(fpe + ("encoder1_1", "KPConv"), pe + "encoder1_1.KPConv.")
-    put(pe + "encoder1_1.norm.norm.weight", _get(params, fpe + ("encoder1_1", "PointGroupNorm_0", "scale")))
-    put(pe + "encoder1_1.norm.norm.bias", _get(params, fpe + ("encoder1_1", "PointGroupNorm_0", "bias")))
+    norm(fpe + ("encoder1_1",), pe + "encoder1_1.norm")
     for nm in ["encoder1_2"] + [f"encoder{st}_{i}" for st in range(2, 6) for i in range(1, 4)]:
         fb, tb = fpe + (nm,), pe + nm + "."
         if "unary1" in fpn[nm]:
             unary(fb + ("unary1",), tb + "unary1.")
         kpconv(fb + ("KPConv",), tb + "KPConv.")
-        put(tb + "norm_conv.norm.weight", _get(params, fb + ("PointGroupNorm_0", "scale")))
-        put(tb + "norm_conv.norm.bias", _get(params, fb + ("PointGroupNorm_0", "bias")))
+        norm(fb, tb + "norm_conv")
         unary(fb + ("unary2",), tb + "unary2.")
         if "unary_shortcut" in fpn[nm]:
             unary(fb + ("unary_shortcut",), tb + "unary_shortcut.")

@@ -202,15 +202,16 @@ def test_knn_dispatch_follows_the_jax_package(monkeypatch):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(kpconv_impl="gather"), "queue 1 item 4"),
-    (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 4"),
+    (dict(kpconv_impl="gather", aggregate_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 1"),
+    (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 1"),
     (dict(kpconv_impl="banded_knn", kpconv_knn_window_plan=(0, 128, 0, 0, 0), aggregate_compact_plan=(0, 16, 0, 0, 0)),
-     "queue 1 item 4"),
+     "queue 1 item 1"),
 ])
 def test_network_refuses_unported_variants(override, match):
-    """The gather and compacted formulations raise at construction,
-    naming where they stand; so a k-NN window plan can never meet a
-    compacted plan (the guard ADVICE r5 asks of knn_w)."""
+    """The compacted formulations, the one configuration still refused,
+    raise at construction, naming where they stand, under every impl; so
+    a k-NN window plan can never meet a compacted plan (the guard ADVICE
+    r5 asks of knn_w)."""
     from cofii2p_tpu_torch.config import TinyConfig
 
     with pytest.raises(NotImplementedError, match=match):
@@ -219,17 +220,20 @@ def test_network_refuses_unported_variants(override, match):
 
 @pytest.mark.parametrize("norm", ["ln", "bogus", "gn"])
 def test_network_honours_cfg_norm(norm):
-    """cfg.norm is read: the point blocks are GroupNorm only, so 'gn'
-    builds and every other value raises (the JAX package builds
-    TorchLayerNorm for 'ln' and refuses the rest, models/layers.py:119-125),
-    instead of silently building a GroupNorm model."""
+    """cfg.norm is read: 'gn' builds GroupNorm point blocks, 'ln'
+    LayerNorm ones, and every other value raises ValueError, as the JAX
+    package's norm_factory does (models/layers.py:119-125)."""
     from cofii2p_tpu_torch.config import TinyConfig
+    from cofii2p_tpu_torch.models.layers import GroupNormWrapper, PointLayerNorm
 
-    if norm == "gn":
-        assert isinstance(CoFiI2P(TinyConfig(norm=norm)), CoFiI2P)
+    if norm == "bogus":
+        with pytest.raises(ValueError, match="unsupported point-branch norm"):
+            CoFiI2P(TinyConfig(norm=norm))
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        CoFiI2P(TinyConfig(norm=norm))
+    model = CoFiI2P(TinyConfig(norm=norm))
+    kind = PointLayerNorm if norm == "ln" else GroupNormWrapper
+    norms = [m for m in model.pc_encoder.modules() if isinstance(m, (GroupNormWrapper, PointLayerNorm))]
+    assert len(norms) == 47 and all(isinstance(m, kind) for m in norms)
 
 
 @pytest.mark.parametrize("dtype,grad", [("float32", False), ("bfloat16", False), ("float32", True)])

@@ -89,6 +89,54 @@ def _imported_names(path):
             yield node.module
 
 
+# names of a JAX package __init__ that ROADMAP still lists as unported
+STILL_UNPORTED = {"ops": set(), "models": set(), "data": set(), "pose": set()}
+
+
+def _jax_all(package):
+    tree = ast.parse(open(os.path.join(ROOT, "cofii2p_tpu", package, "__init__.py")).read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"cofii2p_tpu/{package}/__init__.py has no __all__")
+
+
+@pytest.mark.parametrize("package", sorted(STILL_UNPORTED))
+def test_package_exports_match_the_jax_package(package):
+    """Every name of the JAX package's ``__all__`` (read by AST, without
+    importing JAX) resolves on the port's twin package, as a user who
+    swaps the package name imports it (F1)."""
+    import importlib
+
+    names = _jax_all(package)
+    assert names
+    mod = importlib.import_module(f"cofii2p_tpu_torch.{package}")
+    missing = [n for n in names if not hasattr(mod, n) and n not in STILL_UNPORTED[package]]
+    assert not missing, missing
+    assert set(mod.__all__) >= set(names) - STILL_UNPORTED[package]
+
+
+@pytest.mark.parametrize("first", ["cofii2p_tpu_torch.ops.banded", "cofii2p_tpu_torch.ops.kpconv_kernel",
+                                   "cofii2p_tpu_torch.ops", "cofii2p_tpu_torch.models",
+                                   "cofii2p_tpu_torch.models.kpconv", "cofii2p_tpu_torch.data"])
+def test_a_package_imported_first_builds_nothing_and_cycles_nowhere(first):
+    """Whichever module a fresh process imports first, the ops and models
+    packages do not import each other into a half-initialised module, and
+    nothing is built."""
+    code = (
+        f"import {first}\n"
+        "import sys\n"
+        "from cofii2p_tpu_torch.models import CoFiI2P\n"
+        "from cofii2p_tpu_torch.data import prepare_samples, SyntheticDataset\n"
+        "from cofii2p_tpu_torch.ops import knn, grid_subsample, radius_search\n"
+        "cl = sys.modules.get('cofii2p_tpu_torch.ops.cuda_lib')\n"
+        "assert cl is None or cl._lib is None\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, env=env)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", sorted(port_sources()), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_jax_or_the_jax_package(path):
     for name in _imported_names(path):
