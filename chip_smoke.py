@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and `.t7` eval paths, and its
-on-disk KITTI and nuScenes data paths, on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training and `.t7` eval paths, its
+on-disk KITTI and nuScenes data paths, its compacted plans, data-parallel
+step and measurement tool, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases device,build,kernels
@@ -84,9 +85,10 @@ the last line):
            returns NaN poses for some frames; those are counted, not
            failed.  Then the drift readout: one B=8 forward through the
            kernels and through the plain versions on the card (same
-           weights, frames and draws), tools/window_drift.py's four
-           readings, each within twice the CUDA-core kernels' reading
-           plus one point (SERVE_DRIFT_LIMITS).
+           weights, frames and draws), the drift tool's four readings
+           (cofii2p_tpu_torch/tools/window_drift.py::drift), each within
+           twice the CUDA-core kernels' reading plus one point
+           (SERVE_DRIFT_LIMITS).
   serve_resfuse  serve with kpconv_residual_fused=True (same seeded
            weights): launches per forward (4 fused strided blocks, 10
            KPConvs, no separate maxpool), the same output checks and
@@ -167,6 +169,31 @@ the last line):
            its plain version on its own inputs at the kernels phase's bf16
            gates (#1 and #2 at K = 20 and 12 up to Cin 512 included, against
            the bf16 plain version, which rounds as they do).
+  serve_compact  the serving config with maxpool_compact_plan (128,) and
+           aggregate_compact_plan (128, 0, 0, 0, 128) (the support levels
+           its windows leave static): 3 requests of B=8, launches a forward
+           9/3/16 of #1/#3/#4 and no tau, finite outputs; then on one
+           forward's own inputs encoder2_1's compacted shortcut bit-equal
+           to #3 and encoder1_2's compacted aggregation in fp32 within
+           1e-4 rel of #2 on every query with <= k in reach, its counts
+           equal to #2's; and the drift against the plain versions within
+           SERVE_DRIFT_LIMITS.
+  t7_compact  the `.t7` config (banded_knn, per-layer kernel points)
+           with every conv and shortcut compacted at k = 128: 2 batches of
+           B=8 that launch #4 alone (no tau); then, outside them, each
+           strided shortcut's inputs through #5 and #8 and the compacted
+           k-NN maxpool: bit-equal on every query whose tau admits
+           exactly k rows (no tie or near-tie at the k-th distance).
+  train_compact  `train kitti --synthetic` with maxpool_compact_plan
+           (0, 0, 0, 128) and aggregate_compact_plan (0, 0, 0, 128, 128),
+           2 steps of B=8 through train.main: launches a step 9/8/3/3/3 of
+           #2/#9/#3/#12/#13, finite losses, parameters moved; ms and peak.
+  train_dp one train.main step of B=8 alone and under a world-size-1
+           NCCL group on a FileStore (the data-parallel path), both under
+           torch.use_deterministic_algorithms: parameters, buffers and
+           metrics bit-equal.
+  flops    `get_flops_fps` on the serving config at B=8: every line
+           printed (parameters, frames/s, FLOPs, activations, peak, PnP).
 The second line before the last is the JSON kernel summary, then the
 nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
 Long logs go to chiprun_out/.
@@ -186,7 +213,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "serve_resfuse", "train", "t7", "train_fast",
-          "train_knn", "kitti", "nuscenes", "t7_gather", "train_gather", "variants")
+          "train_knn", "kitti", "nuscenes", "t7_gather", "train_gather", "variants", "serve_compact", "t7_compact",
+          "train_compact", "train_dp", "flops")
 BATCH = 8
 REQUESTS = 10  # timed requests a serve phase: a request is ~0.13 s, where host jitter of a few ms shows
 TRAIN_STEPS = 4
@@ -202,9 +230,10 @@ PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fuse
 # with kpconv_residual_fused: the 4 strided blocks' conv and shortcut in one
 # pass each (all fit residual_fused_fits in bf16 at w192), the other 10 convs
 PER_RESFUSE_FORWARD = {"residual_fused": 4, "kpconv_fused": 10, "maxpool": 0, "attention": 16}
-# the serve phase's drift readings (tools/window_drift.py's four) between
-# the kernels and the plain versions, measured with the CUDA-core #1 and #4
-# before their tensor-core redesign (H100 80GB HBM3, seed 0); a reading may
+# the serve phase's drift readings (the four of the drift tool,
+# cofii2p_tpu_torch/tools/window_drift.py::drift) between the kernels and
+# the plain versions, measured with the CUDA-core #1 and #4 before their
+# tensor-core redesign (H100 80GB HBM3, seed 0); a reading may
 # grow to twice that plus one point: 0.01 for a fraction, 1e-2 for the score
 SERVE_DRIFT_PARENT = dict(argmax=0.0369, selection=0.0006, fine_cell=0.0625, score=0.01324)
 SERVE_DRIFT_LIMITS = {k: 2 * v + 0.01 for k, v in SERVE_DRIFT_PARENT.items()}
@@ -1550,10 +1579,10 @@ def recording_train_steps(steps, captured):
 
     make_step = train_lib.make_train_step
 
-    def recording_make_train_step(cfg, model, optimizer, has_normals=True):
+    def recording_make_train_step(cfg, model, optimizer, has_normals=True, mesh=None):
         captured["model"], captured["cfg"], captured["has_normals"] = model, cfg, has_normals
         captured["before"] = {n: p.detach().clone() for n, p in model.named_parameters()}
-        step = make_step(cfg, model, optimizer, has_normals)
+        step = make_step(cfg, model, optimizer, has_normals, mesh)
 
         def timed_step(host_batch, draws):
             torch.cuda.synchronize()
@@ -1827,21 +1856,7 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
                 + ("(10 KPConvs, 4 strided blocks' conv and shortcut in one pass, 8 layers x 2 attention calls)"
                    if residual_fused else "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls)")
             )
-    eye = torch.eye(3, device=device)
-    nonfinite_pose = 0
-    for i, out in enumerate(outs):
-        for field, val in out._asdict().items():
-            if field not in ("R", "t") and val.is_floating_point() and not torch.isfinite(val).all():
-                raise PhaseError(f"{phase}: request {i} field {field} has non-finite values")
-        finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
-        if not finite[out.success].all():
-            raise PhaseError(f"{phase}: request {i} has a non-finite pose where RANSAC succeeded")
-        nonfinite_pose += int((~finite).sum())
-        orth = (out.R[finite].transpose(-1, -2) @ out.R[finite] - eye).abs().amax().item() if finite.any() else 0.0
-        if orth > 1e-3:
-            raise PhaseError(f"{phase}: request {i} |R^T R - I| = {orth:.2e} > 1e-3")
-        if out.R.shape != (BATCH, 3, 3) or out.fine_xy.shape != (BATCH, cfg.num_superpoints, 2):
-            raise PhaseError(f"{phase}: request {i} shapes {out.R.shape}, {out.fine_xy.shape}")
+    nonfinite_pose = check_pose_outputs(phase, outs, cfg, device)
     fps = n_requests * BATCH / dt
     succ = sum(int(o.success.sum()) for o in outs)
     say(phase, f"{n_requests} requests x {BATCH} frames (160x512, 20480 pts), bf16 w192"
@@ -1863,39 +1878,9 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     return launches, fps, peak
 
 
-def serve_outputs(model, batch, cfg):
-    """What tools/window_drift.py compares, from one test-mode forward:
-    each superpoint's best image token, the selection mask, the fine pixel
-    and the coarse score."""
-    import torch
-
-    from cofii2p_tpu_torch.models.network import fine_match_xy
-
-    out = model(batch, mode="test")
-    b, s, _ = out["pc_feature_norm"].shape
-    sim = torch.einsum("bsc,blc->bsl", out["pc_feature_norm"].float(),
-                       out["img_feature_norm"].reshape(b, -1, cfg.d_model).float())
-    fine_xy = fine_match_xy(out["fine_img_patch"], out["fine_pc_feature"], out["fine_center_xy"], cfg.fine_decode)
-    return dict(argmax=sim.argmax(-1), mask=out["inlier_mask"], fine_xy=fine_xy,
-                score=out["coarse_pc_score"].float())
-
-
-def drift_readings(ref, got):
-    """tools/window_drift.py's four readings between two serve_outputs:
-    coarse-argmax drift, selection drift, fine-cell drift among the
-    superpoints either selects, max score drift; and that count."""
-    either = ref["mask"] | got["mask"]
-    n_sel = max(int(either.sum()), 1)
-    moved = (ref["fine_xy"] - got["fine_xy"]).abs().amax(-1) > 1e-6
-    return dict(argmax=float((ref["argmax"] != got["argmax"]).float().mean()),
-                selection=float((ref["mask"] != got["mask"]).float().mean()),
-                fine_cell=float((moved & either).sum()) / n_sel,
-                score=float((ref["score"] - got["score"]).abs().max())), n_sel
-
-
-def check_serve_drift(cfg, model, hb, device, seed):
-    """tools/window_drift.py's four readings between one bf16 B=8 serving
-    forward through the kernels and the same weights, frames and draws
+def check_serve_drift(cfg, model, hb, device, seed, per_forward=PER_FORWARD):
+    """The drift tool's four readings (cofii2p_tpu_torch/tools/
+    window_drift.py::drift) between one bf16 B=8 serving forward through the kernels and the same weights, frames and draws
     through the plain versions on the card (kpconv_kernel='xla' and the
     attention wrapper's plain version, which keeps the kernel's bf16
     output; 'full' would return fp32): coarse-argmax drift, selection
@@ -1909,6 +1894,7 @@ def check_serve_drift(cfg, model, hb, device, seed):
     from cofii2p_tpu_torch.models import transformer as tf
     from cofii2p_tpu_torch.models.network import CoFiI2P
     from cofii2p_tpu_torch.ops.attention_kernel import fused_attention_plain
+    from cofii2p_tpu_torch.tools.window_drift import drift, outputs, selected
 
     draws = make_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device)
     batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
@@ -1917,24 +1903,24 @@ def check_serve_drift(cfg, model, hb, device, seed):
     kernel_attention = tf.fused_attention
     with torch.no_grad():
         reset_launches()
-        got = serve_outputs(model, batch, cfg)
+        got = outputs(model, batch, cfg)
         torch.cuda.synchronize()
         launches = read_launches()
         tf.fused_attention = fused_attention_plain
         try:
-            ref = serve_outputs(plain, batch, cfg)
+            ref = outputs(plain, batch, cfg)
             torch.cuda.synchronize()
         finally:
             tf.fused_attention = kernel_attention
         plain_launches = read_launches()
     del plain
-    if plain_launches != launches or launches["kpconv_fused"] != PER_FORWARD["kpconv_fused"]:
+    if plain_launches != launches or launches["kpconv_fused"] != per_forward["kpconv_fused"]:
         raise PhaseError(f"drift: launches {launches} through the kernels, {plain_launches} after the plain forward")
-    drift, n_sel = drift_readings(ref, got)
-    over = {k: v for k, v in drift.items() if v > SERVE_DRIFT_LIMITS[k]}
+    d, n_sel = drift(ref, got), selected(ref, got)
+    over = {k: v for k, v in d.items() if v > SERVE_DRIFT_LIMITS[k]}
     line = (f"drift of a B={BATCH} forward, kernels vs plain versions (same weights, frames, draws; {n_sel} "
-            f"superpoints selected by either): coarse-argmax {drift['argmax']:.4f}, selection "
-            f"{drift['selection']:.4f}, fine-cell (selected) {drift['fine_cell']:.4f}, max score {drift['score']:.5f}; "
+            f"superpoints selected by either): coarse-argmax {d['argmax']:.4f}, selection "
+            f"{d['selection']:.4f}, fine-cell (selected) {d['fine_cell']:.4f}, max score {d['score']:.5f}; "
             "limits " + ", ".join(f"{k} {v:.4f}" for k, v in SERVE_DRIFT_LIMITS.items()))
     if over:
         raise PhaseError(f"{line}: over the limit in {sorted(over)}")
@@ -2238,7 +2224,7 @@ def t7_gather(device, seed, smi_line):
 
 
 def gather_drift(cfg, knn_cfg, device, seed):
-    """serve_outputs' four drift readings between one B = 8 fp32 forward
+    """The drift tool's four readings between one B = 8 fp32 forward
     of the `.t7` model under gather and one under banded_knn (kernels #5-#8
     and #4), on the same weights, frames and draws: what the banded k-NN
     plan costs at KITTI scale.  Printed, with no limit."""
@@ -2246,6 +2232,7 @@ def gather_drift(cfg, knn_cfg, device, seed):
 
     from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
     from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+    from cofii2p_tpu_torch.tools.window_drift import drift, outputs, selected
     from cofii2p_tpu_torch.utils.kernel_bench import t7_model
 
     hb = frames(cfg, BATCH, device)
@@ -2257,7 +2244,7 @@ def gather_drift(cfg, knn_cfg, device, seed):
         batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], c, draws["perms"])
         with torch.no_grad():
             reset_launches()
-            outs[name] = serve_outputs(model, batch, c)
+            outs[name] = outputs(model, batch, c)
             torch.cuda.synchronize()
             launches[name] = read_launches()
         del model, batch
@@ -2267,10 +2254,10 @@ def gather_drift(cfg, knn_cfg, device, seed):
         bad = {k: launches[name][k] for k, v in want.items() if launches[name][k] != v}
         if bad:
             raise PhaseError(f"t7_gather drift: the {name} forward launched {bad}, expected {want}")
-    drift, n_sel = drift_readings(outs["gather"], outs["banded_knn"])
+    d, n_sel = drift(outs["gather"], outs["banded_knn"]), selected(outs["gather"], outs["banded_knn"])
     return (f"drift of a B={BATCH} fp32 forward, gather vs banded_knn (kernels #5-#8; same weights, frames, draws; "
-            f"{n_sel} superpoints selected by either): coarse-argmax {drift['argmax']:.4f}, selection "
-            f"{drift['selection']:.4f}, fine-cell (selected) {drift['fine_cell']:.4f}, max score {drift['score']:.5f}")
+            f"{n_sel} superpoints selected by either): coarse-argmax {d['argmax']:.4f}, selection "
+            f"{d['selection']:.4f}, fine-cell (selected) {d['fine_cell']:.4f}, max score {d['score']:.5f}")
 
 
 def train_gather(device, seed, smi_line):
@@ -2622,6 +2609,354 @@ def real_data(device, seed, smi_line, dataset):
         torch.cuda.empty_cache()
 
 
+# serve_compact: the serving config with compacted formulations on the
+# support levels its windows leave static (a window meeting a compacted
+# plan raises): encoder1_1's and encoder1_2's convs (level 0 self),
+# encoder2_1's conv and shortcut (level 1 <- 0), encoder5_2's and 5_3's
+# convs (level 4 self) compacted, so #1 runs the other 9 convs and #3 the
+# other 3 shortcuts
+SERVE_COMPACT = dict(maxpool_compact_plan=(128,), aggregate_compact_plan=(128, 0, 0, 0, 128))
+PER_COMPACT_FORWARD = {"kpconv_fused": 9, "maxpool": 3, "attention": 16, "residual_fused": 0, "knn_tau": 0}
+COMPACT_REQUESTS = 3
+# t7_compact: every conv and shortcut of the `.t7` config compacted at
+# k = knn_k: no tau (#5) and no banded kernel in the forward, #4 alone
+T7_COMPACT = dict(maxpool_compact_plan=(128,) * 5, aggregate_compact_plan=(1,) * 5)
+PER_T7_COMPACT_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16}
+# train_compact: encoder5_1's shortcut and the convs on support levels 3
+# and 4 (encoder4_2, 4_3, 5_1, 5_2, 5_3) compacted; the other 9 convs on
+# #2 (8 of them with a #9 backward), 3 shortcuts on #3, #12 and #13
+TRAIN_COMPACT = ["maxpool_compact_plan=0,0,0,128", "aggregate_compact_plan=0,0,0,128,128"]
+PER_COMPACT_STEP = {"kpconv_aggregate": 9, "kpconv_transpose": 8, "maxpool": 3, "maxpool_count": 3,
+                    "maxpool_bwd": 3, "knn_tau": 0, "kpconv_transpose_dyn": 0, "maxpool_bwd_dyn": 0, **NOT_TRAINED}
+COMPACT_STEPS = 2
+FLOPS_LINES = ("params:", "end-to-end pipeline:", "network forward:", "network flops/frame:",
+               "network activations/frame:", "network peak memory:", "pnp-ransac alone:")
+
+
+def check_pose_outputs(phase, outs, cfg, device):
+    """Finite network outputs, and finite proper rotations wherever RANSAC
+    succeeded, of each B-frame output; returns the non-finite pose count."""
+    import torch
+
+    eye = torch.eye(3, device=device)
+    nonfinite_pose = 0
+    for i, out in enumerate(outs):
+        for field, val in out._asdict().items():
+            if field not in ("R", "t") and val.is_floating_point() and not torch.isfinite(val).all():
+                raise PhaseError(f"{phase}: batch {i} field {field} has non-finite values")
+        finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
+        if not finite[out.success].all():
+            raise PhaseError(f"{phase}: batch {i} has a non-finite pose where RANSAC succeeded")
+        nonfinite_pose += int((~finite).sum())
+        orth = (out.R[finite].transpose(-1, -2) @ out.R[finite] - eye).abs().amax().item() if finite.any() else 0.0
+        if orth > 1e-3:
+            raise PhaseError(f"{phase}: batch {i} |R^T R - I| = {orth:.2e} > 1e-3")
+        if out.R.shape != (BATCH, 3, 3) or out.fine_xy.shape != (BATCH, cfg.num_superpoints, 2):
+            raise PhaseError(f"{phase}: batch {i} shapes {out.R.shape}, {out.fine_xy.shape}")
+    return nonfinite_pose
+
+
+def timed_batches(phase, cfg, model, device, seed, n, per_forward):
+    """A warm-up and ``n`` timed B-frame batches through make_eval_body:
+    launches a forward as ``per_forward``, outputs checked; returns
+    (ms a batch, peak GiB, the first timed batch, RANSAC successes)."""
+    import torch
+
+    from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body
+
+    run = make_eval_body(cfg, model)
+    batches = [frames(cfg, BATCH, device, start=i * BATCH) for i in range(n + 1)]
+    gen = torch.Generator(device).manual_seed(seed)
+    run(batches[0], gen)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [run(hb, gen) for hb in batches[1:]]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    for name, want in per_forward.items():
+        if launches[name] != want * n:
+            raise PhaseError(f"{phase}: {name} launched {launches[name]} times in {n} forwards, expected {want} each")
+    check_pose_outputs(phase, outs, cfg, device)
+    return ms, peak, batches[1], sum(int(o.success.sum()) for o in outs)
+
+
+@contextlib.contextmanager
+def block_inputs(model, names, sink):
+    """While open, sink[name] holds the first three positional inputs
+    (features, query points, support points) of the first call of each
+    named module of model.pc_encoder ('encoder2_1', 'encoder1_2.KPConv')."""
+    handles = [model.pc_encoder.get_submodule(n).register_forward_pre_hook(
+        lambda mod, args, _n=n: sink.setdefault(_n, args[:3])) for n in names]
+    try:
+        yield sink
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def serve_compact(device, seed, smi_line):
+    """The serving config with SERVE_COMPACT: timed requests, then the
+    compacted maxpool and aggregation held against #3 and #2 on the
+    forward's own inputs, and the drift against the plain versions."""
+    import torch
+
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.utils.convert import randomize
+    from cofii2p_tpu_torch.utils.kernel_bench import serve_config
+
+    cfg = serve_config().replace(**SERVE_COMPACT)
+    model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(device).eval()
+    ms, peak, hb, succ = timed_batches("serve_compact", cfg, model, device, seed, COMPACT_REQUESTS,
+                                       PER_COMPACT_FORWARD)
+    say("serve_compact", f"{COMPACT_REQUESTS} requests x {BATCH} frames, bf16 w192 with maxpool_compact_plan "
+        f"{cfg.maxpool_compact_plan}, aggregate_compact_plan {cfg.aggregate_compact_plan}: {ms:.1f} ms/request "
+        f"({BATCH * 1e3 / ms:.2f} frames/s), peak {peak:.2f} GiB; launches/forward "
+        + ", ".join(f"{k} {v}" for k, v in PER_COMPACT_FORWARD.items())
+        + f"; RANSAC success {succ}/{COMPACT_REQUESTS * BATCH}; card {smi_line}")
+    try:
+        say("serve_compact", check_compact_against_kernels(cfg, model, hb, device, seed))
+        say("serve_compact", check_serve_drift(cfg, model, hb, device, seed, PER_COMPACT_FORWARD))
+    except PhaseError as e:
+        raise PhaseError(f"serve_compact: {e}") from None
+    del model
+    torch.cuda.empty_cache()
+
+
+def check_compact_against_kernels(cfg, model, hb, device, seed):
+    """On one B=8 forward's own inputs: encoder2_1's compacted shortcut
+    bit-equal to #3 on every query whose in-reach count is <= k, and
+    encoder1_2's compacted aggregation, in fp32, within 1e-4 rel of #2 on
+    those queries, its counts (the uncapped in-reach count) equal to #2's
+    everywhere."""
+    import torch
+
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+    from cofii2p_tpu_torch.ops.banded import banded_compact_aggregate, banded_compact_maxpool, banded_pair_count
+    from cofii2p_tpu_torch.ops.kpconv_kernel import banded_kpconv_aggregate_fused
+    from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_fused
+
+    draws = make_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device)
+    batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
+    with torch.no_grad(), block_inputs(model, ("encoder2_1", "encoder1_2.KPConv"), {}) as got:
+        model(batch)
+        blk, conv = model.pc_encoder.encoder2_1, model.pc_encoder.encoder1_2.KPConv
+        f, q, s = got["encoder2_1"]
+        k = cfg.maxpool_compact_plan[0]
+        compact = banded_compact_maxpool(f, q, s, blk.r_active, k, blk.tile, blk.band_width)
+        pooled = banded_maxpool_fused(f, q, s, blk.r_active, blk.tile, blk.band_width)
+        under = banded_pair_count(q, s, blk.r_active, blk.tile, blk.band_width) <= k
+        if not under.any() or not torch.equal(compact[under], pooled[under]):
+            raise PhaseError(f"the compacted maxpool differs from #3 on queries under the cap ({int(under.sum())})")
+        f, q, s = got["encoder1_2.KPConv"]
+        ka = cfg.aggregate_compact_plan[0]
+        args = (f.float(), q, s, conv.radius, conv.sigma, conv.kernel_size)
+        w_c, c_c = banded_compact_aggregate(*args, ka, conv.tile, conv.band_width)
+        w_k, c_k = banded_kpconv_aggregate_fused(*args, conv.tile, conv.band_width)
+        under_a = c_k <= ka
+        if not torch.equal(c_c, c_k):
+            raise PhaseError(f"the compacted aggregation's counts differ from #2's at {int((c_c != c_k).sum())}")
+        err = rel_err(w_c[under_a], w_k[under_a])
+        if not under_a.any() or err > 1e-4:
+            raise PhaseError(f"the compacted aggregation is {err:.2e} rel from #2 under the cap (<= 1e-4)")
+    torch.cuda.synchronize()
+    return (f"on the forward's own inputs: encoder2_1's compacted shortcut (k {k}, C {pooled.shape[-1]}) "
+            f"bit-equal to #3 on the {under.float().mean():.1%} of queries with <= {k} in reach; encoder1_2's compacted "
+            f"aggregation (k {ka}, fp32) counts equal to #2's, rel {err:.2e} on the {under_a.float().mean():.1%} under "
+            "the cap")
+
+
+def t7_compact(device, seed, smi_line):
+    """The `.t7` config with T7_COMPACT: timed forwards that launch #4
+    alone (no tau), then each strided shortcut's compacted k-NN maxpool
+    held against #8 under #5's tau on the same inputs."""
+    import torch
+
+    from cofii2p_tpu_torch.config import KITTIConfig
+    from cofii2p_tpu_torch.evaluation.eval_all import reference_ckpt_config
+    from cofii2p_tpu_torch.utils.kernel_bench import t7_model
+
+    cfg = reference_ckpt_config(KITTIConfig(), [], device).replace(**T7_COMPACT)
+    model = t7_model(cfg, seed, device)
+    ms, peak, hb, succ = timed_batches("t7_compact", cfg, model, device, seed, 2, PER_T7_COMPACT_FORWARD)
+    say("t7_compact", f"2 batches x {BATCH} frames, fp32 {cfg.kpconv_impl} (per-layer kernel points) with every conv "
+        f"and shortcut compacted at k = {cfg.neighbor_num}: {ms:.1f} ms/batch ({BATCH * 1e3 / ms:.2f} frames/s), peak "
+        f"{peak:.2f} GiB; launches/forward attention 16, knn_tau 0, every other kernel 0; RANSAC success {succ}/"
+        f"{2 * BATCH}; card {smi_line}")
+    try:
+        say("t7_compact", check_t7_compact_maxpool(cfg, model, hb, device, seed))
+    except PhaseError as e:
+        raise PhaseError(f"t7_compact: {e}") from None
+    del model
+    torch.cuda.empty_cache()
+
+
+def check_t7_compact_maxpool(cfg, model, hb, device, seed):
+    """Outside the timed forwards: each strided shortcut's inputs through
+    #5 (tau) and #8 (the tau maxpool), and through the compacted k-NN
+    maxpool: bit-equal on every query whose tau admits exactly k rows,
+    i.e. with no tie or near-tie (within tau's rel 1e-5 pad,
+    cofii2p_tpu/ops/banded.py:840) at the k-th distance."""
+    import torch
+
+    from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws
+    from cofii2p_tpu_torch.ops.banded import banded_compact_maxpool, banded_pair_count
+    from cofii2p_tpu_torch.ops.maxpool_kernel import banded_maxpool_tau
+    from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
+
+    draws = make_draws(cfg, BATCH, torch.Generator(device).manual_seed(seed), device)
+    batch = prepare_samples(hb["pc"], hb["attrs"], hb["P"], hb["K"], hb["img"], cfg, draws["perms"])
+    names = [f"encoder{stage}_1" for stage in range(2, 6)]
+    k = cfg.neighbor_num
+    shares = []
+    with torch.no_grad(), block_inputs(model, names, {}) as got:
+        model(batch)
+        for name in names:
+            blk = model.pc_encoder.get_submodule(name)
+            f, q, s = got[name]
+            tau = banded_knn_tau_kernel(q, s, k, blk.tile, blk.band_width)
+            pooled = banded_maxpool_tau(f, q, s, tau, blk.tile, blk.band_width)
+            compact = banded_compact_maxpool(f, q, s, 0.0, k, blk.tile, blk.band_width, knn=True)
+            exact = banded_pair_count(q, s, None, blk.tile, blk.band_width, tau=tau) == k
+            if not exact.any() or not torch.equal(compact[exact], pooled[exact]):
+                raise PhaseError(f"{name}: the compacted k-NN maxpool differs from #8 on queries without a tie")
+            shares.append(float(exact.float().mean()))
+    torch.cuda.synchronize()
+    return ("the 4 strided shortcuts' inputs through #5 and #8 and through the compacted k-NN maxpool (k "
+            f"{k}): bit-equal on every query without a tie or near-tie at the k-th distance ("
+            + ", ".join(f"{x:.1%}" for x in shares) + " of queries)")
+
+
+def train_compact(device, seed, smi_line):
+    """`train kitti --synthetic` with TRAIN_COMPACT for COMPACT_STEPS steps
+    through train.main: launches a step as PER_COMPACT_STEP, finite
+    losses, parameters moved; ms a step and peak memory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cofii2p_tpu_torch import train as train_cli
+
+    steps, captured = [], {}
+    root = tempfile.mkdtemp(prefix="train_compact_", dir=OUT_DIR)
+    argv = ["kitti", f"root_path={root}", "val_freq=1000", "--synthetic", "--steps", str(COMPACT_STEPS),
+            "--batch_size", str(BATCH), "--synthetic_frames", str(COMPACT_STEPS * BATCH), *TRAIN_COMPACT]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        with recording_train_steps(steps, captured):
+            train_cli.main(argv)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(steps) != COMPACT_STEPS:
+        raise PhaseError(f"train_compact: {len(steps)} steps ran, expected {COMPACT_STEPS}")
+    for i, (_, per_step, metrics, _) in enumerate(steps):
+        bad = {name: per_step[name] for name, want in PER_COMPACT_STEP.items() if per_step[name] != want}
+        if bad:
+            raise PhaseError(f"train_compact: step {i} launched {bad}, expected {PER_COMPACT_STEP}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise PhaseError(f"train_compact: step {i} metrics not finite: {metrics}")
+    model = captured["model"]
+    moved = sum(int(not torch.equal(p.detach(), captured["before"][n])) for n, p in model.named_parameters())
+    del model, captured
+    torch.cuda.empty_cache()
+    if moved == 0:
+        raise PhaseError("train_compact: no parameter changed")
+    ms = [dt * 1e3 for dt, *_ in steps]
+    say("train_compact", f"{COMPACT_STEPS} steps x {BATCH} frames, fp32 static bands with " + ", ".join(TRAIN_COMPACT)
+        + " through train.main: losses " + " -> ".join(f"{m['loss']:.4f}" for _, _, m, _ in steps)
+        + "; ms/step " + ", ".join(f"{x:.1f}" for x in ms) + f" ({BATCH * 1e3 / ms[-1]:.2f} frames/s at the last); "
+        f"peak {peak:.2f} GiB; launches/step " + ", ".join(f"{k} {v}" for k, v in steps[-1][1].items() if v)
+        + f"; {moved} parameter tensors moved; card {smi_line}")
+
+
+def train_dp(device, seed, smi_line):
+    """One `train kitti --synthetic` step of B=8 through train.main alone,
+    then the same under a world-size-1 NCCL process group on a FileStore
+    (the data-parallel path: gradients all-reduced, BatchNorm statistics
+    all-reduced, metrics reduced): the updated parameters and buffers
+    equal bit for bit.  Both run under torch.use_deterministic_algorithms:
+    the step's plain PyTorch backward adds by atomics (two identical steps
+    differ in the last bits of 218 of 332 gradient tensors on the card),
+    so only deterministic algorithms make a bit comparison mean anything."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from cofii2p_tpu_torch import train as train_cli
+
+    root = tempfile.mkdtemp(prefix="train_dp_", dir=OUT_DIR)
+    argv = ["kitti", f"root_path={root}", "val_freq=1000", "--synthetic", "--steps", "1", "--batch_size", str(BATCH),
+            "--synthetic_frames", str(BATCH)]
+    states, metrics, ms = [], [], []
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for grouped in (False, True):
+            steps, captured = [], {}
+            if grouped:
+                dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1), rank=0,
+                                        world_size=1)
+            try:
+                with recording_train_steps(steps, captured):
+                    train_cli.main(argv)
+            finally:
+                if grouped:
+                    dist.destroy_process_group()
+            states.append({k: v.detach().clone() for k, v in captured["model"].state_dict().items()})
+            metrics.append(steps[0][2])
+            ms.append(steps[0][0] * 1e3)
+            del captured
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        shutil.rmtree(root, ignore_errors=True)
+    differ = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    if differ or metrics[0] != metrics[1]:
+        raise PhaseError(f"train_dp: under the world-size-1 group {len(differ)} tensors differ ({differ[:5]}), "
+                         f"metrics {metrics[1]} against {metrics[0]}")
+    say("train_dp", f"one step x {BATCH} frames through train.main alone ({ms[0]:.1f} ms) and under a world-size-1 NCCL "
+        f"group ({ms[1]:.1f} ms), deterministic algorithms: all {len(states[0])} parameters and buffers bit-equal, metrics equal (loss "
+        f"{metrics[0]['loss']:.4f}); card {smi_line}")
+
+
+def flops(device, seed, smi_line):
+    """get_flops_fps on the serving config at B=8: its lines, each printed
+    here (none of them the last line of the run)."""
+    import gc
+    import io
+
+    import torch
+
+    from cofii2p_tpu_torch.evaluation import get_flops_fps
+
+    argv = ["", "kitti", "--batch_size", str(BATCH), "compute_dtype=bfloat16", "kpconv_dynamic_plan=0,192,192,192,0",
+            "kpconv_dynamic_plan_self=0,0,192,192,0", "attention=pallas"]
+    gc.collect()  # the peak it reads counts every tensor still allocated
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        get_flops_fps.main(argv)
+    lines = buf.getvalue().splitlines()
+    missing = [h for h in FLOPS_LINES if not any(line.startswith(h) for line in lines)]
+    if missing:
+        raise PhaseError(f"flops: get_flops_fps printed no {missing}: {lines}")
+    for line in lines:
+        say("flops", line)
+    say("flops", f"get_flops_fps on the serving config (bf16 w192, fused attention), B={BATCH}; card {smi_line}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES), help="comma-separated subset of " + ",".join(PHASES))
@@ -2702,6 +3037,10 @@ def main():
             run("train_gather", train_gather, device, args.seed, smi_line)
         if "variants" in phases:
             run("variants", variants, device, args.seed, smi_line)
+        for phase, fn in (("serve_compact", serve_compact), ("t7_compact", t7_compact),
+                          ("train_compact", train_compact), ("train_dp", train_dp), ("flops", flops)):
+            if phase in phases:
+                run(phase, fn, device, args.seed, smi_line)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -48,6 +48,18 @@ Differentiated, they go through ``BandedKPConvTauFn`` and
 and #15; the kernel points stay frozen buffers.  A k-NN window plan
 (``knn_window_plan``) is forward-only and raises when differentiated, as
 in the JAX package.
+
+The compacted formulations (``maxpool_compact_plan``,
+``aggregate_compact_plan``, per support level; kpconv.py:179-215, 576-600,
+908-920) replace a banded KPConv's aggregation, or a strided block's
+shortcut maxpool, by one over each query's k nearest band rows
+(ops/banded.py::banded_compact_aggregate, banded_compact_maxpool): plain
+PyTorch, as the JAX package runs them in XLA.  Under 'banded_knn' the cap
+is ``knn_k`` and the plan value only selects the formulation.  Each (query
+level, support level) pair with a compacted consumer computes one
+nearest-first selection (``rel_for``) that every such consumer slices; a
+k-NN pair whose consumers are all compacted computes no tau.  Under
+'gather' the plans are ignored, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,7 +71,11 @@ from torch import nn
 from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
 from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu, norm_factory
 from cofii2p_tpu_torch.ops.banded import (
+    _round,
     band_plan,
+    banded_compact_aggregate,
+    banded_compact_maxpool,
+    banded_knn_select,
     banded_knn_tau,
     banded_nearest_index,
     dynamic_band_starts,
@@ -168,10 +184,15 @@ class KPConv(nn.Module):
     strided block's input, banded impl, kernels) it returns (out,
     shortcut): the maxpool of ``mp_feats`` from the fused band pass where
     ``residual_fused_fits``, else None (kpconv.py:312-353).
+    ``aggregate_compact`` k > 0 (banded impls): the compacted aggregation
+    over each query's k nearest band rows (``knn_k`` under 'banded_knn'),
+    sliced from ``rel`` (B, M, >= k), the pair's shared selection, when
+    given (kpconv.py:179-215).
     """
 
     def __init__(self, in_channels, out_channels, kernel_size=15, radius=0.425, sigma=0.2,
-                 dtype=torch.float32, tile=128, band_width=1024, kernel="auto", impl="banded", knn_k=128):
+                 dtype=torch.float32, tile=128, band_width=1024, kernel="auto", impl="banded", knn_k=128,
+                 aggregate_compact=0):
         super().__init__()
         if kernel not in KERNELS:
             raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
@@ -180,6 +201,7 @@ class KPConv(nn.Module):
         self.kernel_size, self.radius, self.sigma = kernel_size, radius, sigma
         self.dtype, self.tile, self.band_width, self.kernel = dtype, tile, band_width, kernel
         self.impl, self.knn_k = impl, knn_k
+        self.aggregate_compact = aggregate_compact if impl != "gather" else 0
         bound = 1.0 / np.sqrt(in_channels * out_channels)
         self.weights = nn.Parameter(torch.empty(kernel_size, in_channels, out_channels).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.empty(out_channels).uniform_(-bound, bound))
@@ -189,9 +211,11 @@ class KPConv(nn.Module):
         self.fused = fused_contraction_fits(kernel_size, in_channels, out_channels, tile, wbytes=self.wbytes)
 
     def forward(self, s_feats, q_points, s_points, starts=None, tau=None, mp_feats=None, neighbor_indices=None,
-                influence=None):
+                influence=None, rel=None):
         if self.impl == "gather":
             return self._gather(s_feats, q_points, s_points, neighbor_indices, influence)
+        if self.aggregate_compact:
+            return self._compact(s_feats, q_points, s_points, rel)
         if mp_feats is not None:
             return self._residual(s_feats, q_points, s_points, starts, mp_feats)
         if self.impl == "banded_knn":
@@ -205,6 +229,22 @@ class KPConv(nn.Module):
                     self.kernel_size, self.tile, self.band_width, self.dtype, starts)
             plain, apply = banded_kpconv_fused_plain, banded_kpconv_apply
         out, count = plain(*args) if self.kernel == "xla" else apply(*args, fused=self.fused)
+        return out / count[..., None].to(out.dtype) + self.bias
+
+    def _compact(self, s_feats, q_points, s_points, rel):
+        """The compacted aggregation, then the contraction with the bf16 (or
+        fp32) weights in fp32, divided by the count: k-NN mode passes the
+        layer's own kernel points, radius mode the canonical ones, whose
+        exact reach the in-reach count needs (kpconv.py:179-215)."""
+        knn = self.impl == "banded_knn"
+        kk = self.knn_k if knn else self.aggregate_compact
+        weighted, count = banded_compact_aggregate(
+            s_feats, q_points, s_points, self.radius, self.sigma, self.kernel_size, kk, self.tile, self.band_width,
+            self.dtype, knn=knn, kp=self.kernel_points if knn else None,
+            rel=None if rel is None else rel[..., :kk],
+        )
+        b, m, k, c = weighted.shape
+        out = _round(weighted, self.dtype).reshape(b, m, k * c) @ _round(self.weights, self.dtype).reshape(k * c, -1)
         return out / count[..., None].to(out.dtype) + self.bias
 
     def _gather(self, s_feats, q_points, s_points, neighbor_indices, influence):
@@ -265,9 +305,10 @@ class ConvBlock(nn.Module):
         self.KPConv = KPConv(in_channels, out_channels, kernel_size, radius, sigma, **kw)
         self.norm = norm_factory(norm, group_norm, out_channels)
 
-    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, neighbor_indices=None, influence=None):
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, neighbor_indices=None, influence=None,
+                rel=None):
         x = self.KPConv(s_feats, q_points, s_points, starts, tau, neighbor_indices=neighbor_indices,
-                        influence=influence)
+                        influence=influence, rel=rel)
         return leaky_relu(self.norm(x))
 
 
@@ -277,22 +318,30 @@ class ResidualBlock(nn.Module):
     'banded_knn'``, over the ``subsampling`` neighbours under 'gather'
     (reference modules.py:162-240; kpconv.py:539-661).
     ``residual_fused`` requests the fused band pass, which a strided banded
-    block on the kernels takes (kpconv.py:543-554)."""
+    block on the kernels takes unless it takes a compacted formulation
+    (kpconv.py:543-554).  ``maxpool_compact`` k > 0 (banded impls): the
+    shortcut is the compacted maxpool over each query's k nearest band rows
+    within reach, or under 'banded_knn' over the ``knn_k`` nearest with no
+    radius mask (kpconv.py:576-600)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma, group_norm=32,
                  strided=False, dtype=torch.float32, tile=128, band_width=1024, kernel="auto",
-                 impl="banded", knn_k=128, residual_fused=False, norm="gn"):
+                 impl="banded", knn_k=128, residual_fused=False, norm="gn", maxpool_compact=0,
+                 aggregate_compact=0):
         super().__init__()
         mid = out_channels // 4
         self.strided, self.tile, self.band_width, self.kernel = strided, tile, band_width, kernel
         self.impl, self.knn_k = impl, knn_k
-        self.residual_fused = residual_fused and strided and impl == "banded" and kernel != "xla"
+        self.maxpool_compact = maxpool_compact if impl != "gather" else 0
+        self.residual_fused = (residual_fused and strided and impl == "banded" and kernel != "xla"
+                               and not maxpool_compact and not aggregate_compact)
         self.r_active = kernel_reach(radius, sigma, kernel_size)
         self.unary1 = (
             UnaryBlock(in_channels, mid, group_norm, norm=norm, dtype=dtype) if in_channels != mid else None
         )
         self.KPConv = KPConv(mid, mid, kernel_size, radius, sigma, dtype=dtype, tile=tile,
-                             band_width=band_width, kernel=kernel, impl=impl, knn_k=knn_k)
+                             band_width=band_width, kernel=kernel, impl=impl, knn_k=knn_k,
+                             aggregate_compact=aggregate_compact)
         self.norm_conv = norm_factory(norm, group_norm, mid)
         self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False, norm=norm, dtype=dtype)
         self.unary_shortcut = (
@@ -300,19 +349,27 @@ class ResidualBlock(nn.Module):
             if in_channels != out_channels else None
         )
 
-    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, neighbor_indices=None, influence=None):
+    def forward(self, s_feats, q_points, s_points, starts=None, tau=None, neighbor_indices=None, influence=None,
+                rel=None):
         x = s_feats if self.unary1 is None else self.unary1(s_feats)
         shortcut = None
         if self.residual_fused:
             x, shortcut = self.KPConv(x, q_points, s_points, starts, tau, mp_feats=s_feats)
         else:
             x = self.KPConv(x, q_points, s_points, starts, tau, neighbor_indices=neighbor_indices,
-                            influence=influence)
+                            influence=influence, rel=rel)
         x = self.unary2(leaky_relu(self.norm_conv(x)))
         if not self.strided:
             shortcut = s_feats
         elif shortcut is None:  # not from the fused band pass
-            if self.impl == "gather":
+            if self.maxpool_compact:
+                knn = self.impl == "banded_knn"
+                k = self.knn_k if knn else self.maxpool_compact
+                shortcut = banded_compact_maxpool(
+                    s_feats, q_points, s_points, 0.0 if knn else self.r_active, k, self.tile, self.band_width,
+                    knn=knn, rel=None if rel is None else rel[..., :k],
+                )
+            elif self.impl == "gather":
                 shortcut = neighbor_maxpool(s_feats, neighbor_indices)
             elif self.impl == "banded_knn":
                 if tau is None:
@@ -368,13 +425,21 @@ class KPConvFPN(nn.Module):
     (kpconv.py:923-1003); without it every KPConv computes its own, as a
     reference checkpoint's per-layer kernel points need.  The banded paths
     always compute influence per layer from its own kernel points.
+
+    ``maxpool_compact_plan`` / ``aggregate_compact_plan`` (per support
+    level, 0 or None = the band formulation): the compacted strided
+    shortcuts and KPConvs (banded impls; kpconv.py:757-769); each pair with
+    a compacted consumer gets one shared selection (``rel_for``,
+    kpconv.py:908-920).  A dynamic or k-NN window on a support level that
+    also takes a compacted formulation raises NotImplementedError.
     """
 
     def __init__(self, input_dim=4, output_dim=64, init_dim=64, kernel_size=15, init_radius=0.425,
                  init_sigma=0.2, group_norm=32, dtype=torch.float32, tile=128, band_width=1024,
                  band_plan=None, kernel="auto", dynamic_plan=None, dynamic_plan_self=None,
                  dynamic_center="best", impl="banded", knn_k=128, knn_window_plan=None,
-                 shared_influence=True, residual_fused=False, norm="gn"):
+                 shared_influence=True, residual_fused=False, norm="gn", maxpool_compact_plan=None,
+                 aggregate_compact_plan=None):
         super().__init__()
         d, ks, r, s = init_dim, kernel_size, init_radius, init_sigma
         self.tile, self.band_width, self.band_plan = tile, band_width, band_plan
@@ -382,21 +447,27 @@ class KPConvFPN(nn.Module):
         self.dynamic_center, self.kernel_size, self.r, self.s = dynamic_center, ks, r, s
         self.impl, self.knn_k, self.knn_window_plan = impl, knn_k, knn_window_plan
         self.kernel, self.shared_influence = kernel, shared_influence
+        self.maxpool_compact_plan, self.aggregate_compact_plan = maxpool_compact_plan, aggregate_compact_plan
         common = dict(group_norm=group_norm, dtype=dtype, tile=tile, kernel=kernel, impl=impl, knn_k=knn_k, norm=norm)
 
-        self.encoder1_1 = ConvBlock(input_dim, d, ks, r, s, band_width=self._bw_for(0, True), **common)
-        self.encoder1_2 = ResidualBlock(d, d * 2, ks, r, s, band_width=self._bw_for(0, True), **common)
+        self.encoder1_1 = ConvBlock(input_dim, d, ks, r, s, band_width=self._bw_for(0, True),
+                                    aggregate_compact=self.agg_compact(0), **common)
+        self.encoder1_2 = ResidualBlock(d, d * 2, ks, r, s, band_width=self._bw_for(0, True),
+                                        aggregate_compact=self.agg_compact(0), **common)
         for stage, cin, cout in ((2, d * 2, d * 4), (3, d * 4, d * 8), (4, d * 8, d * 16), (5, d * 16, d * 32)):
             lvl = stage - 1
             rs, rc = r * 2 ** (stage - 2), r * 2 ** (stage - 1)
             ss, sc = s * 2 ** (stage - 2), s * 2 ** (stage - 1)
             setattr(self, f"encoder{stage}_1", ResidualBlock(
                 cin, cin, ks, rs, ss, strided=True, band_width=self._bw_for(lvl - 1, False),
-                residual_fused=residual_fused, **common))
+                residual_fused=residual_fused, maxpool_compact=self.mp_compact(lvl - 1),
+                aggregate_compact=self.agg_compact(lvl - 1), **common))
             setattr(self, f"encoder{stage}_2", ResidualBlock(
-                cin, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), **common))
+                cin, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), aggregate_compact=self.agg_compact(lvl),
+                **common))
             setattr(self, f"encoder{stage}_3", ResidualBlock(
-                cout, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), **common))
+                cout, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), aggregate_compact=self.agg_compact(lvl),
+                **common))
         self.decoder4 = UnaryBlock(d * 32 + d * 16, d * 16, group_norm, norm=norm, dtype=dtype)
         self.decoder3 = UnaryBlock(d * 16 + d * 8, d * 8, group_norm, norm=norm, dtype=dtype)
         self.decoder2 = UnaryBlock(d * 8 + d * 4, output_dim, norm=None, dtype=dtype)
@@ -409,23 +480,54 @@ class KPConvFPN(nn.Module):
             return int(self.band_plan[-1]) * 2 ** (support_lvl - len(self.band_plan) + 1)
         return self.band_width * 2**support_lvl
 
+    @staticmethod
+    def _plan_at(plan, support_lvl: int) -> int:
+        return int(plan[support_lvl] or 0) if plan is not None and support_lvl < len(plan) else 0
+
+    def mp_compact(self, support_lvl: int) -> int:
+        """Compacted shortcut maxpool k of a support level (0 = the band
+        formulation; kpconv.py:757-762); the plan is ignored under 'gather'."""
+        return self._plan_at(self.maxpool_compact_plan, support_lvl) if self.impl != "gather" else 0
+
+    def agg_compact(self, support_lvl: int) -> int:
+        """Compacted KPConv aggregation k of a support level (0 = the band
+        formulation; kpconv.py:764-769); the plan is ignored under 'gather'."""
+        return self._plan_at(self.aggregate_compact_plan, support_lvl) if self.impl != "gather" else 0
+
+    def _refuse_window(self, plan_name: str, support_lvl: int) -> None:
+        # the compacted branches take no starts and would read the window
+        # width as the static half-band: a quiet change of geometry
+        if self.mp_compact(support_lvl) or self.agg_compact(support_lvl):
+            raise NotImplementedError(
+                f"{plan_name} cannot be combined with maxpool_compact_plan/aggregate_compact_plan on the same "
+                f"support level ({support_lvl}): the compacted branches ignore dynamic starts"
+            )
+
     def dyn_w(self, support_lvl: int, is_self: bool) -> int:
         """Dynamic window width of a radius pair (0 = static band;
-        kpconv.py:771-792)."""
+        kpconv.py:771-792); raises where the level takes a compacted
+        formulation."""
         plan = self.dynamic_plan
         if is_self and self.dynamic_plan_self is not None:
             plan = self.dynamic_plan_self
         if plan is None or self.impl != "banded":
             return 0
-        return int(plan[support_lvl] or 0) if support_lvl < len(plan) else 0
+        w = self._plan_at(plan, support_lvl)
+        if w:
+            self._refuse_window("kpconv_dynamic_plan", support_lvl)
+        return w
 
     def knn_w(self, support_lvl: int) -> int:
         """k-NN window width of a pair under ``impl='banded_knn'`` (0 =
-        static band; kpconv.py:794-801)."""
-        plan = self.knn_window_plan
-        if self.impl != "banded_knn" or plan is None:
+        static band; kpconv.py:794-801).  Unlike the JAX package's, it raises
+        where the level takes a compacted formulation, as :meth:`dyn_w`
+        does."""
+        if self.impl != "banded_knn":
             return 0
-        return int(plan[support_lvl] or 0) if support_lvl < len(plan) else 0
+        w = self._plan_at(self.knn_window_plan, support_lvl)
+        if w:
+            self._refuse_window("kpconv_knn_window_plan", support_lvl)
+        return w
 
     def _bw_for(self, support_lvl: int, is_self: bool) -> int:
         return self.dyn_w(support_lvl, is_self) or self.knn_w(support_lvl) or self.bw(support_lvl)
@@ -460,10 +562,27 @@ class KPConvFPN(nn.Module):
 
     def pair_aux(self, q_pts, s_pts, support_lvl, radius_scale, is_self):
         """(tau, starts) of a (query level, support level) pair under the
-        impl (kpconv.py:840-846)."""
+        impl (kpconv.py:840-846).  A k-NN pair whose consumers (its
+        KPConvs and, on a cross pair, the strided shortcut) all take a
+        compacted formulation gets no tau: nothing would read it."""
         if self.impl == "banded_knn":
+            compacted = self.agg_compact(support_lvl) and (is_self or self.mp_compact(support_lvl))
+            if compacted:
+                return None, None
             return self.knn_tau_starts(q_pts, s_pts, support_lvl)
         return None, self.starts_for(q_pts, s_pts, support_lvl, radius_scale, is_self)
+
+    def rel_for(self, q_pts, s_pts, support_lvl, agg_k, mp_k=0):
+        """One nearest-first selection per (query level, support level) pair
+        with a compacted consumer, shared by all of them: the KPConvs slice
+        its first agg_k columns, the shortcut its first mp_k; taken at
+        ``knn_k`` under 'banded_knn', else at the largest k (kpconv.py:
+        908-920).  None where no consumer is compacted."""
+        ks = [k for k in (agg_k, mp_k) if k > 0]
+        if not ks:
+            return None
+        kmax = self.knn_k if self.impl == "banded_knn" else max(ks)
+        return banded_knn_select(q_pts, s_pts, kmax, self.tile, self.bw(support_lvl))
 
     def influence_for(self, q_pts, s_pts, nbr, radius_scale):
         """A level's shared influence of the canonical kernel points, or None
@@ -477,24 +596,29 @@ class KPConvFPN(nn.Module):
         enc = {}
         nbr0 = neighbors[0] if gather else None
         inf0 = self.influence_for(points[0], points[0], nbr0, 1)
+        rel0 = self.rel_for(points[0], points[0], 0, self.agg_compact(0))
         tau0, st0 = self.pair_aux(points[0], points[0], 0, 1, True)
-        x = self.encoder1_1(feats, points[0], points[0], st0, tau0, neighbor_indices=nbr0, influence=inf0)
-        enc[1] = self.encoder1_2(x, points[0], points[0], st0, tau0, neighbor_indices=nbr0, influence=inf0)
+        x = self.encoder1_1(feats, points[0], points[0], st0, tau0, neighbor_indices=nbr0, influence=inf0, rel=rel0)
+        enc[1] = self.encoder1_2(x, points[0], points[0], st0, tau0, neighbor_indices=nbr0, influence=inf0,
+                                 rel=rel0)
         x = enc[1]
         for stage in range(2, 6):
             lvl = stage - 1
             nbr = neighbors[lvl] if gather else None
             sub = subsampling[lvl - 1] if gather else None
             inf_s = self.influence_for(points[lvl], points[lvl], nbr, 2 ** (stage - 1))
+            rel_c = self.rel_for(points[lvl], points[lvl - 1], lvl - 1, self.agg_compact(lvl - 1),
+                                 self.mp_compact(lvl - 1))
+            rel_s = self.rel_for(points[lvl], points[lvl], lvl, self.agg_compact(lvl))
             tau_c, st_c = self.pair_aux(points[lvl], points[lvl - 1], lvl - 1, 2 ** (stage - 2), False)
             tau_s, st_s = self.pair_aux(points[lvl], points[lvl], lvl, 2 ** (stage - 1), True)
             # the gather maps go by keyword: a block's positional arguments
             # stay (feats, q, s, starts, tau) on every path
             strided = getattr(self, f"encoder{stage}_1")
-            x = strided(x, points[lvl], points[lvl - 1], st_c, tau_c, neighbor_indices=sub)
+            x = strided(x, points[lvl], points[lvl - 1], st_c, tau_c, neighbor_indices=sub, rel=rel_c)
             for i in (2, 3):
                 x = getattr(self, f"encoder{stage}_{i}")(x, points[lvl], points[lvl], st_s, tau_s,
-                                                         neighbor_indices=nbr, influence=inf_s)
+                                                         neighbor_indices=nbr, influence=inf_s, rel=rel_s)
             enc[stage] = x
 
         def upsample(coarse, lvl):

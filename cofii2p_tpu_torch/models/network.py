@@ -91,13 +91,6 @@ class CoFiI2P(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        # rejecting the compacted plans here also keeps a k-NN window plan
-        # from meeting them (the guard ADVICE r5 asks of knn_w)
-        if cfg.maxpool_compact_plan or cfg.aggregate_compact_plan:
-            raise NotImplementedError(
-                "maxpool_compact_plan / aggregate_compact_plan: the compacted formulations are ROADMAP "
-                "queue 1 item 1 (the compacted formulations)"
-            )
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.pc_encoder = KPConvFPN(
@@ -110,6 +103,7 @@ class CoFiI2P(nn.Module):
             dynamic_center=cfg.kpconv_dynamic_center, impl=cfg.kpconv_impl, knn_k=cfg.neighbor_num,
             knn_window_plan=cfg.kpconv_knn_window_plan, shared_influence=cfg.kpconv_shared_influence,
             residual_fused=cfg.kpconv_residual_fused, norm=cfg.norm,
+            maxpool_compact_plan=cfg.maxpool_compact_plan, aggregate_compact_plan=cfg.aggregate_compact_plan,
         )
         stage_sizes = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}[cfg.img_backbone]
         self.img_encoder = ResNetEncoder(stage_sizes, dtype=dtype)

@@ -46,7 +46,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     biased variance (cofii2p_tpu/models/resnet.py:120-123): the port's
     counterpart of JAX's mutable ``batch_stats``.  ``F.batch_norm`` in
     training mode would store the unbiased variance instead.
+
+    ``process_group`` (set by parallel/mesh.py::sync_batch_norms under data
+    parallelism): the sums behind the statistics are all-reduced over it,
+    differentiably, so every rank normalises with the global batch's
+    statistics, as XLA partitions JAX's BatchNorm.  ``nn.SyncBatchNorm``
+    keeps the unbiased running variance, so it cannot stand in.
     """
+
+    process_group = None
 
     def forward(self, x, train: bool = False):
         x32 = x.float()
@@ -54,8 +62,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(
                 x32, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps,
             ).to(x.dtype)
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        c = x32.shape[1]
+        sums = torch.cat([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)),
+                          x32.new_full((1,), x32.numel() // c)])
+        if self.process_group is not None:
+            from torch.distributed.nn.functional import all_reduce
+
+            sums = all_reduce(sums, group=self.process_group)
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)

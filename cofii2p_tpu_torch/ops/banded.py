@@ -26,6 +26,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 # elements of the largest intermediate one chunk of tiles may hold; bounds
 # the plain versions' memory at KITTI scale
@@ -258,6 +259,179 @@ def banded_maxpool(s_feats, q_points, s_points, r_active, tile=128, band_width=1
         pooled = torch.where(within[..., None], f[:, :, None], neg).amax(dim=3)
         out[:, t0:t1] = torch.where(within.any(-1, keepdim=True), pooled, 0.0)
     return out.reshape(b, m, c)
+
+
+def _nearest_k(d2: torch.Tensor, kk: int, approx: bool = False):
+    """Negated d2 and indices (..., kk) of the kk nearest rows along the
+    last axis, nearest first, the lower index first among equal distances:
+    ``lax.top_k(-d2, kk)`` (cofii2p_tpu/ops/banded.py:502-515), by a stable
+    sort, since ``torch.topk`` promises no order among ties.  ``approx``
+    is accepted and selects exactly, as the JAX package's CPU lowering of
+    ``approx_max_k`` does."""
+    del approx
+    d2s, idx = torch.sort(d2, dim=-1, stable=True)
+    return -d2s[..., :kk], idx[..., :kk]
+
+
+def _membership_d2_rows(q: torch.Tensor, p_rows: torch.Tensor) -> torch.Tensor:
+    """:func:`_membership_d2` for gathered per-query rows: q (..., T, 3),
+    p_rows (..., T, S, 3) -> (..., T, S), with the same centring on the
+    tile's first query and per-dimension op order, so a gathered recompute
+    is bit-equal to the full-band d2 at the gathered positions
+    (cofii2p_tpu/ops/banded.py:280-292)."""
+    ref = q[..., 0:1, :]
+    qc = q - ref
+    pc = p_rows - ref[..., None, :]
+    d2 = None
+    for d in range(3):
+        diff = qc[..., :, None, d] - pc[..., d]
+        sq = diff * diff
+        d2 = sq if d2 is None else d2 + sq
+    return d2
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Band rows by band-local index: x (B, t, band, D), idx (B, t, T, k)
+    -> (B, t, T, k, D); differentiable in ``x`` (a scatter-add back)."""
+    b, t, tq, k = idx.shape
+    d = x.shape[-1]
+    flat = idx.reshape(b, t, tq * k, 1).expand(-1, -1, -1, d)
+    return torch.gather(x, 2, flat).reshape(b, t, tq, k, d)
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, recomputed in the backward rather than saved when
+    autograd records it: the counterpart of the JAX package's
+    ``jax.checkpoint(tile_fn)`` (banded.py:647, :766), which keeps a tile
+    chunk's gathered rows and influence out of the saved tensors."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _static_tiles(q_points, s_points, s_feats, tile, band_width):
+    """(tile, num_tiles, band, query tiles, point bands, feature bands) of
+    the static band plan; the compacted ops take no dynamic starts."""
+    m, n = q_points.shape[1], s_points.shape[1]
+    tile, num_tiles, band = band_plan(m, n, tile, band_width)
+    qt, pb, fb = _tiles(q_points, s_points, s_feats, tile, num_tiles, band, None)
+    return tile, num_tiles, band, qt, pb, fb
+
+
+def banded_knn_select(q_points, s_points, k=128, tile=128, band_width=1024, approx=False):
+    """Band-local indices (B, M, kk) int64 of each query's kk = min(k, band)
+    nearest band rows, nearest first, the lower band index first among
+    equal distances (cofii2p_tpu/ops/banded.py:518-563).  Every compacted
+    consumer of a (query level, support level) pair shares one selection:
+    the first j columns are the j-nearest selection, so a consumer with a
+    smaller k slices ``rel[..., :j]``.  Indices count from each tile's
+    static band start."""
+    b, m = q_points.shape[:2]
+    tile, num_tiles, band, qt, pb, _ = _static_tiles(q_points, s_points, None, tile, band_width)
+    kk = min(k, band)
+    parts = []
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * band):
+        parts.append(_nearest_k(_membership_d2(qt[:, t0:t1], pb[:, t0:t1]), kk, approx)[1])
+    return torch.cat(parts, dim=1).reshape(b, m, kk)
+
+
+def banded_compact_maxpool(s_feats, q_points, s_points, r_active, k=128, tile=128, band_width=1024, knn=False,
+                           approx=False, rel=None):
+    """Max over each query's <= k nearest band members (plain PyTorch;
+    cofii2p_tpu/ops/banded.py:566-655): the k nearest band rows are
+    selected (or read from ``rel``, (B, M, j) band-local indices from
+    :func:`banded_knn_select` on the same plan), gathered and maxed.
+
+    ``knn=False``: the members are the selected rows within ``r_active``,
+    so the result is :func:`banded_maxpool`'s wherever the in-reach count
+    is <= k, and 0 where no selected row is in reach.  ``knn=True``: the
+    members are the k nearest, with no radius mask (the reference's k-NN
+    maxpool).  The max's gradient is split evenly among tied maxima, as
+    JAX differentiates ``jnp.max``.  Returns (B, M, C) in s_feats' dtype.
+    """
+    b, m = q_points.shape[:2]
+    c = s_feats.shape[-1]
+    r2 = r_active * r_active
+    tile, num_tiles, band, qt, pb, fb = _static_tiles(q_points, s_points, s_feats, tile, band_width)
+    kk = min(k, band) if rel is None else rel.shape[-1]
+    rt = None if rel is None else rel.reshape(b, num_tiles, tile, kk).long()
+    neg = torch.tensor(float("-inf"), dtype=s_feats.dtype, device=s_feats.device)
+
+    def pool(q, p, f, rel_t):
+        if rel_t is None:
+            negk, idx = _nearest_k(_membership_d2(q, p), kk, approx)
+            d2k = -negk
+        else:
+            idx, d2k = rel_t, None
+        rows = _take_rows(f, idx)  # (B, t, T, kk, C)
+        if knn:
+            return rows.amax(3) if kk else torch.zeros(*q.shape[:-1], c, dtype=f.dtype, device=f.device)
+        if d2k is None:
+            d2k = _membership_d2_rows(q, _take_rows(p, idx))
+        member = d2k <= r2  # (B, t, T, kk)
+        out = torch.where(member[..., None], rows, neg).amax(3)
+        return torch.where(member.any(-1, keepdim=True), out, 0.0)
+
+    parts = []
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * max(band, kk * c)):
+        parts.append(_checkpointed(pool, qt[:, t0:t1], pb[:, t0:t1], fb[:, t0:t1],
+                                   None if rt is None else rt[:, t0:t1]))
+    return torch.cat(parts, dim=1).reshape(b, m, c)
+
+
+def banded_compact_aggregate(s_feats, q_points, s_points, radius, sigma, kernel_size=15, k=128, tile=128,
+                             band_width=1024, dtype=torch.float32, knn=False, kp=None, approx=False, rel=None):
+    """KPConv aggregation over each query's <= k nearest band members
+    (plain PyTorch; cofii2p_tpu/ops/banded.py:658-768): the rows are
+    selected as in :func:`banded_compact_maxpool`, gathered, and
+    weighted[m, k, c] = sum over them of infl_k(q_m, s_j) * s_feats[j, c].
+
+    ``knn=False`` (radius): members are the selected rows within kernel
+    reach; ``count`` is the uncapped in-reach count over the whole band,
+    so the result is :func:`banded_kpconv_aggregate`'s wherever that count
+    is <= k.  ``knn=True``: members are the k nearest rows with no reach
+    mask, and ``count`` the reference's active-row rule, the gathered rows
+    whose features sum to more than 0; with ``rel`` given no full-band d2
+    is computed.  ``kp`` (K, 3): the layer's own kernel points (else the
+    canonical disposition).  The influence and the features are rounded to
+    ``dtype`` and multiplied in fp32 (JAX's bf16 contraction with fp32
+    output).  Returns weighted (B, M, K, C) fp32 and count (B, M) int32.
+    """
+    b, m = q_points.shape[:2]
+    c = s_feats.shape[-1]
+    dev = q_points.device
+    if kp is None:
+        kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+        r2 = kernel_reach(radius, sigma, kernel_size) ** 2
+    else:
+        kp = kp.to(device=dev, dtype=torch.float32)
+        r2 = tau_reach2(radius, sigma, kernel_size)
+    k_num = kp.shape[0]
+    tile, num_tiles, band, qt, pb, fb = _static_tiles(q_points, s_points, s_feats, tile, band_width)
+    kk = min(k, band) if rel is None else rel.shape[-1]
+    rt = None if rel is None else rel.reshape(b, num_tiles, tile, kk).long()
+
+    def aggregate(q, p, f, rel_t):
+        d2full = _membership_d2(q, p) if rel_t is None or not knn else None
+        idx = _nearest_k(d2full, kk, approx)[1] if rel_t is None else rel_t
+        p_rows, f_rows = _take_rows(p, idx), _take_rows(f, idx)
+        infl = _influence(p_rows - q[..., None, :], kp, sigma)  # (B, t, T, kk, K)
+        if knn:
+            count = (f_rows.float().sum(-1) > 0.0).sum(-1)
+        else:
+            within = _membership_d2_rows(q, p_rows) <= r2
+            infl = torch.where(within[..., None], infl, 0.0)
+            count = (d2full <= r2).sum(-1)  # uncapped, as the full-band aggregate
+        weighted = torch.einsum("xytqk,xytqc->xytkc", _round(infl, dtype), _round(f_rows, dtype))
+        return weighted, torch.clamp(count, min=1).to(torch.int32)
+
+    ws, cs = [], []
+    for t0, t1 in _tile_chunks(num_tiles, b * tile * max(band, kk * max(k_num, c))):
+        w, cnt = _checkpointed(aggregate, qt[:, t0:t1], pb[:, t0:t1], fb[:, t0:t1],
+                               None if rt is None else rt[:, t0:t1])
+        ws.append(w)
+        cs.append(cnt)
+    return torch.cat(ws, dim=1).reshape(b, m, k_num, c), torch.cat(cs, dim=1).reshape(b, m)
 
 
 def banded_knn_tau(q_points, s_points, k=128, tile=128, band_width=1024, starts=None):
@@ -556,3 +730,37 @@ def _best_windows(q_points, s_points, threshold, tile, width, stride):
         static = ((2 * t * tile + tile) * n) // (2 * m) - width // 2
         out[:, t0:t1] = torch.where(has, dyn, static)
     return torch.clamp(out, 0, n - width).to(torch.int32)
+
+
+def band_coverage(q_points, s_points, radius, sigma, kernel_size=15, tile=128, band_width=1024) -> dict:
+    """Host diagnostic (NumPy, float64) of one frame: the share of
+    in-reach (query, support) pairs, and of their influence mass, that the
+    static band plan keeps; 1.0 means the banded op equals the full
+    radius-neighbourhood op on this cloud (cofii2p_tpu/ops/banded.py:891-935).
+    q_points (M, 3), s_points (N, 3)."""
+    q = np.asarray(q_points, np.float64)
+    s = np.asarray(s_points, np.float64)
+    m, n = len(q), len(s)
+    r = kernel_reach(radius, sigma, kernel_size)
+    tile, num_tiles, band, dense = _band_geometry(m, n, tile, band_width)
+    if dense:
+        return {"pair_coverage": 1.0, "mass_coverage": 1.0, "band": band}
+
+    d2 = ((q[:, None, :] - s[None, :, :]) ** 2).sum(-1)  # (M, N)
+    within = d2 <= r * r
+    kp = _load_kernel_points(radius, kernel_size)
+    dk = np.sqrt(np.maximum(d2[..., None] - 2.0 * (q[:, None, :] - s[None, :, :]) @ kp.T + (kp**2).sum(-1), 0.0))
+    mass = np.maximum(1.0 - dk / sigma, 0.0).sum(-1) * within  # (M, N)
+
+    t_idx = np.arange(m) // tile
+    centers = ((2 * t_idx * tile + tile) * n) // (2 * m)
+    starts = np.clip(centers - band // 2, 0, n - band)
+    j = np.arange(n)[None, :]
+    in_band = (j >= starts[:, None]) & (j < starts[:, None] + band)
+
+    pairs = within.sum()
+    return {
+        "pair_coverage": float((within & in_band).sum() / max(pairs, 1)),
+        "mass_coverage": float((mass * in_band).sum() / max(mass.sum(), 1e-12)),
+        "band": band,
+    }

@@ -7,6 +7,7 @@
     python -m cofii2p_tpu_torch.train kitti --synthetic --fast --steps 4 --batch_size 8
     python -m cofii2p_tpu_torch.train kitti --synthetic kpconv_impl=banded_knn --steps 4 --batch_size 8
     python -m cofii2p_tpu_torch.train tiny --synthetic --steps 2 --device cpu   # tests
+    torchrun --nproc_per_node 4 -m cofii2p_tpu_torch.train kitti --synthetic --batch_size 32   # 4 cards
 
 ``kitti`` reads the on-disk KITTI Odometry frames under ``data_path``
 (data/kitti.py), ``nuscenes`` the builder's frames (data/nuscenes.py,
@@ -16,6 +17,13 @@ the card (``--device cuda``, the default) and raises when there is none;
 ``--fast`` trains with the w256 dynamic windows of config.FAST_DYNAMIC_PLAN
 (``with_fast_windows``, after the overrides: an explicit window plan wins,
 and a ``banded_knn`` config is left alone).
+
+Data parallelism: under ``torchrun`` (``WORLD_SIZE`` set) each process
+joins the process group (NCCL on cards, gloo with ``--device cpu``), takes
+the card of its ``LOCAL_RANK`` and its rows of every global batch of
+``--batch_size`` (parallel/mesh.py; train_lib.py says why a step equals
+the one-process step); a group the caller initialised is used as it is.
+Rank 0 alone logs metrics and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -26,11 +34,13 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cofii2p_tpu_torch import train_lib
 from cofii2p_tpu_torch.config import apply_overrides, get_config, with_fast_windows
 from cofii2p_tpu_torch.data.loader import BatchLoader
 from cofii2p_tpu_torch.models.network import CoFiI2P
+from cofii2p_tpu_torch.parallel.mesh import make_mesh, shard_host_batch
 from cofii2p_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from cofii2p_tpu_torch.utils.metrics import MetricWriter, setup_logger
 
@@ -64,6 +74,21 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k != "index"}
 
 
+def join_process_group(device: torch.device):
+    """Under torchrun (WORLD_SIZE set, no group yet) join the process group,
+    NCCL for cards and gloo for the CPU, and take this rank's card.  Returns
+    (the device to run on, whether this call created the group)."""
+    created = False
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        created = True
+    if device.type == "cuda" and dist.is_initialized():
+        local = int(os.environ.get("LOCAL_RANK", torch.cuda.current_device()))
+        torch.cuda.set_device(local)
+        device = torch.device("cuda", local)
+    return device, created
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Image-to-Point Cloud Registration (CoFiI2P, PyTorch/CUDA)")
     parser.add_argument("dataset", type=str, help="kitti | nuscenes | tiny")
@@ -87,14 +112,22 @@ def main(argv=None):
     if args.fast:
         cfg = with_fast_windows(cfg)
     batch_size = args.batch_size or cfg.train_batch_size
-    device = resolve_device(args.device)
+    device, created_group = join_process_group(resolve_device(args.device))
+    mesh = make_mesh(device.type)
+    n_dev = mesh.size()
+    if batch_size % n_dev and batch_size > 1:
+        raise ValueError(f"batch_size {batch_size} not divisible by {n_dev} ranks")
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     ts = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
     save_dir = os.path.join(cfg.root_path, cfg.save_path, args.dataset, ts)
     log_dir = os.path.join(cfg.root_path, cfg.log_path, args.dataset, ts)
-    logger = setup_logger(log_dir)
-    writer = MetricWriter(log_dir)
+    logger = setup_logger(log_dir if lead else None)
+    if not lead:
+        logger.setLevel("WARNING")
+    writer = MetricWriter(log_dir) if lead else None
     logger.info("config: %s", cfg)
+    logger.info("data parallel over %d rank(s)", n_dev)
     if device.type == "cuda":
         logger.info("device: %s x%d", torch.cuda.get_device_name(device), torch.cuda.device_count())
         if cfg.compute_dtype == "float32":
@@ -108,7 +141,8 @@ def main(argv=None):
     train_ds = build_dataset(args.dataset, cfg, "train", args.synthetic, args.synthetic_frames)
     val_ds = build_dataset(args.dataset, cfg, "val", args.synthetic, max(args.synthetic_frames // 4, 8))
     assert len(train_ds) > 0 and len(val_ds) > 0
-    stage = device if device.type == "cuda" else None
+    # staged on the card while the step runs; a rank of several slices it
+    stage = device if device.type == "cuda" and n_dev == 1 else None
     train_loader = BatchLoader(train_ds, batch_size, shuffle=True, num_workers=cfg.num_workers, to_device=stage)
     val_loader = BatchLoader(val_ds, batch_size, shuffle=False, num_workers=cfg.num_workers, to_device=stage)
 
@@ -116,8 +150,8 @@ def main(argv=None):
     model = CoFiI2P(cfg).to(device)
     optimizer = train_lib.make_optimizer(cfg, model.parameters())
     has_normals = getattr(train_ds, "has_normals", True)
-    train_step = train_lib.make_train_step(cfg, model, optimizer, has_normals)
-    eval_step = train_lib.make_eval_step(cfg, model, has_normals)
+    train_step = train_lib.make_train_step(cfg, model, optimizer, has_normals, mesh)
+    eval_step = train_lib.make_eval_step(cfg, model, has_normals, mesh)
     gen = torch.Generator(device).manual_seed(42)
 
     global_step = 0
@@ -133,12 +167,13 @@ def main(argv=None):
     for epoch in range(start_epoch, cfg.epoch):
         train_lib.set_learning_rate(optimizer, train_lib.lr_for_epoch(cfg, epoch))
         for host_batch in train_loader.epoch(epoch):
-            hb = _to_device(host_batch, device)
-            metrics = train_step(hb, train_lib.make_train_draws(cfg, batch_size, gen, device))
+            hb = shard_host_batch(host_batch, mesh, device)
+            metrics = train_step(hb, train_lib.make_train_draws(cfg, batch_size, gen, device, mesh))
             global_step += 1
             if global_step % 10 == 0:
                 m = {k: float(v) for k, v in metrics.items()}
-                writer.write(global_step, m)
+                if writer:
+                    writer.write(global_step, m)
                 logger.info("train-%d-%d loss %.4f desc %.4f coarse %.4f fine %.4f", epoch, global_step,
                             m["loss"], m["loss_desc"], m["loss_coarse"], m["loss_fine"])
             if global_step % cfg.val_freq == 0:
@@ -146,23 +181,29 @@ def main(argv=None):
                 for i, vb in enumerate(val_loader.epoch(0)):
                     if i >= VAL_BATCHES:
                         break
-                    r = eval_step(_to_device(vb, device), train_lib.make_train_draws(cfg, batch_size, gen, device))
+                    r = eval_step(shard_host_batch(vb, mesh, device),
+                                  train_lib.make_train_draws(cfg, batch_size, gen, device, mesh))
                     accs.append({k: float(v) for k, v in r.items()})
                 mean = {k: float(np.mean([a[k] for a in accs])) for k in accs[0]}
-                writer.write(global_step, mean)
+                if writer:
+                    writer.write(global_step, mean)
                 logger.info("val @%d: %s", global_step, mean)
             if args.ckpt_every_steps and global_step % args.ckpt_every_steps == 0:
-                save_checkpoint(save_dir, global_step, model, optimizer)
+                if lead:
+                    save_checkpoint(save_dir, global_step, model, optimizer)
                 last_saved = global_step
             if args.steps and global_step >= args.steps:
                 stop = True
                 break
-        if (stop or (epoch + 1) % max(args.ckpt_every_epochs, 1) == 0) and global_step != last_saved:
+        if (stop or (epoch + 1) % max(args.ckpt_every_epochs, 1) == 0) and global_step != last_saved and lead:
             path = save_checkpoint(save_dir, global_step, model, optimizer)
             logger.info("saved %s", path)
         if stop:
             break
-    writer.close()
+    if writer:
+        writer.close()
+    if created_group:
+        dist.destroy_process_group()
     return save_dir
 
 

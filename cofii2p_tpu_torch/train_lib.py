@@ -6,7 +6,19 @@ One step is on-device sample prep (pyramid and supervision), the forward in
 kernels, and the Adam update.  The model holds the parameters and the
 BatchNorm running statistics (the JAX ``batch_stats``), the optimizer its
 moments; the random draws of a step are inputs (:func:`make_train_draws`).
-Data parallelism is not ported yet.
+
+Data parallelism (``mesh`` from parallel/mesh.py::make_mesh, one process a
+card under ``torchrun``): each rank holds a replica of the parameters and
+its rows of the global batch and of the global step's draws.  A step then
+equals the one-process step on the global batch, as XLA's partitioning of
+the JAX step does: the gradient is averaged over the group; the decoder's
+BatchNorms normalise with the global batch's statistics
+(models/resnet.py::BatchNorm2d); and each loss is a mean over units every
+rank holds equally many of (desc_loss over frames, overlap_loss over
+keypoints, fine_circle_loss over (frame, keypoint); losses.py:54, 63,
+108), so the mean of the ranks' losses is the global loss and the mean of
+their gradients its gradient.  Metrics are reduced the same way; the
+validation recalls sum their numerators and denominators over the group.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from cofii2p_tpu_torch.config import Config
 from cofii2p_tpu_torch.data.device_pipeline import KEYPOINT_NOISE, prepare_samples
 from cofii2p_tpu_torch.models.network import CoFiI2P
 from cofii2p_tpu_torch.ops.pyramid import random_level_perms
+from cofii2p_tpu_torch.parallel.mesh import all_reduce_sum_, shard_tree, sync_batch_norms
 from cofii2p_tpu_torch.pose.ransac import gumbel_noise
 
 METRICS = ("loss", "loss_desc", "loss_coarse", "loss_fine")
@@ -48,16 +61,18 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def make_train_draws(cfg: Config, batch: int, generator: torch.Generator, device) -> dict:
-    """The random inputs of one train (or eval) step drawn from
-    ``generator``: the pyramid permutations and the Gumbel noise of the
-    three keypoint draws."""
+def make_train_draws(cfg: Config, batch: int, generator: torch.Generator, device, mesh=None) -> dict:
+    """The random inputs of one train (or eval) step of global batch
+    ``batch`` drawn from ``generator``: the pyramid permutations and the
+    Gumbel noise of the three keypoint draws; with ``mesh``, this rank's
+    rows of them, so that the draws do not change with the world size."""
     s, l = cfg.num_superpoints, cfg.num_img_tokens
     shapes = {"kpt": (batch, s), "outline": (batch, s), "img_outline": (batch, l)}
-    return {
+    draws = {
         "perms": random_level_perms(batch, cfg.pyramid_sizes, generator, device),
         "keypoint_noise": {k: gumbel_noise(shapes[k], generator, device) for k in KEYPOINT_NOISE},
     }
+    return draws if mesh is None else shard_tree(draws, batch, mesh)
 
 
 def prepare_batch(cfg: Config, host_batch: dict, draws: dict, has_normals: bool = True) -> dict:
@@ -126,9 +141,23 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
-def make_train_step(cfg: Config, model: CoFiI2P, optimizer: torch.optim.Optimizer, has_normals: bool = True):
+def _mean_over(values: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Each 0-d value averaged over the mesh's ranks."""
+    if mesh is None or mesh.get_group() is None:
+        return values
+    stacked = torch.stack([v.float() for v in values.values()])
+    all_reduce_sum_([stacked], mesh)
+    return dict(zip(values, stacked / mesh.size()))
+
+
+def make_train_step(cfg: Config, model: CoFiI2P, optimizer: torch.optim.Optimizer, has_normals: bool = True,
+                    mesh=None):
     """Returns train_step(host_batch, draws) -> metrics (0-d tensors on the
-    model's device): one update of ``model`` and ``optimizer`` in place."""
+    model's device): one update of ``model`` and ``optimizer`` in place.
+    With ``mesh``, host_batch and draws hold this rank's rows and the step
+    is the global batch's (module docstring)."""
+    if mesh is not None:
+        sync_batch_norms(model, mesh)
 
     def train_step(host_batch: dict, draws: dict) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
@@ -137,7 +166,12 @@ def make_train_step(cfg: Config, model: CoFiI2P, optimizer: torch.optim.Optimize
         terms = loss_fn(cfg, model, batch)
         terms["loss"].backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics = {k: terms[k].detach() for k in METRICS}
+        if mesh is not None and mesh.get_group() is not None:
+            all_reduce_sum_(grads, mesh)
+            if mesh.size() > 1:
+                for g in grads:
+                    g.div_(mesh.size())
+        metrics = _mean_over({k: terms[k].detach() for k in METRICS}, mesh)
         metrics["grad_norm"] = global_norm(grads).detach()
         optimizer.step()
         return metrics
@@ -145,10 +179,11 @@ def make_train_step(cfg: Config, model: CoFiI2P, optimizer: torch.optim.Optimize
     return train_step
 
 
-def make_eval_step(cfg: Config, model: CoFiI2P, has_normals: bool = True):
+def make_eval_step(cfg: Config, model: CoFiI2P, has_normals: bool = True, mesh=None):
     """Returns eval_step(host_batch, draws) -> recalls: coarse top-k
     matching recall, fine recall and the loss on a validation batch, with
-    the running BatchNorm statistics (train_lib.py:165-224)."""
+    the running BatchNorm statistics (train_lib.py:165-224); with ``mesh``,
+    of the global batch whose rows this rank holds."""
 
     @torch.no_grad()
     def eval_step(host_batch: dict, draws: dict) -> Dict[str, torch.Tensor]:
@@ -161,11 +196,9 @@ def make_eval_step(cfg: Config, model: CoFiI2P, has_normals: bool = True):
         ranks = torch.argsort(dists, dim=1, stable=True)
         valid = batch["kpt_valid"].float()
         has_pos = mask.sum(dim=1) > 0
-        denom = torch.clamp(has_pos.sum(), min=1)
-        recalls = {}
-        for k in (1, 2, 3, 4, 5):
-            hit = torch.gather(mask, 1, ranks[:, :k, :]).amax(dim=1)
-            recalls[f"top{k}_recall"] = (hit * has_pos).sum() / denom
+        # numerators and denominators, summed over the group before dividing
+        sums = [torch.gather(mask, 1, ranks[:, :k, :]).amax(dim=1).mul(has_pos).sum() for k in (1, 2, 3, 4, 5)]
+        sums.append(has_pos.sum().float())
         # fine recall: the argmax cell of each keypoint's patch is its label
         patch = out["fine_img_patch"]
         cells = patch.reshape(*patch.shape[:-3], 16, -1)
@@ -175,8 +208,12 @@ def make_eval_step(cfg: Config, model: CoFiI2P, has_normals: bool = True):
 
         cos = torch.einsum("bkpc,bkc->bkp", nrm(cells).float(), nrm(out["fine_pc_feature"]).float())
         fine_hit = (torch.argmax(cos, dim=-1) == batch["relative_index"]).float()
-        recalls["fine_recall"] = (fine_hit * valid).sum() / torch.clamp(valid.sum(), min=1)
-        recalls["val_loss"] = terms["loss"]
+        sums += [(fine_hit * valid).sum(), valid.sum()]
+        sums = torch.stack(sums)
+        all_reduce_sum_([sums], mesh)
+        recalls = {f"top{k}_recall": sums[k - 1] / torch.clamp(sums[5], min=1) for k in (1, 2, 3, 4, 5)}
+        recalls["fine_recall"] = sums[6] / torch.clamp(sums[7], min=1)
+        recalls.update(_mean_over({"val_loss": terms["loss"]}, mesh))
         return recalls
 
     return eval_step

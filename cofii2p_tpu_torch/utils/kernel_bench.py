@@ -131,8 +131,16 @@ def unfused_pair(mp_feats, agg_feats, weights, q_points, s_points, radius, sigma
     return out, count, shortcut
 
 
-def call_bound(name: str, args, kwargs=None):
-    """Bound of one call of the wrapper ``name`` on these arguments."""
+def _work(nbytes, ops32=0.0, ops16=0.0, ops_tf32x3=0.0) -> dict:
+    return dict(nbytes=float(nbytes), ops32=float(ops32), ops16=float(ops16), ops_tf32x3=float(ops_tf32x3))
+
+
+def call_work(name: str, args, kwargs=None) -> dict:
+    """The work of one call of the wrapper ``name`` on these arguments: the
+    bytes it must move (each input read once, each output written once)
+    and its operations by type (``ops32`` on the CUDA cores, ``ops16``
+    bf16 and ``ops_tf32x3`` fp32 products on the tensor cores), counted
+    from this call's data (its in-reach pairs)."""
     from cofii2p_tpu_torch.ops.banded import kernel_reach, tau_reach2
 
     fn = kernel_wrappers()[name][1]
@@ -146,7 +154,7 @@ def call_bound(name: str, args, kwargs=None):
         mma = 4.0 * b * h * l * s * d
         io = (q.numel() * 2 + k.numel() * 2) * q.element_size()
         bf16 = q.dtype == torch.bfloat16
-        return bound_ms(io, ops32=5.0 * b * h * l * s, ops16=mma if bf16 else 0.0,
+        return _work(io, ops32=5.0 * b * h * l * s, ops16=mma if bf16 else 0.0,
                         ops_tf32x3=0.0 if bf16 else mma)
     q, s = a["q_points"], a["s_points"]
     b, m = q.shape[:2]
@@ -160,7 +168,7 @@ def call_bound(name: str, args, kwargs=None):
         from cofii2p_tpu_torch.ops.banded import band_plan
 
         band = band_plan(m, n, a["tile"], a["band_width"], starts)[2]
-        return bound_ms(pts + b * m * 4, ops32=9.0 * b * m * band)
+        return _work(pts + b * m * 4, ops32=9.0 * b * m * band)
     if name.startswith("banded_kpconv") or name == "banded_residual_fused":
         ks, tile, bw = a["kernel_size"], a["tile"], a["band_width"]
         if tau is None:
@@ -179,14 +187,14 @@ def call_bound(name: str, args, kwargs=None):
         if name.startswith("banded_kpconv_transpose"):
             g = a["g_weighted"]
             c = g.shape[-1]
-            return bound_ms(pts + g.numel() * 4 + b * n * c * 4, **ops(pairs * ks * INFL_OPS, 2.0 * pairs * ks * c))
+            return _work(pts + g.numel() * 4 + b * n * c * 4, **ops(pairs * ks * INFL_OPS, 2.0 * pairs * ks * c))
         f = a["agg_feats" if name == "banded_residual_fused" else "s_feats"]
         cin = f.shape[-1]
         infl = pairs * ks * INFL_OPS
         agg = 2.0 * pairs * ks * cin
         if name in ("banded_kpconv_aggregate_fused", "banded_kpconv_aggregate_tau"):
             io = pts + f.numel() * f.element_size() + b * m * (ks * cin + 1) * 4
-            return bound_ms(io, **ops(infl, agg))
+            return _work(io, **ops(infl, agg))
         w = a["weights"]
         cout = w.shape[-1]
         mma = agg + 2.0 * b * m * ks * cin * cout
@@ -196,7 +204,7 @@ def call_bound(name: str, args, kwargs=None):
             mp = a["mp_feats"]
             io += (mp.numel() + b * m * mp.shape[-1]) * mp.element_size()
             infl += pairs * mp.shape[-1]
-        return bound_ms(io, **ops(infl, mma))
+        return _work(io, **ops(infl, mma))
     f = a["s_feats"]
     c = f.shape[-1]
     fbytes = f.numel() * f.element_size()
@@ -204,22 +212,30 @@ def call_bound(name: str, args, kwargs=None):
     pairs = _pairs(q, s, None if tau is not None else a["r_active"], a["tile"], a["band_width"], starts, tau)
     pts += (0 if tau is None else tau.numel() * 4) + (0 if starts is None else starts.numel() * 4)
     if name in ("banded_maxpool_fused", "banded_maxpool_tau"):
-        return bound_ms(pts + fbytes + b * m * c * f.element_size(), ops32=pairs * c)
+        return _work(pts + fbytes + b * m * c * f.element_size(), ops32=pairs * c)
     out_bytes = a["out"].numel() * a["out"].element_size()
     if name == "banded_maxpool_tie_count_fused":
-        return bound_ms(pts + fbytes + out_bytes + b * m * c * 4, ops32=2.0 * pairs * c)
-    return bound_ms(pts + fbytes + out_bytes + b * m * c * 4 + b * n * c * 4, ops32=2.0 * pairs * c)
+        return _work(pts + fbytes + out_bytes + b * m * c * 4, ops32=2.0 * pairs * c)
+    return _work(pts + fbytes + out_bytes + b * m * c * 4 + b * n * c * 4, ops32=2.0 * pairs * c)
+
+
+def call_bound(name: str, args, kwargs=None):
+    """Bound of one call of the wrapper ``name`` on these arguments."""
+    w = call_work(name, args, kwargs)
+    return bound_ms(w["nbytes"], w["ops32"], w["ops16"], w["ops_tf32x3"])
 
 
 @contextlib.contextmanager
-def recording(calls):
+def recording(calls, around=None):
     """Record (name, args, kwargs) of every kernel-wrapper call the model's
-    path makes (forward and backward)."""
+    path makes (forward and backward); ``around(name)``, when given, is a
+    context manager entered around each call."""
     patched = []
     for name, (mod, fn, _) in kernel_wrappers().items():
         def rec(*args, _fn=fn, _name=name, **kwargs):
             calls.append((_name, args, kwargs))
-            return _fn(*args, **kwargs)
+            with around(_name) if around is not None else contextlib.nullcontext():
+                return _fn(*args, **kwargs)
 
         # the wrapper counts its launches on the module attribute it is
         # found by, which is the recorder while this context is open

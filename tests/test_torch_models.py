@@ -201,21 +201,39 @@ def test_knn_dispatch_follows_the_jax_package(monkeypatch):
     assert len(by_name["banded_maxpool_tau"]) == 4
 
 
-@pytest.mark.parametrize("override,match", [
-    (dict(kpconv_impl="gather", aggregate_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 1"),
-    (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "queue 1 item 1"),
+@pytest.mark.parametrize("override,expect", [
+    (dict(kpconv_impl="gather", aggregate_compact_plan=(0, 16, 0, 0, 0)), "ignored"),
+    (dict(maxpool_compact_plan=(0, 16, 0, 0, 0)), "runs"),
     (dict(kpconv_impl="banded_knn", kpconv_knn_window_plan=(0, 128, 0, 0, 0), aggregate_compact_plan=(0, 16, 0, 0, 0)),
-     "queue 1 item 1"),
-])
-def test_network_refuses_unported_variants(override, match):
-    """The compacted formulations, the one configuration still refused,
-    raise at construction, naming where they stand, under every impl; so
-    a k-NN window plan can never meet a compacted plan (the guard ADVICE
-    r5 asks of knn_w)."""
+     "compact"),
+], ids=["gather_ignores_the_plan", "maxpool_plan_runs", "knn_window_meets_compact_plan"])
+def test_network_refuses_unported_variants(override, expect):
+    """The compacted plans, once refused at construction, run: under
+    'gather' they are ignored, as the JAX package ignores them (the
+    forward equals the same forward without the plan), under 'banded' the
+    maxpool plan runs; what the network still refuses is a k-NN window on
+    a support level that takes a compacted formulation (knn_w's guard,
+    which the JAX package lacks)."""
     from cofii2p_tpu_torch.config import TinyConfig
+    from cofii2p_tpu_torch.evaluation.pipeline import make_eval_body
+    from cofii2p_tpu_torch.utils.convert import randomize
 
-    with pytest.raises(NotImplementedError, match=match):
-        CoFiI2P(TinyConfig(**override))
+    cfg = TinyConfig(**override)
+    if expect == "compact":
+        with pytest.raises(NotImplementedError, match=expect):
+            CoFiI2P(cfg)
+        return
+    model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(0)).eval()
+    hb = {k: torch.as_tensor(v) for k, v in host_batch(cfg, 1).items()}
+    out = make_eval_body(cfg, model)(hb, torch.Generator().manual_seed(1))
+    assert torch.isfinite(out.pc_score).all() and torch.isfinite(out.fine_xy).all()
+    if expect == "ignored":
+        plain_cfg = cfg.replace(aggregate_compact_plan=None)
+        plain = CoFiI2P(plain_cfg).eval()
+        plain.load_state_dict(model.state_dict())
+        ref = make_eval_body(plain_cfg, plain)(hb, torch.Generator().manual_seed(1))
+        for name, a, b in zip(out._fields, out, ref):
+            assert torch.equal(torch.nan_to_num(a.float()), torch.nan_to_num(b.float())), name
 
 
 @pytest.mark.parametrize("norm", ["ln", "bogus", "gn"])

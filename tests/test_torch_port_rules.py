@@ -116,6 +116,72 @@ def test_package_exports_match_the_jax_package(package):
     assert set(mod.__all__) >= set(names) - STILL_UNPORTED[package]
 
 
+# public top-level names of a JAX module that its twin does not define,
+# each on ROADMAP.md's "Not to port" list (every module file has a twin)
+NOT_TO_PORT = {
+    "train_lib.py": {"TrainState", "init_state"},
+    "ops/attention_kernel.py": {"attention_available"},
+    # the Pallas entry points: the port's wrappers are named after its kernels
+    "ops/kpconv_kernel.py": {"banded_kpconv_aggregate_pallas", "banded_kpconv_aggregate_tau_pallas",
+                             "banded_kpconv_fused_pallas", "banded_kpconv_fused_tau_pallas"},
+    "ops/maxpool_kernel.py": {"banded_maxpool_pallas", "banded_maxpool_tau_pallas"},
+    "ops/residual_kernel.py": {"banded_residual_fused_pallas"},
+    "ops/tau_kernel.py": {"banded_knn_tau_pallas"},
+    "evaluation/pipeline.py": {"make_eval_pipeline"},
+    "models/layers.py": {"TorchLayerNorm", "torch_bias_init"},
+    "models/resnet.py": {"Conv"},
+    "native/__init__.py": {"available"},
+}
+JAX_PKG = os.path.join(ROOT, "cofii2p_tpu")
+
+
+def _jax_modules():
+    for dirpath, _, files in os.walk(JAX_PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(dirpath, f), JAX_PKG)
+
+
+def _defined(path, public=True):
+    """Top-level functions, classes and upper-case constants a module
+    defines (and, of the port's, the names it imports)."""
+    tree = ast.parse(open(path).read(), path)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name) and (t.id.isupper() or not public))
+        elif not public and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")} if public else names
+
+
+def test_every_jax_module_has_a_twin():
+    """Every module of the JAX package has a twin at the same path in the
+    port: nothing of it is left to port."""
+    missing = sorted(m for m in _jax_modules() if not os.path.exists(os.path.join(PKG, m)))
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("module", sorted(_jax_modules()))
+def test_every_public_name_has_a_twin_or_is_not_to_port(module):
+    """Each public function, class and constant of a JAX module is defined
+    (or imported) by its twin, or is on NOT_TO_PORT, and NOT_TO_PORT lists
+    nothing the twin has."""
+    twin = os.path.join(PKG, module)
+    missing = _defined(os.path.join(JAX_PKG, module)) - _defined(twin, public=False)
+    assert missing == NOT_TO_PORT.get(module, set())
+
+
+def test_not_to_port_mirrors_the_roadmap():
+    text = open(os.path.join(ROOT, "ROADMAP.md")).read()
+    section = text[text.index("\nNot to port"):]
+    section = section[:section.index("###")]
+    absent = sorted(n for names in NOT_TO_PORT.values() for n in names if n not in section)
+    assert not absent, absent
+
+
 @pytest.mark.parametrize("first", ["cofii2p_tpu_torch.ops.banded", "cofii2p_tpu_torch.ops.kpconv_kernel",
                                    "cofii2p_tpu_torch.ops", "cofii2p_tpu_torch.models",
                                    "cofii2p_tpu_torch.models.kpconv", "cofii2p_tpu_torch.data"])
