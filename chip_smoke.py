@@ -1836,16 +1836,13 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     if profile:
-        from torch.profiler import ProfilerActivity, profile as torch_profile
+        from cofii2p_tpu_torch.utils.profiling import trace
 
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace(os.path.join(OUT_DIR, phase)) as prof:
             run(requests[1], gen)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-        with open(os.path.join(OUT_DIR, f"{phase}_profile.txt"), "w") as fh:
-            fh.write(table)
-        prof.export_chrome_trace(os.path.join(OUT_DIR, f"{phase}_trace.json"))
-        say(phase, f"profile of one request written to chiprun_out/{phase}_profile.txt")
+        with open(os.path.join(OUT_DIR, phase, "profile.txt"), "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+        say(phase, f"profile of one request written to chiprun_out/{phase}/ (profile.txt, trace.json, spans.json)")
     for name, want in per_forward.items():
         n = launches[name]
         if want and n == 0:

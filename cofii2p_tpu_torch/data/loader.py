@@ -17,6 +17,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from cofii2p_tpu_torch.utils.profiling import span
+
 
 def _collate(samples: list[dict]) -> dict:
     out = {}
@@ -81,7 +83,8 @@ class BatchLoader:
         th.start()
         try:
             while True:
-                item = q.get()
+                with span("cofii2p.loader.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 yield item

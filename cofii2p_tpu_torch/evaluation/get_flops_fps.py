@@ -7,12 +7,16 @@ cofii2p_tpu/evaluation/get_flops_fps.py, with the same arguments plus
     python -m cofii2p_tpu_torch.evaluation.get_flops_fps                       # random weights, kitti
     python -m cofii2p_tpu_torch.evaluation.get_flops_fps ref.t7 kitti --batch_size 8
     python -m cofii2p_tpu_torch.evaluation.get_flops_fps "" kitti --batch_size 8 compute_dtype=bfloat16 \\
-        "kpconv_dynamic_plan=(0,192,192,192,0)" "kpconv_dynamic_plan_self=(0,0,192,192,0)" attention=pallas
+        kpconv_dynamic_plan=0,192,192,192,0 kpconv_dynamic_plan_self=0,0,192,192,0 attention=pallas
     python -m cofii2p_tpu_torch.evaluation.get_flops_fps "" tiny --device cpu   # tests
 
 Without a checkpoint (or with ``none``/``random``) it measures seeded
 random weights, which cost the same.  Times come from
-utils/profiling.py::timeit_sync (CUDA events on the card).
+utils/profiling.py::timeit_sync (CUDA events on the card).  The
+end-to-end timing is made again with the span recorder on
+(utils/profiling.py::recording, no profiler), and its span table
+follows: each span's host ms and device ms a request, and the counters
+(the RANSAC graph's nodes).
 
 FLOPs follow the convention of ``torch.utils.flop_counter`` (a product is
 two operations): the counter's count of the library ops of one test-mode
@@ -47,6 +51,7 @@ from cofii2p_tpu_torch.evaluation.pipeline import CudaGraphed, make_draws, make_
 from cofii2p_tpu_torch.models.network import CoFiI2P
 from cofii2p_tpu_torch.pose.ransac import gumbel_noise, ransac_pnp
 from cofii2p_tpu_torch.train import _to_device, build_dataset, resolve_device
+from cofii2p_tpu_torch.utils import profiling
 from cofii2p_tpu_torch.utils.profiling import timeit_sync
 
 aten = torch.ops.aten
@@ -134,6 +139,21 @@ def _product_elements(name, args, kwargs) -> int:
     return b * m * a["kernel_size"] * a["s_feats"].shape[-1]
 
 
+def span_lines(table: dict, root: str) -> list:
+    """The span table (utils/profiling.py) as lines, each span's host and
+    device ms a call of ``root``, then the counters."""
+    per = table[root]["n"]
+    lines = []
+    for name, row in table.items():
+        if "n" not in row:
+            lines.append(f"  counter {name}: {row['value']}")
+            continue
+        device = "not measured" if row["device_ms"] is None else f"{row['device_ms'] / per:.3f} ms"
+        lines.append(f"  span {name}: {row['n'] / per:g} a call, host {row['host_ms'] / per:.3f} ms, "
+                     f"device {device}")
+    return lines
+
+
 def timed(fn, *a, warmup=3, iters=10, **kw) -> float:
     """Seconds a call of ``fn``, device-synchronised (utils/profiling.py)."""
     return timeit_sync(fn, *a, warmup=warmup, iters=iters, **kw)
@@ -176,6 +196,12 @@ def main(argv=None):
     dt = timed(run, hb, gen)
     fps = args.batch_size / dt
     print(f"end-to-end pipeline: {dt * 1e3:.2f} ms/batch, {fps:.2f} frames/s")
+    # the same calls with the span recorder on (no profiler), and its table
+    with profiling.recording():
+        dt_rec = timed(run, hb, gen)
+    print(f"end-to-end pipeline, spans recorded: {dt_rec * 1e3:.2f} ms/batch")
+    for line in span_lines(profiling.span_table(), "cofii2p.eval"):
+        print(line)
 
     if args.network:
         # the bare network forward on a prepared batch, as the reference's

@@ -17,8 +17,10 @@ import torch
 from cofii2p_tpu_torch.config import Config
 from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
 from cofii2p_tpu_torch.models.network import CoFiI2P, fine_match_xy
+from cofii2p_tpu_torch.ops.cuda_lib import graph_nodes
 from cofii2p_tpu_torch.ops.pyramid import random_level_perms
 from cofii2p_tpu_torch.pose.ransac import gumbel_noise, ransac_pnp
+from cofii2p_tpu_torch.utils.profiling import counter, span
 
 
 class EvalOutput(NamedTuple):
@@ -57,23 +59,46 @@ class CudaGraphed:
         self.graphs = {}
 
     def __call__(self, *args):
-        key = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
-        if key not in self.graphs:
-            static_in = [a.clone() for a in args]
-            side = torch.cuda.Stream(args[0].device)
-            side.wait_stream(torch.cuda.current_stream(args[0].device))
-            with torch.cuda.stream(side):
-                self.fn(*static_in)  # warm-up outside the capture
-            torch.cuda.current_stream(args[0].device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                static_out = self.fn(*static_in)
-            self.graphs[key] = (graph, static_in, static_out)
-        graph, static_in, static_out = self.graphs[key]
-        for dst, src in zip(static_in, args):
-            dst.copy_(src)
-        graph.replay()
-        return type(static_out)(*(t.clone() for t in static_out))
+        with span("cofii2p.ransac"):
+            key = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
+            if key not in self.graphs:
+                self.graphs[key] = self._capture(args)
+            graph, static_in, static_out = self.graphs[key]
+            for dst, src in zip(static_in, args):
+                dst.copy_(src)
+            with span("cofii2p.ransac.replay"):
+                graph.replay()
+            return type(static_out)(*(t.clone() for t in static_out))
+
+    def _capture(self, args):
+        static_in = [a.clone() for a in args]
+        side = torch.cuda.Stream(args[0].device)
+        side.wait_stream(torch.cuda.current_stream(args[0].device))
+        with torch.cuda.stream(side):
+            self.fn(*static_in)  # warm-up outside the capture
+        torch.cuda.current_stream(args[0].device).wait_stream(side)
+        # keep_graph: the captured graph stays readable for its node count,
+        # and is instantiated after
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            static_out = self.fn(*static_in)
+        count_nodes(graph)
+        graph.instantiate()
+        return graph, static_in, static_out
+
+
+def count_nodes(graph) -> None:
+    """Adds a captured graph's nodes to ``cofii2p.ransac.graph_nodes`` and
+    one to ``cofii2p.ransac.captures``, so that their ratio is a graph's
+    nodes whatever shapes were captured.  The count is a diagnostic: where
+    the driver cannot give it, the graph serves uncounted and the counters
+    stay as they were."""
+    try:
+        n = graph_nodes(graph)
+    except Exception:  # a missing or refusing driver entry point
+        return
+    counter("cofii2p.ransac.graph_nodes").add(n)
+    counter("cofii2p.ransac.captures").add()
 
 
 def make_eval_body(cfg: Config, model: CoFiI2P, has_normals: bool = True):
@@ -90,24 +115,27 @@ def make_eval_body(cfg: Config, model: CoFiI2P, has_normals: bool = True):
 
     @torch.no_grad()
     def run(host_batch, generator: Optional[torch.Generator] = None, draws: Optional[dict] = None):
-        b = host_batch["pc"].shape[0]
-        if draws is None:
-            draws = make_draws(cfg, b, generator, host_batch["pc"].device)
-        batch = prepare_samples(
-            host_batch["pc"], host_batch["attrs"], host_batch["P"], host_batch["K"],
-            host_batch["img"], cfg, draws["perms"], has_normals=has_normals,
-        )
-        out = model(batch, mode="test")
-        fine_xy = fine_match_xy(
-            out["fine_img_patch"], out["fine_pc_feature"], out["fine_center_xy"], decode=cfg.fine_decode
-        )
-        solve = ransac_graphed if fine_xy.is_cuda else ransac
-        res = solve(draws["gumbel"], out["coarse_pc_points"], fine_xy, batch["K"], out["inlier_mask"].float())
-        return EvalOutput(
-            R=res.R, t=res.t, success=res.success, num_inliers=res.num_inliers, P_gt=batch["P"],
-            fine_xy=fine_xy, corr_mask=out["inlier_mask"], object_points=out["coarse_pc_points"],
-            pc_score=out["coarse_pc_score"],
-        )
+        with span("cofii2p.eval"):
+            b = host_batch["pc"].shape[0]
+            if draws is None:
+                draws = make_draws(cfg, b, generator, host_batch["pc"].device)
+            with span("cofii2p.prep"):
+                batch = prepare_samples(
+                    host_batch["pc"], host_batch["attrs"], host_batch["P"], host_batch["K"],
+                    host_batch["img"], cfg, draws["perms"], has_normals=has_normals,
+                )
+            out = model(batch, mode="test")
+            with span("cofii2p.fine_match"):
+                fine_xy = fine_match_xy(
+                    out["fine_img_patch"], out["fine_pc_feature"], out["fine_center_xy"], decode=cfg.fine_decode
+                )
+            solve = ransac_graphed if fine_xy.is_cuda else ransac
+            res = solve(draws["gumbel"], out["coarse_pc_points"], fine_xy, batch["K"], out["inlier_mask"].float())
+            return EvalOutput(
+                R=res.R, t=res.t, success=res.success, num_inliers=res.num_inliers, P_gt=batch["P"],
+                fine_xy=fine_xy, corr_mask=out["inlier_mask"], object_points=out["coarse_pc_points"],
+                pc_score=out["coarse_pc_score"],
+            )
 
     return run
 

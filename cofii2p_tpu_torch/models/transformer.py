@@ -19,6 +19,7 @@ from torch import nn
 
 from cofii2p_tpu_torch.models.layers import LayerNorm, Linear
 from cofii2p_tpu_torch.ops.attention_kernel import full_attention, fused_attention
+from cofii2p_tpu_torch.utils.profiling import span
 
 ATTENTIONS = ("full", "pallas", "linear")
 
@@ -86,14 +87,17 @@ class LocalFeatureTransformer(nn.Module):
         self.layers = nn.ModuleList(
             LoFTREncoderLayer(d_model, nhead, dtype, attention) for _ in self.layer_names
         )
+        self.span_names = [f"cofii2p.transformer.{i}.{name}" for i, name in enumerate(self.layer_names)]
 
     def forward(self, feat0, feat1):
-        for layer, name in zip(self.layers, self.layer_names):
-            if name == "self":
-                feat0, feat1 = layer(feat0, feat0), layer(feat1, feat1)
-            elif name == "cross":
-                feat0 = layer(feat0, feat1)
-                feat1 = layer(feat1, feat0)
-            else:
-                raise KeyError(name)
-        return feat0, feat1
+        with span("cofii2p.transformer"):
+            for layer, name, span_name in zip(self.layers, self.layer_names, self.span_names):
+                with span(span_name):
+                    if name == "self":
+                        feat0, feat1 = layer(feat0, feat0), layer(feat1, feat1)
+                    elif name == "cross":
+                        feat0 = layer(feat0, feat1)
+                        feat1 = layer(feat1, feat0)
+                    else:
+                        raise KeyError(name)
+            return feat0, feat1

@@ -77,6 +77,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_driver = None
 build_log = ""
 
 
@@ -156,6 +157,25 @@ def lib():
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def graph_nodes(graph) -> int:
+    """Node count of a ``torch.cuda.CUDAGraph`` captured with
+    ``keep_graph=True``: the driver's ``cuGraphGetNodes`` on its
+    ``raw_cuda_graph()`` (the process's one ``libcuda``, so the handle
+    needs no runtime of its own)."""
+    global _driver
+    with _lock:
+        if _driver is None:
+            drv = ctypes.CDLL("libcuda.so.1")
+            drv.cuGraphGetNodes.argtypes = [_P, _P, ctypes.POINTER(ctypes.c_size_t)]
+            drv.cuGraphGetNodes.restype = ctypes.c_int
+            _driver = drv
+    n = ctypes.c_size_t(0)
+    err = _driver.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return n.value
 
 
 def stream_of(t) -> int:

@@ -34,6 +34,7 @@ from cofii2p_tpu_torch.models.network import CoFiI2P
 from cofii2p_tpu_torch.ops.pyramid import random_level_perms
 from cofii2p_tpu_torch.parallel.mesh import all_reduce_sum_, shard_tree, sync_batch_norms
 from cofii2p_tpu_torch.pose.ransac import gumbel_noise
+from cofii2p_tpu_torch.utils.profiling import span
 
 METRICS = ("loss", "loss_desc", "loss_coarse", "loss_fine")
 
@@ -133,7 +134,8 @@ def loss_fn(cfg: Config, model: CoFiI2P, batch: dict) -> Dict[str, torch.Tensor]
     """Forward in ``mode='train'`` with the BatchNorms in training mode
     (their running statistics update in place), then the losses."""
     out = model(batch, mode="train", train=True)
-    return batch_losses(cfg, out, batch)
+    with span("cofii2p.train.losses"):
+        return batch_losses(cfg, out, batch)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -160,21 +162,25 @@ def make_train_step(cfg: Config, model: CoFiI2P, optimizer: torch.optim.Optimize
         sync_batch_norms(model, mesh)
 
     def train_step(host_batch: dict, draws: dict) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            batch = prepare_batch(cfg, host_batch, draws, has_normals)
-        optimizer.zero_grad(set_to_none=True)
-        terms = loss_fn(cfg, model, batch)
-        terms["loss"].backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        if mesh is not None and mesh.get_group() is not None:
-            all_reduce_sum_(grads, mesh)
-            if mesh.size() > 1:
-                for g in grads:
-                    g.div_(mesh.size())
-        metrics = _mean_over({k: terms[k].detach() for k in METRICS}, mesh)
-        metrics["grad_norm"] = global_norm(grads).detach()
-        optimizer.step()
-        return metrics
+        with span("cofii2p.train_step"):
+            with torch.no_grad(), span("cofii2p.prep"):
+                batch = prepare_batch(cfg, host_batch, draws, has_normals)
+            optimizer.zero_grad(set_to_none=True)
+            terms = loss_fn(cfg, model, batch)
+            with span("cofii2p.train.backward"):
+                terms["loss"].backward()
+            with span("cofii2p.train.grad_norm"):
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                if mesh is not None and mesh.get_group() is not None:
+                    all_reduce_sum_(grads, mesh)
+                    if mesh.size() > 1:
+                        for g in grads:
+                            g.div_(mesh.size())
+                metrics = _mean_over({k: terms[k].detach() for k in METRICS}, mesh)
+                metrics["grad_norm"] = global_norm(grads).detach()
+            with span("cofii2p.train.optimizer"):
+                optimizer.step()
+            return metrics
 
     return train_step
 

@@ -4,6 +4,7 @@ activation counts against analytic ones), vis_ir and vis_pose (a PNG each,
 ``project`` against JAX's), the drift tool (drift() on known outputs and
 on two tiny forwards, the CLI with --tiny), and utils/profiling.py."""
 
+import json
 import os
 import subprocess
 import sys
@@ -46,7 +47,8 @@ def test_get_flops_fps_prints_every_line(capsys, monkeypatch):
     monkeypatch.setattr(get_flops_fps, "timed", lambda fn, *a, **kw: timeit_sync(fn, *a, warmup=0, iters=1, **kw))
     get_flops_fps.main(["", "tiny", "--device", "cpu"])
     out = capsys.readouterr().out
-    for head in ("params:", "end-to-end pipeline:", "network forward:", "network flops/frame:",
+    for head in ("params:", "end-to-end pipeline:", "end-to-end pipeline, spans recorded:", "  span cofii2p.eval:",
+                 "  span cofii2p.transformer:", "network forward:", "network flops/frame:",
                  "network activations/frame:", "network peak memory:", "pnp-ransac alone:"):
         assert any(line.startswith(head) for line in out.splitlines()), (head, out)
     flops = float(next(line for line in out.splitlines() if "flops/frame" in line).split()[2])
@@ -189,9 +191,16 @@ def test_timeit_sync_on_the_cpu():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    from cofii2p_tpu_torch.utils import profiling
     from cofii2p_tpu_torch.utils.profiling import trace
 
+    with profiling.recording(), profiling.span("test.before"):  # not the block's: left out of its spans.json
+        pass
     with trace(str(tmp_path / "t")) as prof:
-        torch.randn(64, 64) @ torch.randn(64, 64)
+        with profiling.span("test.inside"):
+            torch.randn(64, 64) @ torch.randn(64, 64)
     assert (tmp_path / "t" / "trace.json").stat().st_size > 0
     assert any("mm" in e.key for e in prof.key_averages())
+    spans = json.loads((tmp_path / "t" / "spans.json").read_text())
+    assert spans["test.inside"]["n"] == 1 and "test.before" not in spans
+    profiling.reset()
