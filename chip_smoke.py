@@ -72,9 +72,14 @@ the last line):
            kernels and through the plain versions under autograd
            (kpconv_kernel='xla'), same weights and draws: losses agree to
            1e-4 and every parameter gradient to 1e-3 (rms-floored)
-  pose     the pipeline's EPnP-RANSAC at serving size (8 frames, 1280
-           correspondences, 512 hypotheses) on scenes of known pose with
-           outliers and masked rows: it recovers the pose
+  pose     the pipeline's EPnP-RANSAC at serving size (8 frames and 1,
+           1280 correspondences, 512 hypotheses) through the kernels
+           (csrc/ransac_pnp.cu) and through the plain version on the same
+           draws, on scenes of known pose with outliers and masked rows
+           (B = 8 recovers the pose) and on junk correspondences: the same
+           samples, hypothesis counts on >= 99.9%, inlier counts and success
+           flags, R and t within 1e-4, NaN alike; each timed as a graph
+           replay beside its bound
   serve    the bench.py serving config (bf16, w192 windows, fused
            attention) with seeded random weights: a warm-up, then 10
            requests of 8 KITTI-shaped synthetic frames through
@@ -296,14 +301,22 @@ KERNELS = {
     "maxpool_bwd_dyn": ("cofii2p_tpu_torch/csrc/maxpool_route.cu", "cofii2p_tpu/ops/maxpool_kernel.py:452"),
     "maxpool_bwd_tau": ("cofii2p_tpu_torch/csrc/maxpool_route.cu", "cofii2p_tpu/ops/maxpool_kernel.py:783"),
     "residual_fused": ("cofii2p_tpu_torch/csrc/residual_fused.cu", "cofii2p_tpu/ops/residual_kernel.py:386"),
+    # no TPU kernel: the JAX package's RANSAC is plain jnp; added because the
+    # plain version is a chain of ~24k tiny launches
+    "ransac_pnp": ("cofii2p_tpu_torch/csrc/ransac_pnp.cu", "none (cofii2p_tpu/pose/ransac.py is plain jnp)"),
 }
+# the RANSAC wrapper's calls when a serving body first meets a shape: the
+# warm-up call outside CUDA graph capture and the captured one; replays
+# launch nothing from Python
+RANSAC_AT_CAPTURE = 2
 # the gather `.t7` forward (kpconv_impl=gather): the 16 attention calls and no
 # other kernel; each batch builds 13 k-NN maps (5 self, 4 subsampling, 4
 # upsampling)
 PER_T7_GATHER_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16}
 MAP_SEARCHES = 13
-# the path whose launch counts the summary reports for each kernel
-SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention")
+# the path whose launch counts the summary reports for each kernel (serve's
+# ransac_pnp: its calls at the RANSAC graph's capture)
+SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention", "ransac_pnp")
 TRAIN_KERNELS = ("kpconv_aggregate", "kpconv_transpose", "maxpool_count", "maxpool_bwd")
 T7_KERNELS = ("knn_tau", "kpconv_aggregate_tau", "kpconv_fused_tau", "maxpool_tau")
 FAST_KERNELS = ("kpconv_transpose_dyn", "maxpool_bwd_dyn")
@@ -318,6 +331,7 @@ def wrappers():
     from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
     from cofii2p_tpu_torch.ops import residual_kernel as rk
     from cofii2p_tpu_torch.ops import tau_kernel as tk
+    from cofii2p_tpu_torch.pose import ransac
 
     return {"kpconv_fused": kpk.banded_kpconv_fused, "maxpool": mpk.banded_maxpool_fused,
             "attention": att.fused_attention, "kpconv_aggregate": kpk.banded_kpconv_aggregate_fused,
@@ -329,7 +343,7 @@ def wrappers():
             "kpconv_transpose_tau": kpk.banded_kpconv_transpose_tau_fused,
             "maxpool_bwd_dyn": mpk.banded_maxpool_backward_dyn_fused,
             "maxpool_bwd_tau": mpk.banded_maxpool_backward_tau_fused,
-            "residual_fused": rk.banded_residual_fused}
+            "residual_fused": rk.banded_residual_fused, "ransac_pnp": ransac.ransac_pnp}
 
 
 def reset_launches():
@@ -1775,39 +1789,84 @@ def fp32_eval_batches(cfg, model, device, start):
             + f"; RANSAC success {succ}/{EVAL_BATCHES * BATCH}, finite poses")
 
 
-def check_pose(device, gen):
-    """EPnP-RANSAC of the pipeline on scenes of known pose: serving size,
-    0.5 px noise, 30% outlier pixels, half the rows masked out."""
+def check_pose(device, gen, tally):
+    """EPnP-RANSAC at serving size (512 hypotheses, 1280 correspondences,
+    B = 8 and 1) through the kernels (csrc/ransac_pnp.cu) and through the
+    plain version on the same draws: scenes of known pose (0.5 px noise, 30%
+    outlier pixels, half the rows masked), where B = 8 must recover the
+    pose, and junk correspondences as seeded random weights give.  The same
+    samples, hypothesis counts, inlier counts and success flags, the largest
+    R and t gap, NaN where the plain version's is; each timed as serving
+    replays it (one captured CUDA graph), beside its bound."""
     import math
 
     import torch
 
-    from cofii2p_tpu_torch.pose.ransac import gumbel_noise, ransac_pnp
+    from cofii2p_tpu_torch.evaluation.pipeline import CudaGraphed
+    from cofii2p_tpu_torch.pose import ransac
+    from cofii2p_tpu_torch.utils.kernel_bench import bound_ms, time_ms
 
-    b, n, hyp = BATCH, 1280, 512
+    hyp, n = 512, 1280
     K = torch.tensor([[362.0, 0, 128], [0, 362.0, 40], [0, 0, 1]])
-    ang = (torch.rand(b, generator=gen) * 2 - 1) * math.pi
-    c, s = torch.cos(ang), torch.sin(ang)
-    z, o = torch.zeros_like(c), torch.ones_like(c)
-    R = torch.stack([torch.stack([c, z, s], -1), torch.stack([z, o, z], -1), torch.stack([-s, z, c], -1)], -2)
-    t = (torch.rand(b, 3, generator=gen) * 20 - 10) * torch.tensor([1.0, 0.1, 1.0])
-    u = torch.rand(b, n, 3, generator=gen)
-    cam = torch.stack([u[..., 0] * 40 - 20, u[..., 1] * 4 - 2, u[..., 2] * 45 + 5], -1)
-    world = (cam - t[:, None]) @ R  # cam = R world + t
-    uv = cam @ K.T
-    uv = uv[..., :2] / uv[..., 2:] + torch.randn(b, n, 2, generator=gen) * 0.5
-    bad = torch.rand(b, n, generator=gen) < 0.3
-    uv = torch.where(bad[..., None], torch.rand(b, n, 2, generator=gen) * torch.tensor([256.0, 80.0]), uv)
-    mask = (torch.rand(b, n, generator=gen) > 0.5).float()
-    args = [x.to(device) for x in (gumbel_noise((b, hyp, n), gen, "cpu"), world, uv, K.expand(b, 3, 3), mask)]
-    res = ransac_pnp(*args, inlier_threshold=8.0)
-    torch.cuda.synchronize()
-    r_err = (res.R.cpu() - R).abs().max().item()
-    t_err = (res.t.cpu() - t).norm(dim=-1).max().item()
-    if not (res.success.all() and r_err <= 1e-2 and t_err <= 0.1):
-        raise PhaseError(f"pose: success {res.success.tolist()}, max |R - R_gt| {r_err:.2e}, |t - t_gt| {t_err:.3f} m")
-    say("pose", f"{b} frames x {n} correspondences, {hyp} hypotheses: all succeed, max |R - R_gt| {r_err:.1e}, "
-        f"max |t - t_gt| {t_err:.4f} m, inliers {res.num_inliers.tolist()}")
+    for b in (BATCH, 1):
+        ang = (torch.rand(b, generator=gen) * 2 - 1) * math.pi
+        c, s = torch.cos(ang), torch.sin(ang)
+        z, o = torch.zeros_like(c), torch.ones_like(c)
+        R = torch.stack([torch.stack([c, z, s], -1), torch.stack([z, o, z], -1), torch.stack([-s, z, c], -1)], -2)
+        t = (torch.rand(b, 3, generator=gen) * 20 - 10) * torch.tensor([1.0, 0.1, 1.0])
+        u = torch.rand(b, n, 3, generator=gen)
+        cam = torch.stack([u[..., 0] * 40 - 20, u[..., 1] * 4 - 2, u[..., 2] * 45 + 5], -1)
+        world = (cam - t[:, None]) @ R  # cam = R world + t
+        uv = cam @ K.T
+        uv = uv[..., :2] / uv[..., 2:] + torch.randn(b, n, 2, generator=gen) * 0.5
+        bad = torch.rand(b, n, generator=gen) < 0.3
+        uv = torch.where(bad[..., None], torch.rand(b, n, 2, generator=gen) * torch.tensor([256.0, 80.0]), uv)
+        mask = (torch.rand(b, n, generator=gen) > 0.5).float()
+        junk = [torch.randn(b, n, 3, generator=gen) * 10 + torch.tensor([0.0, 0.0, 30.0]),
+                torch.rand(b, n, 2, generator=gen) * torch.tensor([256.0, 80.0]), K.expand(b, 3, 3),
+                (torch.rand(b, n, generator=gen) > 0.5).float()]
+        lines = []
+        for kind, data in (("scenes", [world, uv, K.expand(b, 3, 3), mask]), ("junk", junk)):
+            args = [x.contiguous().to(device) for x in (ransac.gumbel_noise((b, hyp, n), gen, "cpu"), *data)]
+            got, hk = ransac.ransac_pnp_kernel(*args, inlier_threshold=8.0)
+            res = ransac.ransac_pnp(*args, inlier_threshold=8.0)
+            want_h = ransac.ransac_hypotheses_plain(*args, inlier_threshold=8.0)
+            want = ransac.ransac_pnp_plain(*args, inlier_threshold=8.0)
+            torch.cuda.synchronize()
+            share = (hk.counts.long() == want_h.counts).float().mean().item()
+            nan_same = torch.equal(torch.isnan(got.R), torch.isnan(want.R)) and torch.equal(torch.isnan(got.t),
+                                                                                             torch.isnan(want.t))
+            fin_r = torch.isfinite(got.R) & torch.isfinite(want.R)
+            fin_t = torch.isfinite(got.t) & torch.isfinite(want.t)
+            r_gap = (got.R - want.R)[fin_r].abs().max().item() if fin_r.any() else 0.0
+            t_gap = (got.t - want.t)[fin_t].abs().max().item() if fin_t.any() else 0.0
+            if not (torch.equal(hk.samples.long(), want_h.samples) and share >= 0.999 and nan_same
+                    and torch.equal(got.num_inliers, want.num_inliers) and torch.equal(got.success, want.success)
+                    and torch.equal(res.R, got.R) and r_gap <= 1e-4 and t_gap <= 1e-4):
+                raise PhaseError(f"pose: {kind} B={b}: samples equal {torch.equal(hk.samples.long(), want_h.samples)}, "
+                                 f"counts equal on {share:.5f}, inliers {got.num_inliers.tolist()} vs "
+                                 f"{want.num_inliers.tolist()}, NaN alike {nan_same}, |dR| {r_gap:.2e}, |dt| {t_gap:.2e}")
+            if kind == "scenes" and b == BATCH:
+                r_err = (got.R.cpu() - R).abs().max().item()
+                t_err = (got.t.cpu() - t).norm(dim=-1).max().item()
+                if not (got.success.all() and r_err <= 1e-2 and t_err <= 0.1):
+                    raise PhaseError(f"pose: success {got.success.tolist()}, max |R - R_gt| {r_err:.2e}, "
+                                     f"|t - t_gt| {t_err:.3f} m")
+            # as serving runs it: one captured graph, replayed
+            times = {}
+            for name, fn in (("kernel", ransac.ransac_pnp), ("plain", ransac.ransac_pnp_plain)):
+                graphed = CudaGraphed(fn)
+                graphed(*args)
+                times[name] = time_ms(lambda: graphed(*args), reps=20 if name == "kernel" else 5)
+            # the least time: the Gumbel noise and the correspondences read once, or scoring's
+            # b * hyp * n reprojections at 42 FLOP each (R p + t 18, K cam 15, divide, residual,
+            # norm and compare 9) on the CUDA cores
+            bound, by = bound_ms((b * hyp * n + b * n * 6) * 4, ops32=b * hyp * n * 42)
+            tally.add("ransac_pnp", max(r_gap, t_gap), times["kernel"], times["plain"], (bound, by))
+            lines.append(f"{kind}: samples bit-equal, hypothesis counts equal on {share:.5f}, inliers equal "
+                         f"{got.num_inliers.tolist()}, NaN alike, max |dR| {r_gap:.1e}, |dt| {t_gap:.1e}; kernel "
+                         f"{times['kernel']:.3f} ms, plain {times['plain']:.3f} ms (graph replays), bound {bound:.4f} ms")
+        say("pose", f"B={b} x {n} correspondences, {hyp} hypotheses: " + "; ".join(lines))
 
 
 def serve(device, seed, smi_line, profile=False, residual_fused=False, n_requests=REQUESTS):
@@ -1817,6 +1876,7 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     from cofii2p_tpu_torch.models.network import CoFiI2P
     from cofii2p_tpu_torch.utils.convert import randomize
     from cofii2p_tpu_torch.utils.kernel_bench import serve_config
+    from cofii2p_tpu_torch.utils.profiling import counter
 
     phase = "serve_resfuse" if residual_fused else "serve"
     per_forward = PER_RESFUSE_FORWARD if residual_fused else PER_FORWARD
@@ -1825,8 +1885,13 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     run = make_eval_body(cfg, model)
     requests = [frames(cfg, BATCH, device, start=i * BATCH) for i in range(n_requests + 1)]
     gen = torch.Generator(device).manual_seed(seed)
-    run(requests[0], gen)  # warm-up
+    reset_launches()
+    nodes, captures = (counter(f"cofii2p.ransac.{c}").value for c in ("graph_nodes", "captures"))
+    run(requests[0], gen)  # warm-up: the RANSAC graph's capture
     torch.cuda.synchronize()
+    captured = read_launches()["ransac_pnp"]
+    graph_nodes = (counter("cofii2p.ransac.graph_nodes").value - nodes) // max(
+        1, counter("cofii2p.ransac.captures").value - captures)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1834,6 +1899,10 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    if captured != RANSAC_AT_CAPTURE or launches["ransac_pnp"]:
+        raise PhaseError(f"{phase}: the RANSAC kernels launched {captured} times at the warm-up's capture (expected "
+                         f"{RANSAC_AT_CAPTURE}) and {launches['ransac_pnp']} times in the timed requests (expected 0: "
+                         f"graph replays)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if profile:
         from cofii2p_tpu_torch.utils.profiling import trace
@@ -1860,7 +1929,8 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
         + (", kpconv_residual_fused" if residual_fused else "") + f": {fps:.2f} frames/s, "
         f"{dt / n_requests * 1e3:.1f} ms/request, peak {peak:.2f} GiB, launches/forward "
         + ", ".join(f"{k} {launches[k] // n_requests}" for k in per_forward)
-        + f"; RANSAC success {succ}/{n_requests * BATCH}, non-finite poses {nonfinite_pose} (all without success); "
+        + f"; RANSAC: {RANSAC_AT_CAPTURE} kernel calls at the capture, 0 in the requests, a graph of {graph_nodes} "
+        f"nodes, success {succ}/{n_requests * BATCH}, non-finite poses {nonfinite_pose} (all without success); "
         f"card {smi_line}")
     try:
         if residual_fused:
@@ -1872,7 +1942,8 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
         raise PhaseError(f"{phase}: {e}") from None
     del model, run, requests, outs
     torch.cuda.empty_cache()
-    return launches, fps, peak
+    # the RANSAC kernels run at the capture alone: report those calls
+    return dict(launches, ransac_pnp=captured), fps, peak
 
 
 def check_serve_drift(cfg, model, hb, device, seed, per_forward=PER_FORWARD):
@@ -2427,7 +2498,8 @@ def variants(device, seed, smi_line):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             per = {k: v - before[k] for k, v in read_launches().items()}
-            if per != want:
+            # the first request captures the RANSAC graph, the second replays it
+            if per != dict(want, ransac_pnp=RANSAC_AT_CAPTURE if i == 0 else 0):
                 raise PhaseError(f"variants, {what}: request {i} launched {per}, expected {want}")
             for field, val in out._asdict().items():
                 if field not in ("R", "t") and val.is_floating_point() and not torch.isfinite(val).all():
@@ -2503,6 +2575,8 @@ def check_eval_all_run(phase, batches, per_forward, n_frames, workdir, dataset):
                          f"of {BATCH}")
     for i, (_, per, out, *_) in enumerate(batches):
         for name, want in per_forward.items():
+            if name == "ransac_pnp" and i == 0:
+                want = RANSAC_AT_CAPTURE  # the first batch captures the RANSAC graph
             if per[name] != want:
                 raise PhaseError(f"{phase}: batch {i} launched {name} {per[name]} times, expected {want}")
         finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
@@ -3008,7 +3082,7 @@ def main():
         if "grad" in phases:
             run("grad", check_grad, device, args.seed)
         if "pose" in phases:
-            run("pose", check_pose, device, gen)
+            run("pose", check_pose, device, gen, tally)
         if "serve" in phases:
             served, _, _ = run("serve", serve, device, args.seed, smi_line, args.profile, False, args.requests)
             launches.update({k: served[k] for k in SERVE_KERNELS})

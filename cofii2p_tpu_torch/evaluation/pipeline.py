@@ -46,12 +46,13 @@ def make_draws(cfg: Config, batch: int, generator: torch.Generator, device) -> d
 class CudaGraphed:
     """Replays ``fn`` as one captured CUDA graph per input signature.
 
-    For the RANSAC stage: it is thousands of tiny elementwise kernels on
-    (B, hypotheses, ...) tensors, static in shape and free of host syncs,
-    so launched one by one the host, not the card, sets its pace.
-    ``fn`` takes tensors and returns a NamedTuple of tensors; each call
-    copies the inputs into the graph's static buffers and returns copies
-    of its outputs.
+    For the RANSAC stage: the kernels of csrc/ransac_pnp.cu and, between
+    the refinement's phases, the plain version's own sums over the
+    correspondences (pose/ransac.py::run_kernels), ~120 launches static in
+    shape and free of host syncs, which one graph launch replays.  ``fn``
+    takes tensors and returns a NamedTuple of tensors; each call copies the
+    inputs into the graph's static buffers and returns copies of its
+    outputs.
     """
 
     def __init__(self, fn):

@@ -73,6 +73,8 @@ SIGNATURES = {
     "residual_fused_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _F, _P],
+    "ransac_hyp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+    "ransac_refine_launch": [_I, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -42,6 +42,14 @@ within #1's tolerances of the plain version, in fp32 also with tied
 maxima.  #1 and #4 in fp32 (3xTF32 on the tensor cores): #1 at every
 width of the FPN on static bands, windows and a 3200-row band, #4 at
 ragged shapes with both query kinds, each the same bits on two launches.
+EPnP-RANSAC (csrc/ransac_pnp.cu) against ransac_pnp_plain on the card at
+serving sizes (B = 8 and 1, 512 hypotheses, 1280 correspondences) and at
+32 hypotheses over 1000, on scenes of known pose, junk correspondences
+and degenerate sets: the six sample indices bit-equal, hypothesis counts
+equal on at least 99.9% (the share printed), inlier counts and success
+flags equal on every frame, R and t within 1e-4 where finite and NaN
+exactly where the plain version's are, the same bits on two launches;
+with TF32 on, the same bits as with it off, and the setting kept.
 """
 
 import numpy as np
@@ -97,10 +105,13 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
 from cofii2p_tpu_torch.ops.pyramid import morton_order
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_fused, banded_residual_fused_plain
 from cofii2p_tpu_torch.ops.tau_kernel import MAX_BAND, banded_knn_tau_kernel, banded_knn_tau_plain
+from cofii2p_tpu_torch.pose.ransac import (gumbel_noise, ransac_hypotheses_plain, ransac_pnp, ransac_pnp_kernel,
+                                         ransac_pnp_plain)
 from cofii2p_tpu_torch.utils.convert import jittered_kernel_points
 # by its bare name, as pytest puts tests/ on the path: on the card another
 # installed package may be named ``tests``
-from torch_kernel_inputs import ENC1_1_BW, ENC1_1_R, ENC1_1_S, ENC1_1_SEEDS, enc1_1_tau_inputs
+from torch_kernel_inputs import (ENC1_1_BW, ENC1_1_R, ENC1_1_S, ENC1_1_SEEDS, enc1_1_tau_inputs, ransac_degenerate,
+                                 ransac_junk, ransac_scene)
 
 R, S = 1.7, 0.8  # the level-2 radius and sigma of the KITTI FPN
 R_ACT = kernel_reach(R, S)
@@ -937,3 +948,68 @@ def test_kpconv_tau_bf16_error_at_cin4_tracks_the_plain_version(cuda_device, see
         print(f"encoder1_1 seed {seed} {fk.dtype}: kernel {e_kernel:.4e}, plain {e_plain:.4e}, apart {apart:.3e}")
         assert abs(e_kernel - e_plain) <= 1e-3, (e_kernel, e_plain)
         assert apart <= 5e-3
+
+
+RANSAC_INPUTS = {"scene": ransac_scene, "junk": ransac_junk, "degenerate": ransac_degenerate}
+
+
+def _same_bits(a, b):
+    view = torch.int32 if a.is_floating_point() else torch.uint8 if a.dtype == torch.bool else a.dtype
+    return torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind, b, h, n", [("scene", 8, 512, 1280), ("scene", 1, 512, 1280), ("junk", 8, 512, 1280),
+                                           ("junk", 1, 512, 1280), ("scene", 2, 32, 1000), ("junk", 2, 32, 1000),
+                                           ("degenerate", 3, 32, 1000)])
+def test_ransac_kernels_match_the_plain_version(cuda_device, kind, b, h, n):
+    gen = torch.Generator().manual_seed(b * 7919 + h * 31 + n)
+    data = [x.to(cuda_device) for x in RANSAC_INPUTS[kind](b, n, gen)]
+    gumbel = gumbel_noise((b, h, n), gen, "cpu").to(cuda_device)
+    got, hyp = ransac_pnp_kernel(gumbel, *data)
+    again, hyp_again = ransac_pnp_kernel(gumbel, *data)
+    want_hyp = ransac_hypotheses_plain(gumbel, *data)
+    want = ransac_pnp_plain(gumbel, *data)
+    assert all(_same_bits(x, y) for x, y in zip((*got, *hyp), (*again, *hyp_again)))
+    assert torch.equal(hyp.samples.long(), want_hyp.samples)
+    share = (hyp.counts.long() == want_hyp.counts).float().mean().item()
+    print(f"ransac {kind} B={b} H={h} N={n}: hypothesis counts equal on {share:.5f}")
+    assert share >= 0.999
+    assert torch.equal(got.num_inliers, want.num_inliers)
+    assert torch.equal(got.success, want.success)
+    for x, y in ((got.R.flatten(1), want.R.flatten(1)), (got.t, want.t)):
+        assert torch.equal(torch.isnan(x), torch.isnan(y))
+        fin = torch.isfinite(x) & torch.isfinite(y)
+        scale = y.nan_to_num(0, 0, 0).abs().amax(-1, keepdim=True).clamp(min=1).expand_as(y)
+        assert ((x - y).abs() / scale)[fin].max().item() <= 1e-4 if fin.any() else True
+
+
+@pytest.mark.gpu
+def test_ransac_pnp_launches_the_kernels_and_refuses_other_samples(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    data = [x.to(cuda_device) for x in ransac_scene(2, 200, gen)]
+    gumbel = gumbel_noise((2, 32, 200), gen, "cpu").to(cuda_device)
+    ransac_pnp.launches = 0
+    res = ransac_pnp(gumbel, *data)
+    assert ransac_pnp.launches == 1 and res.R.is_cuda
+    with pytest.raises(ValueError, match="sample_size"):
+        ransac_pnp(gumbel, *data, sample_size=5)
+    assert ransac_pnp.launches == 1
+
+
+@pytest.mark.gpu
+def test_ransac_pnp_computes_in_fp32_with_tf32_on(cuda_device):
+    """TF32 products would round the plain version's sums' operands, which
+    no fp32 order repeats: the kernels' products stay IEEE fp32 and give the
+    bits they give with TF32 off, and the caller's setting survives."""
+    gen = torch.Generator().manual_seed(11)
+    data = [x.to(cuda_device) for x in ransac_junk(8, 1280, gen)]
+    gumbel = gumbel_noise((8, 512, 1280), gen, "cpu").to(cuda_device)
+    want = ransac_pnp(gumbel, *data)
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = ransac_pnp(gumbel, *data)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert all(_same_bits(x, y) for x, y in zip(got, want))

@@ -50,6 +50,7 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
 )
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_apply, banded_residual_fused
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
+from cofii2p_tpu_torch.pose.ransac import ransac_pnp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(cofii2p_tpu_torch.__file__))
@@ -391,6 +392,16 @@ def _attention(device, dtype=torch.float32, grad=False):
     return lambda: fused_attention(q, q, q)
 
 
+def _ransac(device, dtype=torch.float32, grad=False):
+    g = torch.Generator().manual_seed(0)
+    gumbel = torch.randn(2, 8, 16, generator=g).to(device).requires_grad_(grad)
+    obj = (torch.randn(2, 16, 3, generator=g) + torch.tensor([0.0, 0.0, 5.0])).to(device)
+    uv = (torch.rand(2, 16, 2, generator=g) * 64).to(device)
+    K = torch.tensor([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]]).expand(2, 3, 3).to(device)
+    mask = torch.ones(2, 16).to(device)
+    return lambda: ransac_pnp(gumbel, obj, uv, K, mask)
+
+
 WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool_fused, _maxpool),
             "attention": (fused_attention, _attention),
             "kpconv_aggregate": (banded_kpconv_aggregate_fused, _aggregate),
@@ -409,7 +420,8 @@ WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool
             "residual_fused": (banded_residual_fused, _residual),
             "kpconv_bf16": (banded_kpconv_fused, _kpconv_bf16),
             "residual_fused_bf16": (banded_residual_fused, _residual_bf16),
-            "attention_bf16": (fused_attention, lambda device, grad=False: _attention(device, torch.bfloat16, grad))}
+            "attention_bf16": (fused_attention, lambda device, grad=False: _attention(device, torch.bfloat16, grad)),
+            "ransac_pnp": (ransac_pnp, _ransac)}
 # tau is a function of coordinates only: it has no input to refuse
 GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau"})
 # the k-NN forward wrappers and the autograd Function each names

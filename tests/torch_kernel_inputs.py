@@ -1,7 +1,10 @@
 """Inputs shared by the card's kernel tests (tests/test_torch_cuda_kernels.py)
 and the CPU tests that hold the JAX reference beside the port on the same
-draws (tests/test_torch_tau_bf16_error.py).  It imports no JAX: the card
-runs the first file without it."""
+draws (tests/test_torch_tau_bf16_error.py), or the kernels' arithmetic
+beside the plain version (tests/test_torch_ransac_host.py).  It imports no
+JAX: the card runs the first file without it."""
+
+import math
 
 import numpy as np
 import torch
@@ -45,3 +48,47 @@ def enc1_1_tau_inputs(seed, n=20480, b=2):
                                 torch.Generator().manual_seed(seed)).numpy()
     tau = banded_knn_tau(torch.as_tensor(s), torch.as_tensor(s), ENC1_1_K, 128, ENC1_1_BW).numpy()
     return np.stack(feats), s, w, tau, kp
+
+
+def ransac_scene(b, n, gen, outliers=0.3, masked=0.5):
+    """RANSAC's (object points, image points, K, mask) on scenes of known
+    pose, as chip_smoke.py's pose phase draws them: n points 5-50 m ahead,
+    0.5 px noise, a share of outlier pixels and of masked rows."""
+    K = torch.tensor([[362.0, 0, 128], [0, 362.0, 40], [0, 0, 1]])
+    ang = (torch.rand(b, generator=gen) * 2 - 1) * math.pi
+    c, s = torch.cos(ang), torch.sin(ang)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    R = torch.stack([torch.stack([c, z, s], -1), torch.stack([z, o, z], -1), torch.stack([-s, z, c], -1)], -2)
+    t = (torch.rand(b, 3, generator=gen) * 20 - 10) * torch.tensor([1.0, 0.1, 1.0])
+    u = torch.rand(b, n, 3, generator=gen)
+    cam = torch.stack([u[..., 0] * 40 - 20, u[..., 1] * 4 - 2, u[..., 2] * 45 + 5], -1)
+    uv = cam @ K.T
+    uv = uv[..., :2] / uv[..., 2:] + torch.randn(b, n, 2, generator=gen) * 0.5
+    bad = torch.rand(b, n, generator=gen) < outliers
+    uv = torch.where(bad[..., None], torch.rand(b, n, 2, generator=gen) * torch.tensor([256.0, 80.0]), uv)
+    mask = (torch.rand(b, n, generator=gen) > masked).float()
+    return (cam - t[:, None]) @ R, uv, K.expand(b, 3, 3).contiguous(), mask
+
+
+def ransac_junk(b, n, gen):
+    """Correspondences with no pose behind them, as seeded random weights
+    give: points 10 m around 30 m ahead, random pixels, half the rows
+    masked."""
+    obj = torch.randn(b, n, 3, generator=gen) * 10 + torch.tensor([0.0, 0.0, 30.0])
+    uv = torch.rand(b, n, 2, generator=gen) * torch.tensor([256.0, 80.0])
+    K = torch.tensor([[362.0, 0, 128], [0, 362.0, 40], [0, 0, 1]]).expand(b, 3, 3).contiguous()
+    return obj, uv, K, (torch.rand(b, n, generator=gen) > 0.5).float()
+
+
+def ransac_degenerate(b, n, gen):
+    """Degenerate sets, frame by frame in turn: 3 valid rows, no valid
+    row, collinear points."""
+    obj, uv, K, mask = ransac_scene(b, n, gen, masked=0.0)
+    for i in range(b):
+        if i % 3 == 0:
+            mask[i, 3:] = 0
+        elif i % 3 == 1:
+            mask[i] = 0
+        else:
+            obj[i] = torch.linspace(0, 1, n)[:, None] * torch.tensor([4.0, 1.0, 2.0]) + torch.tensor([0.0, 0.0, 20.0])
+    return obj, uv, K, mask
