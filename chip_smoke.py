@@ -94,6 +94,18 @@ the last line):
            (cofii2p_tpu_torch/tools/window_drift.py::drift), each within
            twice the CUDA-core kernels' reading plus one point
            (SERVE_DRIFT_LIMITS).
+  graphs   the serving body replayed as CUDA graphs (the stages that
+           utils/cuda_graphs.py::serving_stages gives) against the eager
+           body (make_eval_body's stages=()), at the serving configuration
+           (B = 8 and 1), the `.t7` one under banded_knn and under gather
+           (B = 8; gather's prep stays eager) and each of VARIANTS (B = 8),
+           on the same frames and draws: every output bit-equal in the
+           capturing and in a replayed request, a replayed request with
+           synchronising CUDA calls made errors (where prep replays), the
+           device ms of kernels launched inside KPConv ranges (as the
+           benchmark's traced runs set them) within 2x of the eager body's,
+           each stage's graph nodes, ms a request (closed loop, poses read
+           back) and peak memory of both.
   serve_resfuse  serve with kpconv_residual_fused=True (same seeded
            weights): launches per forward (4 fused strided blocks, 10
            KPConvs, no separate maxpool), the same output checks and
@@ -153,9 +165,13 @@ the last line):
   t7_gather  the t7 phase's seeded ref.t7 through `eval_all ref.t7 kitti
            --synthetic --batch_size 8 kpconv_impl=gather` (fp32, the k-NN
            index maps built on the card, per-layer kernel points, fused
-           attention): 16 attention launches a forward and no other
-           kernel, the dumps and error arrays, finite poses wherever RANSAC
-           succeeded; ms and frames/s of the second batch, peak memory, the
+           attention), as users run it, its stages replayed as CUDA
+           graphs but prep (whose k-NN maps wait for the card): 16
+           attention launches a forward, twice in the capturing batch and
+           none after, no other kernel, prep not captured and every other
+           stage captured, the dumps and error arrays, finite poses
+           wherever RANSAC succeeded; ms and frames/s of the second batch,
+           peak memory, the
            13 k-NN map searches' time a batch (CUDA events) and its split
            into the d2 chain, the k-th value and the tie pass; then the four
            drift readings between one B=8 forward under gather and one
@@ -165,7 +181,8 @@ the last line):
            B=8 through train.main (the largest of 4, 2, 1 that fits if B=8
            does not): no kernel launched, finite losses, parameters moved,
            a checkpoint; ms/step, frames/s, peak memory.
-  variants two bf16 B=8 serving requests through make_eval_body for each
+  variants two bf16 B=8 serving requests through the eager body (make_eval_body
+           with stages=(); the graphs phase replays these) for each
            of VARIANTS (linear attention, LayerNorm point blocks, centroid
            windows, K = 20; span windows, K = 12): launches a forward as
            fused_contraction_fits decides at that K, #4 only under
@@ -217,9 +234,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "serve_resfuse", "train", "t7", "train_fast",
-          "train_knn", "kitti", "nuscenes", "t7_gather", "train_gather", "variants", "serve_compact", "t7_compact",
-          "train_compact", "train_dp", "flops")
+PHASES = ("device", "build", "kernels", "fp32", "grad", "pose", "serve", "graphs", "serve_resfuse", "train", "t7",
+          "train_fast", "train_knn", "kitti", "nuscenes", "t7_gather", "train_gather", "variants", "serve_compact",
+          "t7_compact", "train_compact", "train_dp", "flops")
 BATCH = 8
 REQUESTS = 10  # timed requests a serve phase: a request is ~0.13 s, where host jitter of a few ms shows
 TRAIN_STEPS = 4
@@ -309,6 +326,11 @@ KERNELS = {
 # warm-up call outside CUDA graph capture and the captured one; replays
 # launch nothing from Python
 RANSAC_AT_CAPTURE = 2
+# a serving body (evaluation/pipeline.py::make_eval_body) replays every
+# stage as CUDA graphs: the first request of a batch shape runs each stage
+# twice (the warm-up outside capture, then the captured call), so each
+# kernel launches twice its count a forward, and later requests launch none
+AT_CAPTURE = 2
 # the gather `.t7` forward (kpconv_impl=gather): the 16 attention calls and no
 # other kernel; each batch builds 13 k-NN maps (5 self, 4 subsampling, 4
 # upsampling)
@@ -344,6 +366,22 @@ def wrappers():
             "maxpool_bwd_dyn": mpk.banded_maxpool_backward_dyn_fused,
             "maxpool_bwd_tau": mpk.banded_maxpool_backward_tau_fused,
             "residual_fused": rk.banded_residual_fused, "ransac_pnp": ransac.ransac_pnp}
+
+
+def body_launches(per_forward, first):
+    """A serving body's launches in one request: AT_CAPTURE times a
+    forward's in the first request of a batch shape, none later."""
+    return {k: AT_CAPTURE * v if first else 0 for k, v in per_forward.items()}
+
+
+def stage_nodes():
+    """Nodes of each serving graph stage's captures (utils/cuda_graphs.py::
+    STAGES), by stage, from the counters (nodes over captures)."""
+    from cofii2p_tpu_torch.utils.cuda_graphs import STAGES, stage_prefix
+    from cofii2p_tpu_torch.utils.profiling import counter
+
+    return {st: counter(stage_prefix(st) + ".graph_nodes").value
+            // max(1, counter(stage_prefix(st) + ".captures").value) for st in STAGES}
 
 
 def reset_launches():
@@ -1763,7 +1801,7 @@ def fp32_eval_batches(cfg, model, device, start):
 
     run = make_eval_body(cfg, model.eval())
     gen = torch.Generator(device).manual_seed(7)  # as eval_all.main seeds its draws
-    times, succ = [], 0
+    times, succ, first = [], 0, None
     for i in range(EVAL_BATCHES):
         hb = frames(cfg, BATCH, device, start=start + i * BATCH)
         torch.cuda.synchronize()
@@ -1773,7 +1811,8 @@ def fp32_eval_batches(cfg, model, device, start):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         per = {k: v - before[k] for k, v in read_launches().items()}
-        for name, want in PER_EVAL_FORWARD.items():
+        first = first if i else per
+        for name, want in body_launches(PER_EVAL_FORWARD, i == 0).items():
             if per[name] != want:
                 raise PhaseError(f"fp32 static eval: batch {i} launched {name} {per[name]} times, expected {want}")
         finite = torch.isfinite(out.R).flatten(1).all(-1) & torch.isfinite(out.t).all(-1)
@@ -1785,8 +1824,8 @@ def fp32_eval_batches(cfg, model, device, start):
     return (f"fp32 static eval of the restored model (make_eval_body, {EVAL_BATCHES} batches x B={BATCH}): median "
             f"of batches 2-{EVAL_BATCHES} {med:.1f} ms ({BATCH * 1e3 / med:.2f} frames/s), batches "
             + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; launches/batch "
-            + ", ".join(f"{k} {per[k]}" for k in PER_EVAL_FORWARD if per[k])
-            + f"; RANSAC success {succ}/{EVAL_BATCHES * BATCH}, finite poses")
+            + ", ".join(f"{k} {first[k] // AT_CAPTURE}" for k in PER_EVAL_FORWARD if first[k])
+            + f" (at the capture; graph replays after); RANSAC success {succ}/{EVAL_BATCHES * BATCH}, finite poses")
 
 
 def check_pose(device, gen, tally):
@@ -1802,8 +1841,8 @@ def check_pose(device, gen, tally):
 
     import torch
 
-    from cofii2p_tpu_torch.evaluation.pipeline import CudaGraphed
     from cofii2p_tpu_torch.pose import ransac
+    from cofii2p_tpu_torch.utils.cuda_graphs import CudaGraphed
     from cofii2p_tpu_torch.utils.kernel_bench import bound_ms, time_ms
 
     hyp, n = 512, 1280
@@ -1855,7 +1894,7 @@ def check_pose(device, gen, tally):
             # as serving runs it: one captured graph, replayed
             times = {}
             for name, fn in (("kernel", ransac.ransac_pnp), ("plain", ransac.ransac_pnp_plain)):
-                graphed = CudaGraphed(fn)
+                graphed = CudaGraphed(fn, "cofii2p.ransac")
                 graphed(*args)
                 times[name] = time_ms(lambda: graphed(*args), reps=20 if name == "kernel" else 5)
             # the least time: the Gumbel noise and the correspondences read once, or scoring's
@@ -1887,9 +1926,9 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     gen = torch.Generator(device).manual_seed(seed)
     reset_launches()
     nodes, captures = (counter(f"cofii2p.ransac.{c}").value for c in ("graph_nodes", "captures"))
-    run(requests[0], gen)  # warm-up: the RANSAC graph's capture
+    run(requests[0], gen)  # warm-up: every stage's graph capture
     torch.cuda.synchronize()
-    captured = read_launches()["ransac_pnp"]
+    captured = read_launches()
     graph_nodes = (counter("cofii2p.ransac.graph_nodes").value - nodes) // max(
         1, counter("cofii2p.ransac.captures").value - captures)
     reset_launches()
@@ -1899,10 +1938,10 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    if captured != RANSAC_AT_CAPTURE or launches["ransac_pnp"]:
-        raise PhaseError(f"{phase}: the RANSAC kernels launched {captured} times at the warm-up's capture (expected "
-                         f"{RANSAC_AT_CAPTURE}) and {launches['ransac_pnp']} times in the timed requests (expected 0: "
-                         f"graph replays)")
+    if captured["ransac_pnp"] != RANSAC_AT_CAPTURE or launches["ransac_pnp"]:
+        raise PhaseError(f"{phase}: the RANSAC kernels launched {captured['ransac_pnp']} times at the warm-up's "
+                         f"capture (expected {RANSAC_AT_CAPTURE}) and {launches['ransac_pnp']} times in the timed "
+                         "requests (expected 0: graph replays)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if profile:
         from cofii2p_tpu_torch.utils.profiling import trace
@@ -1913,12 +1952,12 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
             fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
         say(phase, f"profile of one request written to chiprun_out/{phase}/ (profile.txt, trace.json, spans.json)")
     for name, want in per_forward.items():
-        n = launches[name]
-        if want and n == 0:
+        if want and captured[name] == 0:
             raise PhaseError(f"{phase}: kernel {name} was never launched on the main path")
-        if n != want * n_requests:
+        if captured[name] != AT_CAPTURE * want or launches[name]:
             raise PhaseError(
-                f"{phase}: {name} launched {n} times in {n_requests} forwards, expected {want} each "
+                f"{phase}: {name} launched {captured[name]} times at the capture and {launches[name]} in "
+                f"{n_requests} replayed requests, expected {want} a forward twice, then none "
                 + ("(10 KPConvs, 4 strided blocks' conv and shortcut in one pass, 8 layers x 2 attention calls)"
                    if residual_fused else "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls)")
             )
@@ -1927,8 +1966,10 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     succ = sum(int(o.success.sum()) for o in outs)
     say(phase, f"{n_requests} requests x {BATCH} frames (160x512, 20480 pts), bf16 w192"
         + (", kpconv_residual_fused" if residual_fused else "") + f": {fps:.2f} frames/s, "
-        f"{dt / n_requests * 1e3:.1f} ms/request, peak {peak:.2f} GiB, launches/forward "
-        + ", ".join(f"{k} {launches[k] // n_requests}" for k in per_forward)
+        f"{dt / n_requests * 1e3:.1f} ms/request, peak {peak:.2f} GiB, launches/forward at the capture "
+        + ", ".join(f"{k} {captured[k] // AT_CAPTURE}" for k in per_forward)
+        + ", none in the replayed requests; graph nodes "
+        + ", ".join(f"{k} {v}" for k, v in stage_nodes().items())
         + f"; RANSAC: {RANSAC_AT_CAPTURE} kernel calls at the capture, 0 in the requests, a graph of {graph_nodes} "
         f"nodes, success {succ}/{n_requests * BATCH}, non-finite poses {nonfinite_pose} (all without success); "
         f"card {smi_line}")
@@ -1942,8 +1983,138 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
         raise PhaseError(f"{phase}: {e}") from None
     del model, run, requests, outs
     torch.cuda.empty_cache()
-    # the RANSAC kernels run at the capture alone: report those calls
-    return dict(launches, ransac_pnp=captured), fps, peak
+    # the kernels run at the capture alone: report those calls
+    return captured, fps, peak
+
+
+def graphs(device, seed, smi_line, n_requests=REQUESTS):
+    """The graphed serving body against the eager one (the phase list's
+    `graphs`): per case, the eager body's requests and timing, then the
+    graphed body's, each body alone on the card for its peak."""
+    import gc
+
+    import torch
+
+    from cofii2p_tpu_torch.config import KITTIConfig, apply_overrides
+    from cofii2p_tpu_torch.evaluation.eval_all import reference_ckpt_config
+    from cofii2p_tpu_torch.evaluation.pipeline import make_draws, make_eval_body
+    from cofii2p_tpu_torch.models.network import CoFiI2P
+    from cofii2p_tpu_torch.utils import profiling
+    from cofii2p_tpu_torch.utils.convert import randomize
+    from cofii2p_tpu_torch.utils.cuda_graphs import serving_stages
+    from cofii2p_tpu_torch.utils.kernel_bench import serve_config, t7_model
+
+    def bits(x):
+        return x.view(torch.int32 if x.element_size() == 4 else torch.int16) if x.is_floating_point() else x
+
+    cases = [("serve", BATCH, {}), ("serve", 1, {}), ("t7", BATCH, []), ("t7", BATCH, ["kpconv_impl=gather"])]
+    cases += [(what, BATCH, over) for what, over in VARIANTS]
+    for name, b, over in cases:
+        if name == "t7":
+            cfg = reference_ckpt_config(apply_overrides(KITTIConfig(), over), over, device)
+            model = t7_model(cfg, seed, device)
+            name = " ".join(["t7", *over])
+        else:
+            cfg = serve_config().replace(**over)
+            model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(device).eval()
+        stages = serving_stages(cfg)
+        requests = [(frames(cfg, b, device, start=(i % 4) * b),
+                     make_draws(cfg, b, torch.Generator(device).manual_seed(seed + i), device))
+                    for i in range(n_requests + 2)]
+        readings = {}
+        profiling.reset()  # the counters: this case's captures alone
+        for kind in ("eager", "graphed"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run = make_eval_body(cfg, model, stages=() if kind == "eager" else None)
+            outs = [run(hb, draws=d) for hb, d in requests[:2]]  # the graphed body captures, then replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for hb, d in requests[2:]:
+                run(hb, draws=d).R.cpu()
+            ms = (time.perf_counter() - t0) / n_requests * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            waits, kpconv_ms = profiled_requests(run, model, requests[2:5])
+            readings[kind] = (outs, ms, peak, kpconv_ms)
+            if kind == "graphed" and "prep" in stages:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                hb, d = requests[2]
+                try:
+                    run(hb, draws=d)
+                except RuntimeError as e:
+                    raise PhaseError(f"graphs: {name} B={b}: a replayed request synchronised: {e}") from None
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if waits:
+                    raise PhaseError(f"graphs: {name} B={b}: replayed requests' traces hold {waits}")
+            del run, outs
+        for i in range(2):
+            for field in readings["eager"][0][i]._fields:
+                a, g = (getattr(readings[k][0][i], field) for k in ("eager", "graphed"))
+                if not torch.equal(bits(a), bits(g)):
+                    raise PhaseError(f"graphs: {name} B={b}: request {i} field {field} differs from the eager body's")
+        (_, e_ms, e_peak, e_kp), (_, g_ms, g_peak, g_kp) = readings["eager"], readings["graphed"]
+        if not 0.5 * e_kp <= g_kp <= 2.0 * e_kp:
+            raise PhaseError(f"graphs: {name} B={b}: KPConv ranges hold {g_kp:.3f} device ms a replayed request, "
+                             f"{e_kp:.3f} eagerly: the KPConv parts do not replay inside their modules' calls")
+        nodes = stage_nodes()
+        if any(nodes[st] == 0 for st in stages) or any(nodes[st] for st in nodes if st not in stages):
+            raise PhaseError(f"graphs: {name} B={b}: graph nodes {nodes}, captured stages {stages}")
+        synced = ("a replayed request synchronises nowhere (sync debug mode; no wait and no pageable copy in three "
+                  "profiled requests' cofii2p.eval)" if "prep" in stages else
+                  "prep eager (its k-NN maps wait for the card), every other stage replayed")
+        say("graphs", f"{name} B={b}: outputs bit-equal to the eager body's (capture and replay), {synced}; graph "
+            f"nodes " + ", ".join(f"{k} {v}" for k, v in nodes.items())
+            + f"; KPConv ranges' device ms a request eager {e_kp:.3f}, graphed {g_kp:.3f}; {n_requests} closed-loop "
+            f"requests: eager {e_ms:.2f} ms, graphed {g_ms:.2f} ms a request ({b * 1e3 / e_ms:.2f} -> "
+            f"{b * 1e3 / g_ms:.2f} frames/s); peak {e_peak:.4f} -> {g_peak:.4f} GiB; card {smi_line}")
+        del model, requests, readings
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profiled_requests(run, model, requests):
+    """Profiles ``run`` on each request, with a range around every KPConv
+    forward as the benchmark's traced runs set (benchmark/harness/
+    tracing.py::scopes).  Returns, by name, the calls that make the host
+    wait for the card (stream, device or event synchronise, a synchronous
+    copy) and the copies from pageable host memory that fall inside a
+    ``cofii2p.eval`` span of the chrome trace; and the device ms a request
+    of the kernels launched inside KPConv ranges."""
+    import json
+    import tempfile
+
+    import torch
+
+    from benchmark.harness import tracing
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof, tracing.scopes(model, "KPConv", "smoke.kpconv"):
+        with torch.autograd.profiler.record_function("smoke.window"):
+            for hb, d in requests:
+                run(hb, draws=d)
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            xs = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+        kpconv_ms = tracing.read_trace(path, "smoke.window", ["smoke.kpconv"])["scoped_ms"]["smoke.kpconv"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in xs
+             if e["name"] == "cofii2p.eval" and e.get("cat") == "user_annotation"]
+    if len(spans) != len(requests):
+        raise PhaseError(f"graphs: {len(spans)} cofii2p.eval spans in the trace of {len(requests)} requests")
+    waits = {}
+    for e in xs:
+        name = e["name"]
+        wait = (e.get("cat") == "cuda_runtime" and name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                                              "cudaEventSynchronize", "cudaMemcpy")
+                or e.get("cat") == "gpu_memcpy" and "Pageable" in name)
+        if wait and any(s <= e["ts"] <= t for s, t in spans):
+            waits[name] = waits.get(name, 0) + 1
+    return waits, kpconv_ms / len(requests)
 
 
 def check_serve_drift(cfg, model, hb, device, seed, per_forward=PER_FORWARD):
@@ -2114,8 +2285,9 @@ def t7(device, seed, smi_line):
             f"{frames_total} frames x B={BATCH}, fp32 {cfg.kpconv_impl}, attention {cfg.attention}: {dumps} "
             "dumps with the reference's keys and both error arrays; second batch "
             f"{batches[1][0] * 1e3:.1f} ms ({fps:.2f} frames/s), first {batches[0][0] * 1e3:.1f} ms; "
-            f"peak {peak:.2f} GiB; launches/forward "
-            + ", ".join(f"{k} {batches[1][1][k]}" for k in PER_T7_FORWARD)
+            f"peak {peak:.2f} GiB; launches/forward at the capture "
+            + ", ".join(f"{k} {batches[0][1][k] // AT_CAPTURE}" for k in PER_T7_FORWARD)
+            + ", none in the replayed batches"
             + f"; RANSAC success {succ}/{frames_total} ({len(r_errs)} errors written); card {smi_line}")
     finally:
         shutil.rmtree(root, ignore_errors=True)  # ref.t7 is ~200 MB
@@ -2241,6 +2413,7 @@ def t7_gather(device, seed, smi_line):
 
     from cofii2p_tpu_torch.config import KITTIConfig, apply_overrides
     from cofii2p_tpu_torch.evaluation import eval_all
+    from cofii2p_tpu_torch.utils import profiling
     from cofii2p_tpu_torch.utils.checkpoint import export_t7
     from cofii2p_tpu_torch.utils.kernel_bench import t7_model
 
@@ -2257,11 +2430,18 @@ def t7_gather(device, seed, smi_line):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        profiling.reset()  # the counters: this run's captures alone
         with recording_eval_batches(batches, root), timed_knn(events, parts):
             r_errs, _ = eval_all.main(argv)
         peak = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.synchronize()
         dumps = check_eval_all_run("t7_gather", batches, PER_T7_GATHER_FORWARD, frames_total, root, "kitti")
+        # the stage list leaves prep eager under gather (its k-NN maps wait
+        # for the card), so the searches above ran in every batch as users
+        # run them; every other stage was captured once
+        nodes = stage_nodes()
+        if nodes["prep"] or not all(v for k, v in nodes.items() if k != "prep"):
+            raise PhaseError(f"t7_gather: graph nodes {nodes}: expected prep eager and every other stage captured")
         if len(events) != MAP_SEARCHES * len(batches):
             raise PhaseError(f"t7_gather: {len(events)} k-NN map searches in {len(batches)} batches, expected "
                              f"{MAP_SEARCHES} a batch")
@@ -2284,7 +2464,9 @@ def t7_gather(device, seed, smi_line):
             f"{knn_ms[1]:.1f} ms the d2 chain {split['sq_dist_fma']:.1f}, torch.topk's k-th value "
             f"{split['_kth_value']:.1f}, the tie pass {split['_take_lowest']:.1f}, the rest "
             f"{knn_ms[1] - sum(split.values()):.1f}); peak "
-            f"{peak:.2f} GiB; launches/forward attention {batches[1][1]['attention']}, every other kernel 0; RANSAC "
+            f"{peak:.2f} GiB; graphed body (prep eager): attention launched {batches[0][1]['attention']} times at the "
+            f"capture, {batches[1][1]['attention']} in the second batch, every other kernel 0; graph nodes "
+            + ", ".join(f"{k} {v}" for k, v in nodes.items()) + f"; RANSAC "
             f"success {succ}/{frames_total} ({len(r_errs)} errors written); card {smi_line}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2478,6 +2660,8 @@ def variants(device, seed, smi_line):
     from cofii2p_tpu_torch.utils.convert import randomize
     from cofii2p_tpu_torch.utils.kernel_bench import recording, serve_config
 
+    # eager bodies (the graphs phase replays these configurations): every
+    # kernel call counted and recorded, as a forward alone makes it
     for what, over in VARIANTS:
         cfg = serve_config().replace(**over)
         model = randomize(CoFiI2P(cfg), torch.Generator().manual_seed(seed)).to(device).eval()
@@ -2486,7 +2670,7 @@ def variants(device, seed, smi_line):
         want = {name: 0 for name in KERNELS}
         want.update(kpconv_fused=fits, kpconv_aggregate=len(convs) - fits, maxpool=4,
                     attention=16 if cfg.attention == "pallas" else 0)
-        run = make_eval_body(cfg, model)
+        run = make_eval_body(cfg, model, stages=())
         gen = torch.Generator(device).manual_seed(seed)
         ms, succ, calls = [], 0, []
         for i in range(2):
@@ -2498,8 +2682,7 @@ def variants(device, seed, smi_line):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             per = {k: v - before[k] for k, v in read_launches().items()}
-            # the first request captures the RANSAC graph, the second replays it
-            if per != dict(want, ransac_pnp=RANSAC_AT_CAPTURE if i == 0 else 0):
+            if per != dict(want, ransac_pnp=1):
                 raise PhaseError(f"variants, {what}: request {i} launched {per}, expected {want}")
             for field, val in out._asdict().items():
                 if field not in ("R", "t") and val.is_floating_point() and not torch.isfinite(val).all():
@@ -2562,8 +2745,9 @@ def check_fed_steps(phase, steps, n_steps):
 def check_eval_all_run(phase, batches, per_forward, n_frames, workdir, dataset):
     """What an eval_all.main run with ``--eval_path <workdir>`` from
     ``workdir`` must leave: every frame in full batches of BATCH, launches
-    per batch as ``per_forward``, finite poses wherever RANSAC succeeded,
-    one dump a frame with the reference's keys and both error arrays;
+    per batch as ``body_launches`` gives them for ``per_forward`` (the
+    body replays its stages as CUDA graphs), finite poses wherever RANSAC
+    succeeded, one dump a frame with the reference's keys and both error arrays;
     returns the number of dumps."""
     import glob
 
@@ -2574,7 +2758,7 @@ def check_eval_all_run(phase, batches, per_forward, n_frames, workdir, dataset):
         raise PhaseError(f"{phase}: batches of {[b[3] for b in batches]} frames ran, expected {n_frames // BATCH} "
                          f"of {BATCH}")
     for i, (_, per, out, *_) in enumerate(batches):
-        for name, want in per_forward.items():
+        for name, want in body_launches(per_forward, i == 0).items():
             if name == "ransac_pnp" and i == 0:
                 want = RANSAC_AT_CAPTURE  # the first batch captures the RANSAC graph
             if per[name] != want:
@@ -2605,8 +2789,8 @@ def fed_eval_line(batches):
     succ = sum(int(b[2].success.sum()) for b in batches)
     return ("batches " + ", ".join(f"{b[0] * 1e3:.1f}" for b in batches) + f" ms, median of batches "
             f"2-{len(batches)} {med:.1f} ms ({BATCH * 1e3 / med:.2f} frames/s), fed by the loader {fed:.2f} "
-            "frames/s; launches/batch "
-            + ", ".join(f"{k} {batches[-1][1][k]}" for k in PER_EVAL_FORWARD if batches[-1][1][k])
+            "frames/s; launches/batch at the capture "
+            + ", ".join(f"{k} {batches[0][1][k] // AT_CAPTURE}" for k in PER_EVAL_FORWARD if batches[0][1][k])
             + f"; RANSAC success {succ}/{BATCH * len(batches)}, finite poses")
 
 
@@ -2729,7 +2913,8 @@ def check_pose_outputs(phase, outs, cfg, device):
 
 def timed_batches(phase, cfg, model, device, seed, n, per_forward):
     """A warm-up and ``n`` timed B-frame batches through make_eval_body:
-    launches a forward as ``per_forward``, outputs checked; returns
+    launches a forward as ``per_forward`` at the warm-up's capture, none in
+    the replayed batches, outputs checked; returns
     (ms a batch, peak GiB, the first timed batch, RANSAC successes)."""
     import torch
 
@@ -2738,8 +2923,10 @@ def timed_batches(phase, cfg, model, device, seed, n, per_forward):
     run = make_eval_body(cfg, model)
     batches = [frames(cfg, BATCH, device, start=i * BATCH) for i in range(n + 1)]
     gen = torch.Generator(device).manual_seed(seed)
+    reset_launches()
     run(batches[0], gen)
     torch.cuda.synchronize()
+    captured = read_launches()
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2749,8 +2936,10 @@ def timed_batches(phase, cfg, model, device, seed, n, per_forward):
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = read_launches()
     for name, want in per_forward.items():
-        if launches[name] != want * n:
-            raise PhaseError(f"{phase}: {name} launched {launches[name]} times in {n} forwards, expected {want} each")
+        at_capture = RANSAC_AT_CAPTURE if name == "ransac_pnp" else AT_CAPTURE * want
+        if captured[name] != at_capture or launches[name]:
+            raise PhaseError(f"{phase}: {name} launched {captured[name]} times at the capture and {launches[name]} "
+                             f"in {n} replayed forwards, expected {at_capture} at the capture, then none")
     check_pose_outputs(phase, outs, cfg, device)
     return ms, peak, batches[1], sum(int(o.success.sum()) for o in outs)
 
@@ -3086,6 +3275,8 @@ def main():
         if "serve" in phases:
             served, _, _ = run("serve", serve, device, args.seed, smi_line, args.profile, False, args.requests)
             launches.update({k: served[k] for k in SERVE_KERNELS})
+        if "graphs" in phases:
+            run("graphs", graphs, device, args.seed, smi_line, args.requests)
         if "serve_resfuse" in phases:
             served, _, _ = run("serve_resfuse", serve, device, args.seed, smi_line, False, True, args.requests)
             launches.update({k: served[k] for k in SERVE_RESFUSE_KERNELS})

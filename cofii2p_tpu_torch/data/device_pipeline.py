@@ -43,6 +43,13 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def _clamp_xy(xy: torch.Tensor, x_max: float, y_max: float) -> torch.Tensor:
+    """(..., 2) pixel coordinates clamped to [0, x_max] x [0, y_max], a
+    column at a time with scalar bounds (min and max are exact: the bits of
+    a clamp to a bounds tensor, without copying one from the host)."""
+    return torch.stack([xy[..., 0].clamp(0.0, x_max), xy[..., 1].clamp(0.0, y_max)], dim=-1)
+
+
 def _supervision(cfg: Config, P, K, points, noise) -> Dict[str, torch.Tensor]:
     """The training fields of _prepare_one (device_pipeline.py:74-150),
     batched over frames."""
@@ -62,8 +69,7 @@ def _supervision(cfg: Config, P, K, points, noise) -> Dict[str, torch.Tensor]:
     in_view = (xy8[..., 0] >= 1) & (xy8[..., 0] <= w8 - 3) & (xy8[..., 1] >= 1) & (xy8[..., 1] <= h8 - 3) & (z > 0)
     # out-of-view projections can overflow; clamp so every derived index is
     # in range (validity rides on in_view / kpt_valid)
-    hi = torch.tensor([w8 - 1, h8 - 1], dtype=torch.float32, device=xy8.device)
-    xy8 = torch.minimum(torch.clamp(xy8, min=0.0), hi)
+    xy8 = _clamp_xy(xy8, w8 - 1, h8 - 1)
 
     pc_kpt_idx, kpt_valid = masked_choice(noise["kpt"], in_view, cfg.num_kpt)
     pc_outline_idx, _ = masked_choice(noise["outline"], ~in_view, cfg.num_kpt)
@@ -80,8 +86,7 @@ def _supervision(cfg: Config, P, K, points, noise) -> Dict[str, torch.Tensor]:
 
     # fine /2 supervision for the selected keypoints
     uv2 = project_points(K2, _take(cam_sp, pc_kpt_idx))
-    hi2 = torch.tensor([cfg.img_W // 2 - 1, cfg.img_H // 2 - 1], dtype=torch.float32, device=uv2.device)
-    fine_xy = torch.minimum(torch.clamp(torch.floor(uv2), min=0.0), hi2)
+    fine_xy = _clamp_xy(torch.floor(uv2), cfg.img_W // 2 - 1, cfg.img_H // 2 - 1)
     fine_center = coarse_xy * 4.0
     rel = fine_xy - fine_center + 2.0
     relative_index = torch.clamp((rel[..., 1] * 4 + rel[..., 0]).long(), 0, 15)
@@ -109,7 +114,8 @@ def prepare_samples(pc, attrs, P, K, img, cfg: Config, perms: Sequence[torch.Ten
     per-level subsampling draws (ops/pyramid.py); ``keypoint_noise`` the
     Gumbel noise of the three keypoint draws, {'kpt': (B, S), 'outline':
     (B, S), 'img_outline': (B, H/8 * W/8)}, or None for the eval fields
-    only.  Returns the model's (and the losses') batch dict."""
+    only.  Returns the model's (and the losses') batch dict.  A singular P
+    raises on the CPU; on the card its frame's "P" is non-finite."""
     pc_w = apply_se3(P, pc)
     if has_normals:
         n_w = torch.einsum("bij,bnj->bni", P[:, :3, :3], attrs[..., 1:4])
@@ -121,10 +127,15 @@ def prepare_samples(pc, attrs, P, K, img, cfg: Config, perms: Sequence[torch.Ten
     feats = torch.gather(feats, 1, pyr["perm0"][..., None].expand(-1, -1, feats.shape[-1]))
     K2 = K * 0.5
     K2[:, 2, 2] = 1.0
+    # inv_ex: linalg.inv's check for a singular P would wait for the card,
+    # so there a singular P gives a non-finite "P"; on the CPU it raises
+    P_inv, info = torch.linalg.inv_ex(P)
+    if not P.is_cuda and bool(info.any()):
+        raise torch.linalg.LinAlgError(f"prepare_samples: P of frames {info.nonzero()[:, 0].tolist()} is singular")
     out = {
         "points": pyr["points"],
         "feats": feats,
-        "P": torch.linalg.inv(P),
+        "P": P_inv,
         "K": K2,
         "img": img,
     }

@@ -47,11 +47,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from cofii2p_tpu_torch.config import apply_overrides, get_config
 from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
 from cofii2p_tpu_torch.data.loader import BatchLoader
-from cofii2p_tpu_torch.evaluation.pipeline import CudaGraphed, make_draws, make_eval_body
+from cofii2p_tpu_torch.evaluation.pipeline import make_draws, make_eval_body
 from cofii2p_tpu_torch.models.network import CoFiI2P
 from cofii2p_tpu_torch.pose.ransac import gumbel_noise, ransac_pnp
 from cofii2p_tpu_torch.train import _to_device, build_dataset, resolve_device
 from cofii2p_tpu_torch.utils import profiling
+from cofii2p_tpu_torch.utils.cuda_graphs import CudaGraphed
 from cofii2p_tpu_torch.utils.profiling import timeit_sync
 
 aten = torch.ops.aten
@@ -238,7 +239,7 @@ def main(argv=None):
     mask = torch.ones(1, s, device=device)
     noise = gumbel_noise((1, cfg.ransac_hypotheses, s), torch.Generator(device).manual_seed(1), device)
     solve = functools.partial(ransac_pnp, inlier_threshold=cfg.ransac_inlier_px, refine_iters=cfg.ransac_refine_iters)
-    dt_pnp = timed(CudaGraphed(solve) if device.type == "cuda" else solve, noise, obj, uv, K, mask)
+    dt_pnp = timed(CudaGraphed(solve, "cofii2p.ransac") if device.type == "cuda" else solve, noise, obj, uv, K, mask)
     print(f"pnp-ransac alone: {dt_pnp * 1e3:.2f} ms/frame, {1 / dt_pnp:.2f} frames/s")
     return fps
 

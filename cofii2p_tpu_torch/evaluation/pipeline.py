@@ -10,17 +10,18 @@ JAX's own draws) or from a ``torch.Generator``.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from cofii2p_tpu_torch.config import Config
 from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
+from cofii2p_tpu_torch.models.kpconv import KPConv
 from cofii2p_tpu_torch.models.network import CoFiI2P, fine_match_xy
-from cofii2p_tpu_torch.ops.cuda_lib import graph_nodes
 from cofii2p_tpu_torch.ops.pyramid import random_level_perms
 from cofii2p_tpu_torch.pose.ransac import gumbel_noise, ransac_pnp
-from cofii2p_tpu_torch.utils.profiling import counter, span
+from cofii2p_tpu_torch.utils.cuda_graphs import GraphSet, serving_stages
+from cofii2p_tpu_torch.utils.profiling import span
 
 
 class EvalOutput(NamedTuple):
@@ -43,100 +44,62 @@ def make_draws(cfg: Config, batch: int, generator: torch.Generator, device) -> d
     }
 
 
-class CudaGraphed:
-    """Replays ``fn`` as one captured CUDA graph per input signature.
-
-    For the RANSAC stage: the kernels of csrc/ransac_pnp.cu and, between
-    the refinement's phases, the plain version's own sums over the
-    correspondences (pose/ransac.py::run_kernels), ~120 launches static in
-    shape and free of host syncs, which one graph launch replays.  ``fn``
-    takes tensors and returns a NamedTuple of tensors; each call copies the
-    inputs into the graph's static buffers and returns copies of its
-    outputs.
-    """
-
-    def __init__(self, fn):
-        self.fn = fn
-        self.graphs = {}
-
-    def __call__(self, *args):
-        with span("cofii2p.ransac"):
-            key = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
-            if key not in self.graphs:
-                self.graphs[key] = self._capture(args)
-            graph, static_in, static_out = self.graphs[key]
-            for dst, src in zip(static_in, args):
-                dst.copy_(src)
-            with span("cofii2p.ransac.replay"):
-                graph.replay()
-            return type(static_out)(*(t.clone() for t in static_out))
-
-    def _capture(self, args):
-        static_in = [a.clone() for a in args]
-        side = torch.cuda.Stream(args[0].device)
-        side.wait_stream(torch.cuda.current_stream(args[0].device))
-        with torch.cuda.stream(side):
-            self.fn(*static_in)  # warm-up outside the capture
-        torch.cuda.current_stream(args[0].device).wait_stream(side)
-        # keep_graph: the captured graph stays readable for its node count,
-        # and is instantiated after
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            static_out = self.fn(*static_in)
-        count_nodes(graph)
-        graph.instantiate()
-        return graph, static_in, static_out
-
-
-def count_nodes(graph) -> None:
-    """Adds a captured graph's nodes to ``cofii2p.ransac.graph_nodes`` and
-    one to ``cofii2p.ransac.captures``, so that their ratio is a graph's
-    nodes whatever shapes were captured.  The count is a diagnostic: where
-    the driver cannot give it, the graph serves uncounted and the counters
-    stay as they were."""
-    try:
-        n = graph_nodes(graph)
-    except Exception:  # a missing or refusing driver entry point
-        return
-    counter("cofii2p.ransac.graph_nodes").add(n)
-    counter("cofii2p.ransac.captures").add()
-
-
-def make_eval_body(cfg: Config, model: CoFiI2P, has_normals: bool = True):
+def make_eval_body(cfg: Config, model: CoFiI2P, has_normals: bool = True, stages: Optional[Sequence[str]] = None):
     """Returns run(host_batch, generator=None, draws=None) -> EvalOutput.
 
     host_batch holds tensors on the model's device: pc (B, N, 3), attrs
     (B, N, A), P (B, 4, 4), K (B, 3, 3), img (B, H, W, 3).
+
+    On the card the ``stages`` (utils/cuda_graphs.py::STAGES; by default
+    ``serving_stages(cfg)``, all of them but the gather k-NN's prep) replay
+    as CUDA graphs, one set a batch shape, captured on its first call:
+    prep inside ``cofii2p.prep``, the point branch inside
+    ``model.pc_encoder``'s forward (each KPConv's part inside that KPConv's
+    call), the rest of the network inside ``model``'s, fine matching and
+    RANSAC after it; ``stages=()`` gives the eager body.  The inputs are
+    copied into the graphs' buffers, and the returned fields are copies of
+    theirs.  Outside ``run`` the model is left as it was.
     """
 
     ransac = functools.partial(
         ransac_pnp, inlier_threshold=cfg.ransac_inlier_px, refine_iters=cfg.ransac_refine_iters
     )
-    ransac_graphed = CudaGraphed(ransac)
+    graphs = GraphSet(serving_stages(cfg) if stages is None else stages)
+    eager = GraphSet(())
+    kpconvs = [m for m in model.pc_encoder.modules() if isinstance(m, KPConv)]
+
+    def prep(pc, attrs, P, K, img, perms):
+        return prepare_samples(pc, attrs, P, K, img, cfg, perms, has_normals=has_normals)
+
+    def match(fine_img_patch, fine_pc_feature, fine_center_xy, inlier_mask):
+        """Fine matching, and the correspondence mask as RANSAC takes it."""
+        fine_xy = fine_match_xy(fine_img_patch, fine_pc_feature, fine_center_xy, decode=cfg.fine_decode)
+        return fine_xy, inlier_mask.float()
 
     @torch.no_grad()
     def run(host_batch, generator: Optional[torch.Generator] = None, draws: Optional[dict] = None):
-        with span("cofii2p.eval"):
-            b = host_batch["pc"].shape[0]
+        pc = host_batch["pc"]
+        on = graphs if pc.is_cuda else eager
+        with (span("cofii2p.eval"), on.bound(model.pc_encoder, "forward", "pc_encoder", kpconvs),
+              on.bound(model, "heads", "network")):
             if draws is None:
-                draws = make_draws(cfg, b, generator, host_batch["pc"].device)
+                draws = make_draws(cfg, pc.shape[0], generator, pc.device)
             with span("cofii2p.prep"):
-                batch = prepare_samples(
-                    host_batch["pc"], host_batch["attrs"], host_batch["P"], host_batch["K"],
-                    host_batch["img"], cfg, draws["perms"], has_normals=has_normals,
+                batch = on.stage("prep", prep)(
+                    pc, host_batch["attrs"], host_batch["P"], host_batch["K"], host_batch["img"], draws["perms"]
                 )
             out = model(batch, mode="test")
             with span("cofii2p.fine_match"):
-                fine_xy = fine_match_xy(
-                    out["fine_img_patch"], out["fine_pc_feature"], out["fine_center_xy"], decode=cfg.fine_decode
+                fine_xy, mask = on.stage("fine_match", match)(
+                    out["fine_img_patch"], out["fine_pc_feature"], out["fine_center_xy"], out["inlier_mask"]
                 )
-            solve = ransac_graphed if fine_xy.is_cuda else ransac
-            res = solve(draws["gumbel"], out["coarse_pc_points"], fine_xy, batch["K"], out["inlier_mask"].float())
-            return EvalOutput(
-                R=res.R, t=res.t, success=res.success, num_inliers=res.num_inliers, P_gt=batch["P"],
-                fine_xy=fine_xy, corr_mask=out["inlier_mask"], object_points=out["coarse_pc_points"],
-                pc_score=out["coarse_pc_score"],
-            )
+            res = on.stage("ransac", ransac)(draws["gumbel"], out["coarse_pc_points"], fine_xy, batch["K"], mask)
+            fields = {"R": res.R, "t": res.t, "success": res.success, "num_inliers": res.num_inliers,
+                      "P_gt": batch["P"], "fine_xy": fine_xy, "corr_mask": out["inlier_mask"],
+                      "object_points": out["coarse_pc_points"], "pc_score": out["coarse_pc_score"]}
+            if on.names:  # the graphs' buffers: the next request writes them
+                fields = {k: v.clone() for k, v in fields.items()}
+            return EvalOutput(**fields)
 
     return run
 

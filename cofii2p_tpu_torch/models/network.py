@@ -120,60 +120,66 @@ class CoFiI2P(nn.Module):
 
     def forward(self, batch, mode: str = "test", train: bool = False):
         with span("cofii2p.network"):
-            cfg, dtype = self.cfg, self.dtype
-            img, points = batch["img"], batch["points"]
-            b = img.shape[0]
-            h8, w8 = cfg.pe_H, cfg.pe_W
-
             with span("cofii2p.pc_encoder"):
-                pc_feature_set = self.pc_encoder(batch["feats"], points, batch.get("neighbors"),
+                pc_feature_set = self.pc_encoder(batch["feats"], batch["points"], batch.get("neighbors"),
                                                  batch.get("subsampling"), batch.get("upsampling"))
-            with span("cofii2p.img_encoder"):
-                img_feature_set = self.img_encoder(img)
+            return self.heads(batch, pc_feature_set, mode, train)
 
-            pc_fine = l2norm(pc_feature_set[0])
-            pc_feature_middle = l2norm(self.pc_feature_layer(pc_feature_set[-1]))
-            img_s2, img_s4 = img_feature_set[0], img_feature_set[1]
-            img_s8 = l2norm(img_feature_set[2])
+    def heads(self, batch, pc_feature_set, mode: str = "test", train: bool = False):
+        """The network after the point branch: the image branch, the
+        transformer, the score heads and the fine map, then the test-mode
+        selection or the supervised fine patches.  A serving body on the
+        card replays it as a CUDA graph (evaluation/pipeline.py)."""
+        cfg, dtype = self.cfg, self.dtype
+        img, points = batch["img"], batch["points"]
+        b = img.shape[0]
+        h8, w8 = cfg.pe_H, cfg.pe_W
+        with span("cofii2p.img_encoder"):
+            img_feature_set = self.img_encoder(img)
 
-            img_pos = position_embedding_sine(image_grid_coords(h8, w8, img.device), cfg.d_model)
-            pc_pos = position_embedding_sine(points[-1], cfg.d_model)
-            img_tokens = img_s8.reshape(b, h8 * w8, cfg.d_model) + img_pos[None]
-            pc_tokens = pc_feature_middle + pc_pos
-            img_mid, pc_fused = self.transformer(img_tokens.to(dtype), pc_tokens.to(dtype))
-            img_mid_map = img_mid.reshape(b, h8, w8, cfg.d_model)
+        pc_fine = l2norm(pc_feature_set[0])
+        pc_feature_middle = l2norm(self.pc_feature_layer(pc_feature_set[-1]))
+        img_s2, img_s4 = img_feature_set[0], img_feature_set[1]
+        img_s8 = l2norm(img_feature_set[2])
 
-            coarse_pc_score = self.pc_score_layer(pc_fused)[..., 0]
-            coarse_img_score = self.img_score_layer(img_mid_map)[..., 0]
-            pc_feature_norm = l2norm(pc_fused)
-            img_feature_norm = l2norm(img_mid_map)
+        img_pos = position_embedding_sine(image_grid_coords(h8, w8, img.device), cfg.d_model)
+        pc_pos = position_embedding_sine(points[-1], cfg.d_model)
+        img_tokens = img_s8.reshape(b, h8 * w8, cfg.d_model) + img_pos[None]
+        pc_tokens = pc_feature_middle + pc_pos
+        img_mid, pc_fused = self.transformer(img_tokens.to(dtype), pc_tokens.to(dtype))
+        img_mid_map = img_mid.reshape(b, h8, w8, cfg.d_model)
 
-            # the reference upsamples the l2-normalised /8 map (network.py:91,129)
-            up4 = self.img_upsample_1(img_s8.to(dtype), img_s4, train)
-            up2 = l2norm(self.img_upsample_2(up4, img_s2, train))
+        coarse_pc_score = self.pc_score_layer(pc_fused)[..., 0]
+        coarse_img_score = self.img_score_layer(img_mid_map)[..., 0]
+        pc_feature_norm = l2norm(pc_fused)
+        img_feature_norm = l2norm(img_mid_map)
 
-            out = {
-                "img_feature_norm": img_feature_norm,
-                "pc_feature_norm": pc_feature_norm,
-                "coarse_img_score": coarse_img_score,
-                "coarse_pc_score": coarse_pc_score,
-                "fine_img_map": up2,
-                "pc_fused": pc_fused,
-                "img_mid": img_mid,
-                "pc_features": pc_feature_set,
-            }
-            if mode in ("train", "val"):
-                # supervised fine patches around the projected keypoints (network.py:192-202)
-                idx = batch["fine_pc_inline_index"].long()
-                out["fine_pc_feature"] = torch.gather(pc_fine, 1, idx[..., None].expand(-1, -1, pc_fine.shape[-1]))
-                out["fine_img_patch"] = extract_patches(up2, batch["fine_center_kpt_coors"], 4)
-            elif mode == "test":
-                with span("cofii2p.selection"):
-                    out.update(self._test_mode(cfg, points, coarse_pc_score, pc_feature_norm, img_feature_norm,
-                                               pc_fine, up2))
-            else:
-                raise KeyError(mode)
-            return out
+        # the reference upsamples the l2-normalised /8 map (network.py:91,129)
+        up4 = self.img_upsample_1(img_s8.to(dtype), img_s4, train)
+        up2 = l2norm(self.img_upsample_2(up4, img_s2, train))
+
+        out = {
+            "img_feature_norm": img_feature_norm,
+            "pc_feature_norm": pc_feature_norm,
+            "coarse_img_score": coarse_img_score,
+            "coarse_pc_score": coarse_pc_score,
+            "fine_img_map": up2,
+            "pc_fused": pc_fused,
+            "img_mid": img_mid,
+            "pc_features": pc_feature_set,
+        }
+        if mode in ("train", "val"):
+            # supervised fine patches around the projected keypoints (network.py:192-202)
+            idx = batch["fine_pc_inline_index"].long()
+            out["fine_pc_feature"] = torch.gather(pc_fine, 1, idx[..., None].expand(-1, -1, pc_fine.shape[-1]))
+            out["fine_img_patch"] = extract_patches(up2, batch["fine_center_kpt_coors"], 4)
+        elif mode == "test":
+            with span("cofii2p.selection"):
+                out.update(self._test_mode(cfg, points, coarse_pc_score, pc_feature_norm, img_feature_norm,
+                                           pc_fine, up2))
+        else:
+            raise KeyError(mode)
+        return out
 
     @staticmethod
     def _test_mode(cfg, points, pc_score, pc_feat, img_feat, pc_fine, fine_img_map):

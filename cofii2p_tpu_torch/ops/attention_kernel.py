@@ -15,6 +15,8 @@ refuses inputs that require grad under grad mode (training uses
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from cofii2p_tpu_torch.ops import cuda_lib
@@ -23,13 +25,18 @@ from cofii2p_tpu_torch.ops.kpconv_kernel import check_no_grad
 HEAD_DIM = 32  # the head width the kernel takes
 
 
+@functools.lru_cache(maxsize=None)
+def _sqrt_on(d: int, device) -> torch.Tensor:
+    """sqrt(d) as an fp32 scalar tensor kept on ``device``: a division by
+    it rounds as JAX's does (by a Python float the card would multiply by
+    its reciprocal), and no copy from the host waits for the card."""
+    return torch.sqrt(torch.tensor(d, dtype=torch.float32, device=device))
+
+
 def full_attention(q, k, v):
     """softmax(q k^T / sqrt(D)) v over (B, L/S, H, D) tensors, fp32 softmax
     and fp32 output (cofii2p_tpu/models/transformer.py::full_attention)."""
-    d = q.shape[-1]
-    logits = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) / torch.sqrt(
-        torch.tensor(d, dtype=torch.float32, device=q.device)
-    )
+    logits = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) / _sqrt_on(q.shape[-1], q.device)
     attn = torch.softmax(logits, dim=-1)
     return torch.einsum("bhls,bshd->blhd", attn, v.float())
 

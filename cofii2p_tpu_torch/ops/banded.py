@@ -41,6 +41,15 @@ def _load_kernel_points(radius: float, kernel_size: int) -> np.ndarray:
     return np.asarray(load_kernel_points(radius, kernel_size, 3))
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_points(radius, kernel_size, device):
+    """The canonical kernel points (K, 3) fp32, kept on ``device``: a copy
+    from host memory on every call would block the host until the card
+    has drained its queue (and cannot be captured in a CUDA graph)."""
+    kp = _load_kernel_points(radius, kernel_size).astype(np.float32)
+    return torch.as_tensor(kp, device=device).contiguous()
+
+
 def kernel_reach(radius: float, sigma: float, kernel_size: int = 15) -> float:
     """Max distance at which any kernel point has nonzero influence."""
     kp = _load_kernel_points(radius, kernel_size)
@@ -205,7 +214,7 @@ def banded_kpconv_aggregate(
     n, c = s_feats.shape[1:]
     dev = q_points.device
     if kp is None:
-        kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+        kp = _kernel_points(float(radius), int(kernel_size), dev)
         r2 = kernel_reach(radius, sigma, kernel_size) ** 2
     else:
         kp = kp.to(device=dev, dtype=torch.float32)
@@ -252,11 +261,10 @@ def banded_maxpool(s_feats, q_points, s_points, r_active, tile=128, band_width=1
     qt, pb, fb = _tiles(q_points, s_points, s_feats, tile, num_tiles, band, starts)
     tt = None if tau is None else tau.reshape(b, num_tiles, tile, 1)
     out = torch.empty(b, num_tiles, tile, c, dtype=s_feats.dtype, device=s_feats.device)
-    neg = torch.tensor(float("-inf"), dtype=s_feats.dtype, device=s_feats.device)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * band * c):
         q, p, f = qt[:, t0:t1], pb[:, t0:t1], fb[:, t0:t1]
         within = _membership_d2(q, p) <= (r2 if tt is None else tt[:, t0:t1])  # (B, t, T, band)
-        pooled = torch.where(within[..., None], f[:, :, None], neg).amax(dim=3)
+        pooled = torch.where(within[..., None], f[:, :, None], float("-inf")).amax(dim=3)
         out[:, t0:t1] = torch.where(within.any(-1, keepdim=True), pooled, 0.0)
     return out.reshape(b, m, c)
 
@@ -355,7 +363,6 @@ def banded_compact_maxpool(s_feats, q_points, s_points, r_active, k=128, tile=12
     tile, num_tiles, band, qt, pb, fb = _static_tiles(q_points, s_points, s_feats, tile, band_width)
     kk = min(k, band) if rel is None else rel.shape[-1]
     rt = None if rel is None else rel.reshape(b, num_tiles, tile, kk).long()
-    neg = torch.tensor(float("-inf"), dtype=s_feats.dtype, device=s_feats.device)
 
     def pool(q, p, f, rel_t):
         if rel_t is None:
@@ -369,7 +376,7 @@ def banded_compact_maxpool(s_feats, q_points, s_points, r_active, k=128, tile=12
         if d2k is None:
             d2k = _membership_d2_rows(q, _take_rows(p, idx))
         member = d2k <= r2  # (B, t, T, kk)
-        out = torch.where(member[..., None], rows, neg).amax(3)
+        out = torch.where(member[..., None], rows, float("-inf")).amax(3)
         return torch.where(member.any(-1, keepdim=True), out, 0.0)
 
     parts = []
@@ -401,7 +408,7 @@ def banded_compact_aggregate(s_feats, q_points, s_points, radius, sigma, kernel_
     c = s_feats.shape[-1]
     dev = q_points.device
     if kp is None:
-        kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+        kp = _kernel_points(float(radius), int(kernel_size), dev)
         r2 = kernel_reach(radius, sigma, kernel_size) ** 2
     else:
         kp = kp.to(device=dev, dtype=torch.float32)
@@ -538,7 +545,7 @@ def banded_kpconv_aggregate_transpose(
     n = s_points.shape[1]
     dev = q_points.device
     if kp is None:
-        kp = torch.as_tensor(_load_kernel_points(radius, kernel_size), dtype=torch.float32, device=dev)
+        kp = _kernel_points(float(radius), int(kernel_size), dev)
         r2 = kernel_reach(radius, sigma, kernel_size) ** 2
     else:
         kp = kp.to(device=dev, dtype=torch.float32)

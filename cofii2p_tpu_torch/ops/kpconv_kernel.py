@@ -55,7 +55,7 @@ from cofii2p_tpu_torch.ops import cuda_lib
 from cofii2p_tpu_torch.ops.banded import (
     _band_geometry,
     _band_starts_np,
-    _load_kernel_points,
+    _kernel_points,
     _round,
     band_plan,
     banded_kpconv_aggregate,
@@ -118,8 +118,7 @@ def mma_weights(weights, ci: int, co: int):
     k_num, cin, cout = weights.shape
     w = torch.zeros(k_num, ci, co, dtype=torch.bfloat16, device=weights.device)
     w[:, :cin, :cout] = weights.to(torch.bfloat16)
-    perm = torch.as_tensor(_mma_perm(ci), device=weights.device)
-    return w.index_select(1, perm).transpose(1, 2).contiguous()
+    return w.index_select(1, _perm_on("mma", ci, weights.device)).transpose(1, 2).contiguous()
 
 
 def _tf32_perm(ci: int) -> list:
@@ -136,13 +135,20 @@ def tf32_weights(weights, ci: int, co: int):
     k_num, cin, cout = weights.shape
     w = torch.zeros(k_num, ci, co, dtype=torch.float32, device=weights.device)
     w[:, :cin, :cout] = weights.float()
-    perm = torch.as_tensor(_tf32_perm(ci), device=weights.device)
-    return w.index_select(1, perm).transpose(1, 2).contiguous()
+    return w.index_select(1, _perm_on("tf32", ci, weights.device)).transpose(1, 2).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _perm_on(layout: str, ci: int, device) -> torch.Tensor:
+    """A layout's Cin permutation, kept on ``device`` as the kernel points
+    are: a copy from host memory on every call would block the host until
+    the card has drained its queue (and cannot be captured in a graph)."""
+    return torch.as_tensor((_mma_perm if layout == "mma" else _tf32_perm)(ci), device=device)
 
 
 def fused_weights(weights, dtype):
-    """W (K, Cin, Cout) as kernel #1 (and #16's conv half) reads it in the
-    compute dtype: :func:`mma_weights`' layout in bf16,
+    """W (K, Cin, Cout) as kernels #1 and #7 (and #16's conv half) read it
+    in the compute dtype: :func:`mma_weights`' layout in bf16,
     :func:`tf32_weights`' in fp32, padded to the built widths; the block
     takes its queries from its plan (csrc/kpconv_mma_plan.cuh ``MmaPlan``)."""
     _, cin, cout = weights.shape
@@ -156,12 +162,6 @@ def pick_tq(tile: int, limit: int) -> int:
     while tq * 2 <= limit and tile % (tq * 2) == 0:
         tq *= 2
     return tq
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_points(radius, kernel_size, device):
-    kp = _load_kernel_points(radius, kernel_size).astype(np.float32)
-    return torch.as_tensor(kp, device=device).contiguous()
 
 
 def _check_cuda(**tensors):
@@ -602,8 +602,7 @@ def banded_kpconv_fused_tau(
         raise ValueError("shape mismatch between features and weights")
     if cout > MAX_CHANNELS:
         raise ValueError(f"Cout <= {MAX_CHANNELS} supported, got {cout}")
-    layout = mma_weights if dtype == torch.bfloat16 else tf32_weights
-    w = layout(weights, mma_pad(cin), mma_pad(cout))
+    w = fused_weights(weights, dtype)
     _check_cuda(weights=w)
     out = torch.empty(b, m, cout, dtype=torch.float32, device=s_feats.device)
     count = torch.empty(b, m, dtype=torch.int32, device=s_feats.device)

@@ -36,7 +36,8 @@ from typing import Callable
 import torch
 
 # every span and counter name the package records; "<i>" stands for a
-# transformer layer's index
+# transformer layer's index, "<stage>" for a serving graph's stage
+# (utils/cuda_graphs.py: prep, pc_encoder, network, fine_match)
 SPAN_NAMES = (
     "cofii2p.eval",
     "cofii2p.prep",
@@ -52,6 +53,10 @@ SPAN_NAMES = (
     "cofii2p.ransac.replay",
     "cofii2p.ransac.graph_nodes",
     "cofii2p.ransac.captures",
+    "cofii2p.graph.<stage>",
+    "cofii2p.graph.<stage>.replay",
+    "cofii2p.graph.<stage>.graph_nodes",
+    "cofii2p.graph.<stage>.captures",
     "cofii2p.train_step",
     "cofii2p.train.losses",
     "cofii2p.train.backward",

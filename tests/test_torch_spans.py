@@ -38,8 +38,10 @@ def _clean_registry():
 
 
 def listed(name: str) -> bool:
-    """Whether ``name`` is one of SPAN_NAMES, "<i>" matching an index."""
-    return any(re.fullmatch(re.escape(p).replace("<i>", r"\d+"), name) for p in profiling.SPAN_NAMES)
+    """Whether ``name`` is one of SPAN_NAMES, "<i>" matching an index and
+    "<stage>" a graph stage's name."""
+    return any(re.fullmatch(re.escape(p).replace("<i>", r"\d+").replace("<stage>", "[a-z_]+"), name)
+               for p in profiling.SPAN_NAMES)
 
 
 def test_span_off_records_nothing_and_opens_no_range(monkeypatch):
@@ -125,6 +127,12 @@ def fake_capture(monkeypatch):
         def wait_stream(self, other):
             pass
 
+        def capture_begin(self, pool=None, capture_error_mode="global"):
+            pass
+
+        def capture_end(self):
+            pass
+
         def instantiate(self):
             pass
 
@@ -133,35 +141,36 @@ def fake_capture(monkeypatch):
 
     for name in ("Stream", "CUDAGraph", "current_stream"):
         monkeypatch.setattr(torch.cuda, name, Fake)
-    for name in ("stream", "graph"):
-        monkeypatch.setattr(torch.cuda, name, lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", lambda *a, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
 
 
 def test_node_counts_add_up_over_the_captured_shapes(monkeypatch):
-    from cofii2p_tpu_torch.evaluation import pipeline
+    from cofii2p_tpu_torch.utils import cuda_graphs
 
     fake_capture(monkeypatch)
-    monkeypatch.setattr(pipeline, "graph_nodes", lambda graph: 7)
+    monkeypatch.setattr(cuda_graphs, "graph_nodes", lambda graph: 7)
     Out = collections.namedtuple("Out", "y")
-    graphed = pipeline.CudaGraphed(lambda x: Out(x * 2))
+    graphed = cuda_graphs.CudaGraphed(lambda x: Out(x * 2), "cofii2p.ransac")
     for n in (3, 3, 5):
         (y,) = graphed(torch.ones(n))
         assert torch.equal(y, torch.full((n,), 2.0))
-    assert [g.replays for g, _, _ in graphed.graphs.values()] == [2, 1]
+    assert [[g.replays for _, g in parts] for parts, _, _ in graphed.graphs.values()] == [[2], [1]]
     assert profiling.span_table() == {"cofii2p.ransac.graph_nodes": {"value": 14},
                                       "cofii2p.ransac.captures": {"value": 2}}
 
 
 def test_a_failing_node_count_does_not_stop_the_request(monkeypatch):
-    from cofii2p_tpu_torch.evaluation import pipeline
+    from cofii2p_tpu_torch.utils import cuda_graphs
 
     def refuse(graph):
         raise RuntimeError("cuGraphGetNodes failed with CUresult 1")
 
     fake_capture(monkeypatch)
-    monkeypatch.setattr(pipeline, "graph_nodes", refuse)
+    monkeypatch.setattr(cuda_graphs, "graph_nodes", refuse)
     Out = collections.namedtuple("Out", "y")
-    (y,) = pipeline.CudaGraphed(lambda x: Out(x + 1))(torch.zeros(4))
+    (y,) = cuda_graphs.CudaGraphed(lambda x: Out(x + 1), "cofii2p.ransac")(torch.zeros(4))
     assert torch.equal(y, torch.ones(4))
     assert profiling.span_table() == {}  # uncounted: no reading rather than a wrong one
 
@@ -201,9 +210,12 @@ def test_tiny_eval_request_records_its_spans(tmp_path):
 
 
 def test_every_recorded_name_is_listed_and_documented():
-    """The string names passed to span() and counter() in the package are
-    in SPAN_NAMES (a name built at run time is checked by the request
-    above), and PERF.md names every entry of SPAN_NAMES."""
+    """The string names passed to span() and counter() in the package,
+    and those of each serving graph stage, are in SPAN_NAMES (a name built
+    at run time is checked by the request above), and PERF.md names every
+    entry of SPAN_NAMES."""
+    from cofii2p_tpu_torch.utils.cuda_graphs import STAGES, stage_prefix
+
     found = set()
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -216,8 +228,12 @@ def test_every_recorded_name_is_listed_and_documented():
                         and node.func.id in ("span", "counter") and node.args
                         and isinstance(node.args[0], ast.Constant)):
                     found.add(node.args[0].value)
+    staged = {stage_prefix(s) + x for s in STAGES for x in ("", ".replay", ".graph_nodes", ".captures")}
+    assert [n for n in staged if not listed(n)] == []
+    found |= staged & set(profiling.SPAN_NAMES)  # RANSAC's, named in full
     assert found - set(profiling.SPAN_NAMES) == set()
-    assert len(found) >= len(profiling.SPAN_NAMES) - 2  # all but the two per-layer patterns
+    patterns = [n for n in profiling.SPAN_NAMES if "<" in n]  # per layer or per graph stage
+    assert len(found) >= len(profiling.SPAN_NAMES) - len(patterns)
     with open(os.path.join(ROOT, "PERF.md")) as fh:
         perf = fh.read()
     assert [n for n in profiling.SPAN_NAMES if f"`{n}`" not in perf] == []
@@ -227,7 +243,7 @@ def test_every_recorded_name_is_listed_and_documented():
 def test_capture_records_no_events_and_counts_the_graphs_nodes():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: CUDA graphs are captured only on the card")
-    from cofii2p_tpu_torch.evaluation.pipeline import CudaGraphed
+    from cofii2p_tpu_torch.utils.cuda_graphs import CudaGraphed
 
     Out = collections.namedtuple("Out", "y")  # CudaGraphed returns its fn's NamedTuple
 
@@ -238,7 +254,7 @@ def test_capture_records_no_events_and_counts_the_graphs_nodes():
         return Out(x)
 
     x = torch.ones(64, device="cuda")
-    graphed = CudaGraphed(fn)
+    graphed = CudaGraphed(fn, "cofii2p.ransac")
     with profiling.recording():
         (y,) = graphed(x)
         (y,) = graphed(x)
