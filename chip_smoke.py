@@ -65,7 +65,12 @@ the last line):
            attention beside the library's fp32 attention; then every
            KPConv kernel (#1 fp32 and bf16, #2, #6, #7, #9, #10, #11, #16)
            again at K = 12 and K = 20 kernel points from the port's
-           generator, on its smallest shape, at the K = 15 gates
+           generator, on its smallest shape, at the K = 15 gates; last,
+           the point branch's group-norm kernels (#18) on each of the 47
+           group-norm calls of a bf16 B=8 serving forward: statistics
+           within 1e-5 of the plain version's and the same bits on two
+           launches, the apply bit-equal on the plain statistics, the
+           calls' summed kernel, plain and bound ms
   fp32     the whole forward at B=1 in fp32 through the kernels and through
            the plain versions: FPN and transformer outputs agree
   grad     one fp32 train step at B=1 on a KITTI-scale frame through the
@@ -248,10 +253,16 @@ KITTI_FIXTURE_FRAMES = {0: 16, 9: 8, 10: 4}
 NUSCENES_FIXTURE_FRAMES = {"train": 16, "test": 16}
 NUSCENES_TRAIN_STEPS = 2
 FIXTURE_POINTS = {"kitti": 120000, "nuscenes": 50000}  # a frame's cloud, as the datasets' sweeps hold
-PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0}
+# the KITTI FPN's group norms: encoder1_1's, four in encoder1_2, ten in each
+# of stages 2-5 (the strided block's unary1, norm_conv, unary2; unary1,
+# norm_conv, unary2 and unary_shortcut; unary1, norm_conv, unary2), both
+# decoders' with a norm
+NORM_SITES = 47
+PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0, "point_norm": NORM_SITES}
 # with kpconv_residual_fused: the 4 strided blocks' conv and shortcut in one
 # pass each (all fit residual_fused_fits in bf16 at w192), the other 10 convs
-PER_RESFUSE_FORWARD = {"residual_fused": 4, "kpconv_fused": 10, "maxpool": 0, "attention": 16}
+PER_RESFUSE_FORWARD = {"residual_fused": 4, "kpconv_fused": 10, "maxpool": 0, "attention": 16,
+                       "point_norm": NORM_SITES}
 # the serve phase's drift readings (the four of the drift tool,
 # cofii2p_tpu_torch/tools/window_drift.py::drift) between the kernels and
 # the plain versions, measured with the CUDA-core #1 and #4 before their
@@ -265,8 +276,9 @@ SERVE_DRIFT_LIMITS = {k: 2 * v + 0.01 for k, v in SERVE_DRIFT_PARENT.items()}
 ATTN_BF16_EXCESS = 5e-4
 # launches per train step: 14 KPConvs forward, 13 feature gradients (not
 # encoder1_1's, whose input needs none), 4 strided shortcuts forward and
-# backward; no fused KPConv and no fused attention while differentiating
-NOT_TRAINED = {"kpconv_fused": 0, "attention": 0, "kpconv_fused_tau": 0, "residual_fused": 0}
+# backward; no fused KPConv, no fused attention and no group-norm kernels
+# while differentiating
+NOT_TRAINED = {"kpconv_fused": 0, "attention": 0, "kpconv_fused_tau": 0, "residual_fused": 0, "point_norm": 0}
 PER_STEP = {"kpconv_aggregate": 14, "kpconv_transpose": 13, "maxpool": 4, "maxpool_count": 4, "maxpool_bwd": 4,
             "kpconv_transpose_dyn": 0, "maxpool_bwd_dyn": 0, "knn_tau": 0, "kpconv_aggregate_tau": 0,
             **NOT_TRAINED}
@@ -291,9 +303,10 @@ PER_KNN_STEP = {"knn_tau": 9, "kpconv_aggregate_tau": 14, "kpconv_transpose_tau"
 # KPConvs that fit the fused kernel, the two Cin = 512 ones on the
 # aggregate, 4 strided shortcuts; full attention, as KITTIConfig has it
 PER_EVAL_FORWARD = {"kpconv_fused": 12, "kpconv_aggregate": 2, "maxpool": 4, "attention": 0, "residual_fused": 0,
-                    "kpconv_fused_tau": 0}
+                    "kpconv_fused_tau": 0, "point_norm": NORM_SITES}
 PER_T7_FORWARD = {"knn_tau": 9, "kpconv_fused_tau": 12, "kpconv_aggregate_tau": 2, "maxpool_tau": 4, "attention": 16,
-                  "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0, "residual_fused": 0}
+                  "kpconv_fused": 0, "kpconv_aggregate": 0, "maxpool": 0, "residual_fused": 0,
+                  "point_norm": NORM_SITES}
 # the variants phase's serving configurations (the serving one otherwise)
 VARIANTS = (("linear attention, LayerNorm point blocks, centroid windows, K = 20",
              dict(attention="linear", norm="ln", kpconv_dynamic_center="centroid", kernel_size=20)),
@@ -321,6 +334,10 @@ KERNELS = {
     # no TPU kernel: the JAX package's RANSAC is plain jnp; added because the
     # plain version is a chain of ~24k tiny launches
     "ransac_pnp": ("cofii2p_tpu_torch/csrc/ransac_pnp.cu", "none (cofii2p_tpu/pose/ransac.py is plain jnp)"),
+    # no TPU kernel: the JAX package's group norm chain is plain jnp, which
+    # XLA fuses; added because PyTorch runs it as ~10 passes a site
+    "point_norm": ("cofii2p_tpu_torch/csrc/point_norm.cu",
+                   "none (cofii2p_tpu/models/layers.py PointGroupNorm, leaky_relu are plain jnp)"),
 }
 # the RANSAC wrapper's calls when a serving body first meets a shape: the
 # warm-up call outside CUDA graph capture and the captured one; replays
@@ -331,14 +348,14 @@ RANSAC_AT_CAPTURE = 2
 # twice (the warm-up outside capture, then the captured call), so each
 # kernel launches twice its count a forward, and later requests launch none
 AT_CAPTURE = 2
-# the gather `.t7` forward (kpconv_impl=gather): the 16 attention calls and no
-# other kernel; each batch builds 13 k-NN maps (5 self, 4 subsampling, 4
-# upsampling)
-PER_T7_GATHER_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16}
+# the gather `.t7` forward (kpconv_impl=gather): the 16 attention calls, the
+# group norms and no other kernel; each batch builds 13 k-NN maps (5 self, 4
+# subsampling, 4 upsampling)
+PER_T7_GATHER_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16, "point_norm": NORM_SITES}
 MAP_SEARCHES = 13
 # the path whose launch counts the summary reports for each kernel (serve's
 # ransac_pnp: its calls at the RANSAC graph's capture)
-SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention", "ransac_pnp")
+SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention", "ransac_pnp", "point_norm")
 TRAIN_KERNELS = ("kpconv_aggregate", "kpconv_transpose", "maxpool_count", "maxpool_bwd")
 T7_KERNELS = ("knn_tau", "kpconv_aggregate_tau", "kpconv_fused_tau", "maxpool_tau")
 FAST_KERNELS = ("kpconv_transpose_dyn", "maxpool_bwd_dyn")
@@ -351,6 +368,7 @@ def wrappers():
     from cofii2p_tpu_torch.ops import attention_kernel as att
     from cofii2p_tpu_torch.ops import kpconv_kernel as kpk
     from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
+    from cofii2p_tpu_torch.ops import norm_kernel as nk
     from cofii2p_tpu_torch.ops import residual_kernel as rk
     from cofii2p_tpu_torch.ops import tau_kernel as tk
     from cofii2p_tpu_torch.pose import ransac
@@ -365,7 +383,8 @@ def wrappers():
             "kpconv_transpose_tau": kpk.banded_kpconv_transpose_tau_fused,
             "maxpool_bwd_dyn": mpk.banded_maxpool_backward_dyn_fused,
             "maxpool_bwd_tau": mpk.banded_maxpool_backward_tau_fused,
-            "residual_fused": rk.banded_residual_fused, "ransac_pnp": ransac.ransac_pnp}
+            "residual_fused": rk.banded_residual_fused, "ransac_pnp": ransac.ransac_pnp,
+            "point_norm": nk.point_group_norm_fused}
 
 
 def body_launches(per_forward, first):
@@ -641,6 +660,84 @@ def check_kernels(device, gen, tally):
     check_window_and_tau_backward_kernels(device, gen, tally, cfg)
     check_residual_kernel(device, gen, tally, cfg)
     check_kernel_sizes(device, cfg)
+    check_point_norm(device, tally)
+
+
+def point_norm_gaps(x, weight, bias, num_groups, eps=1e-5, relu=False, residual=None):
+    """#18 on one call's inputs against the plain version: the statistics'
+    worst gaps (the mean's over the group's scale |mean| + 1 / rstd, rstd's
+    relative), whether two statistics launches give the same bits, and
+    the elements where the apply kernel on the plain statistics differs
+    from the plain apply on them."""
+    import torch
+
+    from cofii2p_tpu_torch.ops import norm_kernel as nk
+
+    mp, rp = nk.group_norm_stats_plain(x, num_groups, eps)
+    mk, rk = nk.point_norm_stats(x, num_groups, eps)
+    mk2, rk2 = nk.point_norm_stats(x, num_groups, eps)
+    out = nk.point_norm_apply(x, mp, rp, weight, bias, relu, residual)
+    ref = nk.group_norm_apply_plain(x, mp, rp, weight, bias, relu, residual)
+    mean_gap = ((mk - mp).abs() / (mp.abs() + 1 / rp)).max().item()
+    rstd_gap = ((rk - rp).abs() / rp).max().item()
+    same = torch.equal(mk, mk2) and torch.equal(rk, rk2)
+    return mean_gap, rstd_gap, same, int((out != ref).sum())
+
+
+def graphed(fn):
+    """``fn`` captured as a CUDA graph after an eager warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def check_point_norm(device, tally):
+    """#18 on the group-norm calls of one bf16 B=8 serving forward, each
+    on its recorded inputs: the statistics within 1e-5 of the plain
+    version's and the same bits on two launches, the apply bit-equal to
+    the plain apply on the plain statistics; then the calls through the
+    kernels and through the plain version, each set replayed as one CUDA
+    graph as a serving request runs it (device time, not the host's pace
+    of 141 small launches), beside the chain's own bytes at 3.35 TB/s
+    (kernel_bench.call_work: x and the residual read once, the output
+    written once; the kernels read x a second time, their design's cost)."""
+    import inspect
+
+    import torch
+
+    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, kernel_wrappers, record_serve, time_ms
+
+    _, kern, plain = kernel_wrappers()["point_group_norm_fused"]
+    calls = [c for c in record_serve(BATCH, 0, device) if c[0] == "point_group_norm_fused"]
+    if len(calls) != NORM_SITES:
+        raise PhaseError(f"point_norm: {len(calls)} group-norm calls in a serving forward, expected {NORM_SITES}")
+    b_ms = worst = 0.0
+    args = []
+    with torch.no_grad():  # the recorded weights are the model's parameters
+        for name, a, kw in calls:
+            arg = inspect.signature(kern).bind(*a, **kw)
+            arg.apply_defaults()
+            arg = dict(arg.arguments)
+            args.append(arg)
+            mean_gap, rstd_gap, same, bad = point_norm_gaps(**arg)
+            if max(mean_gap, rstd_gap) > 1e-5 or not same or bad:
+                raise PhaseError(f"point_norm x {tuple(arg['x'].shape)}: mean gap {mean_gap:.2e}, rstd gap "
+                                 f"{rstd_gap:.2e} (<= 1e-5), the same bits on two launches {same}, apply "
+                                 f"mismatches {bad}")
+            worst = max(worst, mean_gap, rstd_gap)
+            b_ms += call_bound(name, a, kw)[0]
+        k_ms = time_ms(graphed(lambda: [kern(**arg) for arg in args]).replay)
+        p_ms = time_ms(graphed(lambda: [plain(**arg) for arg in args]).replay, 3)
+    tally.add("point_norm", worst, k_ms, p_ms, (b_ms, "bytes"))
+    say("kernels", f"point_norm: the {len(calls)} group norms of a bf16 B={BATCH} serving forward on their own "
+        f"inputs: statistics within {worst:.2e} of the plain version's, the same bits on two launches, the apply "
+        f"bit-equal on the plain statistics; kernels {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
+        "(bytes at 3.35 TB/s)")
 
 
 def check_training_kernels(device, gen, tally, cfg):
@@ -1958,8 +2055,9 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
             raise PhaseError(
                 f"{phase}: {name} launched {captured[name]} times at the capture and {launches[name]} in "
                 f"{n_requests} replayed requests, expected {want} a forward twice, then none "
-                + ("(10 KPConvs, 4 strided blocks' conv and shortcut in one pass, 8 layers x 2 attention calls)"
-                   if residual_fused else "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls)")
+                + ("(10 KPConvs, 4 strided blocks' conv and shortcut in one pass, 8 layers x 2 attention calls, "
+                   "47 group norms)" if residual_fused else
+                   "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls, 47 group norms)")
             )
     nonfinite_pose = check_pose_outputs(phase, outs, cfg, device)
     fps = n_requests * BATCH / dt
@@ -2582,7 +2680,9 @@ def check_recorded_calls(calls):
     activations bf16's own rounding exceeds the 5e-2 that the phase's
     synthetic features meet); #3 bit-equal; #4 within bf16's rounding of
     the fp32 plain version plus ATTN_BF16_EXCESS (the phase's abs <= 2e-2
-    is for its synthetic inputs' magnitudes, so it is printed, not gated).
+    is for its synthetic inputs' magnitudes, so it is printed, not gated);
+    #18's statistics within 1e-5 and the same bits on two launches, its
+    apply bit-equal on the plain statistics (point_norm_gaps).
     Returns a line; fails on the first call over a gate."""
     import inspect
 
@@ -2621,6 +2721,13 @@ def check_recorded_calls(calls):
                 err = float((out != ref).sum())
                 if err:
                     raise PhaseError(f"{name} C {cin} M {arg['q_points'].shape[1]}: {err:.0f} mismatches")
+            elif name == "point_group_norm_fused":
+                cin = arg["x"].shape[-1]
+                mean_gap, rstd_gap, same, bad = point_norm_gaps(**arg)
+                err = max(mean_gap, rstd_gap)
+                if err > 1e-5 or not same or bad:
+                    raise PhaseError(f"{name} x {tuple(arg['x'].shape)}: statistics gap {err:.2e} (<= 1e-5), the "
+                                     f"same bits on two launches {same}, apply mismatches {bad}")
             elif name == "fused_attention":
                 q, k, v = arg["q"], arg["k"], arg["v"]
                 cin = q.shape[-1]
@@ -2635,7 +2742,8 @@ def check_recorded_calls(calls):
             n, worst, wide = seen.get(name, (0, 0.0, 0))
             seen[name] = (n + 1, max(worst, err), max(wide, cin))
     what = {"banded_kpconv_fused": ("#1", "rel"), "banded_kpconv_aggregate_fused": ("#2", "rel"),
-            "banded_maxpool_fused": ("#3", "mismatches"), "fused_attention": ("#4", "abs")}
+            "banded_maxpool_fused": ("#3", "mismatches"), "fused_attention": ("#4", "abs"),
+            "point_group_norm_fused": ("#18", "statistics gap")}
     return "each call against its plain version on its own inputs: " + "; ".join(
         f"{what[k][0]} x{n} (widest C {wide}) worst {what[k][1]} {worst:.2e}"
         + (f" (from the fp32 plain version: kernel {far[k][0]:.2e}, bf16 plain {far[k][1]:.2e})" if k in far else "")
@@ -2669,7 +2777,8 @@ def variants(device, seed, smi_line):
         fits = sum(fused_contraction_fits(cfg.kernel_size, ci, co, cfg.kpconv_tile, 2) for ci, co in convs)
         want = {name: 0 for name in KERNELS}
         want.update(kpconv_fused=fits, kpconv_aggregate=len(convs) - fits, maxpool=4,
-                    attention=16 if cfg.attention == "pallas" else 0)
+                    attention=16 if cfg.attention == "pallas" else 0,
+                    point_norm=NORM_SITES if cfg.norm == "gn" else 0)
         run = make_eval_body(cfg, model, stages=())
         gen = torch.Generator(device).manual_seed(seed)
         ms, succ, calls = [], 0, []
@@ -2871,12 +2980,13 @@ def real_data(device, seed, smi_line, dataset):
 # convs (level 4 self) compacted, so #1 runs the other 9 convs and #3 the
 # other 3 shortcuts
 SERVE_COMPACT = dict(maxpool_compact_plan=(128,), aggregate_compact_plan=(128, 0, 0, 0, 128))
-PER_COMPACT_FORWARD = {"kpconv_fused": 9, "maxpool": 3, "attention": 16, "residual_fused": 0, "knn_tau": 0}
+PER_COMPACT_FORWARD = {"kpconv_fused": 9, "maxpool": 3, "attention": 16, "residual_fused": 0, "knn_tau": 0,
+                       "point_norm": NORM_SITES}
 COMPACT_REQUESTS = 3
 # t7_compact: every conv and shortcut of the `.t7` config compacted at
 # k = knn_k: no tau (#5) and no banded kernel in the forward, #4 alone
 T7_COMPACT = dict(maxpool_compact_plan=(128,) * 5, aggregate_compact_plan=(1,) * 5)
-PER_T7_COMPACT_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16}
+PER_T7_COMPACT_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16, "point_norm": NORM_SITES}
 # train_compact: encoder5_1's shortcut and the convs on support levels 3
 # and 4 (encoder4_2, 4_3, 5_1, 5_2, 5_3) compacted; the other 9 convs on
 # #2 (8 of them with a #9 backward), 3 shortcuts on #3, #12 and #13

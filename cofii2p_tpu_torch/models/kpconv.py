@@ -69,7 +69,7 @@ import torch
 from torch import nn
 
 from cofii2p_tpu_torch.models.kernel_points import load_kernel_points
-from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu, norm_factory
+from cofii2p_tpu_torch.models.layers import GroupNormWrapper, Linear, leaky_relu, norm_chain, norm_factory
 from cofii2p_tpu_torch.ops.banded import (
     _round,
     band_plan,
@@ -282,19 +282,28 @@ class KPConv(nn.Module):
 class UnaryBlock(nn.Module):
     """Linear -> norm -> LeakyReLU(0.1); ``norm=None`` leaves the plain
     Linear (the FPN's last decoder).  ``norm`` 'gn' or 'ln' as
-    :func:`~cofii2p_tpu_torch.models.layers.norm_factory` builds it."""
+    :func:`~cofii2p_tpu_torch.models.layers.norm_factory` builds it.  With
+    ``residual`` (a residual block's unary2 and its shortcut) the norm's
+    output and the residual are added and LeakyReLU(0.1) follows.
+    ``kernel`` as KPConv's: 'xla' keeps the group norm's chain on its
+    plain version."""
 
-    def __init__(self, in_channels, out_channels, group_norm=32, has_relu=True, norm="gn", dtype=torch.float32):
+    def __init__(self, in_channels, out_channels, group_norm=32, has_relu=True, norm="gn", dtype=torch.float32,
+                 kernel="auto"):
         super().__init__()
         self.mlp = Linear(in_channels, out_channels, dtype=dtype)
         self.norm = norm_factory(norm, group_norm, out_channels) if norm else None
         self.has_relu = has_relu and norm is not None
+        self.kernel = kernel
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
         x = self.mlp(x)
+        relu = self.has_relu or residual is not None
         if self.norm is not None:
-            x = self.norm(x)
-        return leaky_relu(x) if self.has_relu else x
+            return norm_chain(self.norm, x, relu, residual, self.kernel)
+        if residual is not None:
+            x = x + residual
+        return leaky_relu(x) if relu else x
 
 
 class ConvBlock(nn.Module):
@@ -309,7 +318,7 @@ class ConvBlock(nn.Module):
                 rel=None):
         x = self.KPConv(s_feats, q_points, s_points, starts, tau, neighbor_indices=neighbor_indices,
                         influence=influence, rel=rel)
-        return leaky_relu(self.norm(x))
+        return norm_chain(self.norm, x, True, kernel=self.KPConv.kernel)
 
 
 class ResidualBlock(nn.Module):
@@ -337,15 +346,18 @@ class ResidualBlock(nn.Module):
                                and not maxpool_compact and not aggregate_compact)
         self.r_active = kernel_reach(radius, sigma, kernel_size)
         self.unary1 = (
-            UnaryBlock(in_channels, mid, group_norm, norm=norm, dtype=dtype) if in_channels != mid else None
+            UnaryBlock(in_channels, mid, group_norm, norm=norm, dtype=dtype, kernel=kernel)
+            if in_channels != mid else None
         )
         self.KPConv = KPConv(mid, mid, kernel_size, radius, sigma, dtype=dtype, tile=tile,
                              band_width=band_width, kernel=kernel, impl=impl, knn_k=knn_k,
                              aggregate_compact=aggregate_compact)
         self.norm_conv = norm_factory(norm, group_norm, mid)
-        self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False, norm=norm, dtype=dtype)
+        self.unary2 = UnaryBlock(mid, out_channels, group_norm, has_relu=False, norm=norm, dtype=dtype,
+                                 kernel=kernel)
         self.unary_shortcut = (
-            UnaryBlock(in_channels, out_channels, group_norm, has_relu=False, norm=norm, dtype=dtype)
+            UnaryBlock(in_channels, out_channels, group_norm, has_relu=False, norm=norm, dtype=dtype,
+                       kernel=kernel)
             if in_channels != out_channels else None
         )
 
@@ -358,7 +370,7 @@ class ResidualBlock(nn.Module):
         else:
             x = self.KPConv(x, q_points, s_points, starts, tau, neighbor_indices=neighbor_indices,
                             influence=influence, rel=rel)
-        x = self.unary2(leaky_relu(self.norm_conv(x)))
+        x = norm_chain(self.norm_conv, x, True, kernel=self.kernel)
         if not self.strided:
             shortcut = s_feats
         elif shortcut is None:  # not from the fused band pass
@@ -381,7 +393,8 @@ class ResidualBlock(nn.Module):
                 shortcut = fn(s_feats, q_points, s_points, self.r_active, self.tile, self.band_width, starts)
         if self.unary_shortcut is not None:
             shortcut = self.unary_shortcut(shortcut)
-        return leaky_relu(x + shortcut)
+        # unary2's norm, the shortcut's add and the LeakyReLU in one chain
+        return self.unary2(x, residual=shortcut)
 
 
 def norm_cancelled_biases(model: nn.Module) -> list:
@@ -468,8 +481,8 @@ class KPConvFPN(nn.Module):
             setattr(self, f"encoder{stage}_3", ResidualBlock(
                 cout, cout, ks, rc, sc, band_width=self._bw_for(lvl, True), aggregate_compact=self.agg_compact(lvl),
                 **common))
-        self.decoder4 = UnaryBlock(d * 32 + d * 16, d * 16, group_norm, norm=norm, dtype=dtype)
-        self.decoder3 = UnaryBlock(d * 16 + d * 8, d * 8, group_norm, norm=norm, dtype=dtype)
+        self.decoder4 = UnaryBlock(d * 32 + d * 16, d * 16, group_norm, norm=norm, dtype=dtype, kernel=kernel)
+        self.decoder3 = UnaryBlock(d * 16 + d * 8, d * 8, group_norm, norm=norm, dtype=dtype, kernel=kernel)
         self.decoder2 = UnaryBlock(d * 8 + d * 4, output_dim, norm=None, dtype=dtype)
 
     def bw(self, support_lvl: int) -> int:

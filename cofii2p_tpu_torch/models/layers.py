@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cofii2p_tpu_torch.ops.norm_kernel import leaky_relu, point_group_norm
+
 
 def instance_norm(x: torch.Tensor, dims, eps: float = 1e-5) -> torch.Tensor:
     """Parameter-free instance norm over ``dims`` (biased variance, fp32
@@ -18,10 +20,6 @@ def instance_norm(x: torch.Tensor, dims, eps: float = 1e-5) -> torch.Tensor:
     mean = x32.mean(dim=dims, keepdim=True)
     var = x32.var(dim=dims, keepdim=True, unbiased=False)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-
-
-def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
-    return torch.where(x >= 0, x, negative_slope * x)
 
 
 class Linear(nn.Linear):
@@ -40,7 +38,10 @@ class Linear(nn.Linear):
 class PointGroupNorm(nn.Module):
     """GroupNorm over a whole point cloud: statistics per (frame, group)
     over all N points and the group's C/G channels, in fp32
-    (cofii2p_tpu/models/layers.py:50-84).  Input (B, N, C)."""
+    (cofii2p_tpu/models/layers.py:50-84).  Input (B, N, C).  ``relu`` and
+    ``residual`` continue the chain (``+ residual``, then LeakyReLU(0.1));
+    ops/norm_kernel.py::point_group_norm runs it on the kernels or the
+    plain version, ``kernel`` being the block's."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -48,13 +49,8 @@ class PointGroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
-        g = self.num_groups
-        xg = x.float().reshape(*x.shape[:-1], g, x.shape[-1] // g)
-        mean = xg.mean(dim=(-3, -1), keepdim=True)
-        var = xg.var(dim=(-3, -1), keepdim=True, unbiased=False)
-        out = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return (out * self.weight + self.bias).to(x.dtype)
+    def forward(self, x, relu=False, residual=None, kernel="auto"):
+        return point_group_norm(x, self.weight, self.bias, self.num_groups, self.eps, relu, residual, kernel)
 
 
 class GroupNormWrapper(nn.Module):
@@ -65,8 +61,8 @@ class GroupNormWrapper(nn.Module):
         super().__init__()
         self.norm = PointGroupNorm(num_groups, channels)
 
-    def forward(self, x):
-        return self.norm(x)
+    def forward(self, x, relu=False, residual=None, kernel="auto"):
+        return self.norm(x, relu, residual, kernel)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -92,6 +88,18 @@ class PointLayerNorm(nn.LayerNorm):
 
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+
+
+def norm_chain(norm: nn.Module, x, relu: bool, residual=None, kernel: str = "auto"):
+    """A point block's chain after its KPConv or Linear: ``norm``, then
+    ``+ residual`` where given, then LeakyReLU(0.1) where ``relu``; a
+    group norm runs it whole (GroupNormWrapper), a LayerNorm step by step."""
+    if isinstance(norm, GroupNormWrapper):
+        return norm(x, relu, residual, kernel)
+    x = norm(x)
+    if residual is not None:
+        x = x + residual
+    return leaky_relu(x) if relu else x
 
 
 def norm_factory(norm: str, group_norm: int, channels: int) -> nn.Module:

@@ -75,6 +75,8 @@ SIGNATURES = {
                               _F, _F, _P],
     "ransac_hyp_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
     "ransac_refine_launch": [_I, _P, _P, _I, _I, _I, _F, _I, _P],
+    "point_norm_stats_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "point_norm_apply_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

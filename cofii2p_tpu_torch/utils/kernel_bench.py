@@ -88,6 +88,7 @@ def kernel_wrappers() -> dict:
     from cofii2p_tpu_torch.ops import attention_kernel as att
     from cofii2p_tpu_torch.ops import kpconv_kernel as kpk
     from cofii2p_tpu_torch.ops import maxpool_kernel as mpk
+    from cofii2p_tpu_torch.ops import norm_kernel as nk
     from cofii2p_tpu_torch.ops import residual_kernel as rk
     from cofii2p_tpu_torch.ops import tau_kernel as tk
 
@@ -113,6 +114,7 @@ def kernel_wrappers() -> dict:
                                               mpk.banded_maxpool_route_tau_plain),
         "fused_attention": (tf, att.fused_attention, att.fused_attention_plain),
         "banded_residual_fused": (rk, rk.banded_residual_fused, rk.banded_residual_fused_plain),
+        "point_group_norm_fused": (nk, nk.point_group_norm_fused, nk.point_group_norm_plain),
     }
 
 
@@ -147,6 +149,14 @@ def call_work(name: str, args, kwargs=None) -> dict:
     a = inspect.signature(fn).bind(*args, **(kwargs or {}))
     a.apply_defaults()
     a = a.arguments
+    if name == "point_group_norm_fused":
+        # x read once, the residual read once, the output written once
+        # (the kernels' second read of x is their design's cost, not the
+        # chain's); its few operations an element are elementwise work,
+        # which torch.utils.flop_counter counts as none either
+        x, res = a["x"], a["residual"]
+        io = 2 * x.numel() * x.element_size() + (0 if res is None else res.numel() * res.element_size())
+        return _work(io + 2 * x.shape[-1] * 4)
     if name == "fused_attention":
         q, k = a["q"], a["k"]
         b, l, h, d = q.shape
@@ -258,6 +268,9 @@ def _describe(name, args, kwargs):
         return f"q {tuple(a['q'].shape)} kv {a['k'].shape[1]} {a['q'].dtype}"
     if name == "banded_knn_tau_kernel":
         return f"M {a['q_points'].shape[1]} N {a['s_points'].shape[1]} k {a['k']} bw{a['band_width']}"
+    if name == "point_group_norm_fused":
+        chain = ("", " +residual")[a["residual"] is not None] + ("", " relu")[bool(a["relu"])]
+        return f"x {tuple(a['x'].shape)} G {a['num_groups']}{chain} {a['x'].dtype}"
     lead = a.get("s_feats", a.get("g_weighted", a.get("agg_feats")))
     band = ("w%d" if a.get("starts") is not None else "bw%d") % a["band_width"]
     extra = f" Cout {a['weights'].shape[-1]}" if "weights" in a else ""

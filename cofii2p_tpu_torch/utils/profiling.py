@@ -15,8 +15,8 @@ cofii2p_tpu/utils/profiling.py, plus the spans).
   between two timing CUDA events, which :func:`span_table` resolves.  A
   span entered while its stream is being captured into a CUDA graph
   records no events.
-- :func:`counter` counts a rare event (a graph capture, a build); counters
-  are always on.
+- :func:`counter` counts an event (a graph capture, a build, the path a
+  point-branch group norm took); counters are always on.
 - :func:`span_table` tabulates the registry, :func:`reset` clears it, and
   ``SPAN_NAMES`` lists every span and counter the package records.
 - :func:`trace` wraps ``torch.profiler`` (CPU activity, and CUDA activity
@@ -63,6 +63,8 @@ SPAN_NAMES = (
     "cofii2p.train.grad_norm",
     "cofii2p.train.optimizer",
     "cofii2p.loader.wait",
+    "cofii2p.point_norm.fused",
+    "cofii2p.point_norm.plain",
 )
 
 

@@ -50,6 +50,14 @@ equal on at least 99.9% (the share printed), inlier counts and success
 flags equal on every frame, R and t within 1e-4 where finite and NaN
 exactly where the plain version's are, the same bits on two launches;
 with TF32 on, the same bits as with it off, and the setting kept.
+The point branch's group-norm kernels (csrc/point_norm.cu) at the (N, C)
+of every group norm of the KITTI FPN, B = 8 and 1, bf16 and fp32: the
+statistics within 1e-5 of the plain version's (rstd relative, the mean
+over the group's scale |mean| + 1 / rstd) and the same bits on two
+launches, the apply bit-equal to the plain apply on the plain statistics
+with and without the LeakyReLU and the residual, and the chain's output
+the same bits on two launches; the blocks' dispatch takes the kernels
+under no_grad and the plain version under autograd.
 """
 
 import numpy as np
@@ -101,6 +109,14 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_tie_count_fused,
     banded_maxpool_tie_count_plain,
     route_dyn_with_stack,
+)
+from cofii2p_tpu_torch.ops.norm_kernel import (
+    group_norm_apply_plain,
+    group_norm_stats_plain,
+    point_group_norm,
+    point_group_norm_fused,
+    point_norm_apply,
+    point_norm_stats,
 )
 from cofii2p_tpu_torch.ops.pyramid import morton_order
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_fused, banded_residual_fused_plain
@@ -1013,3 +1029,80 @@ def test_ransac_pnp_computes_in_fp32_with_tf32_on(cuda_device):
     finally:
         torch.set_float32_matmul_precision("highest")
     assert all(_same_bits(x, y) for x, y in zip(got, want))
+
+
+# the (N, C) of the KITTI FPN's 47 group norms (32 groups): the pyramid's
+# levels at the widths each block normalises there
+NORM_SITES = [(20480, 32), (20480, 64), (20480, 128), (10240, 32), (10240, 64), (10240, 128), (10240, 256),
+              (5120, 64), (5120, 128), (5120, 256), (5120, 512), (2560, 128), (2560, 256), (2560, 512),
+              (2560, 1024), (1280, 256), (1280, 512), (1280, 1024), (1280, 2048)]
+NORM_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def norm_inputs(b, n, c, dtype, device, seed):
+    """KPConv-like features (per-channel offsets and scales, both signs),
+    weight, bias and a residual."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, n, c, generator=g) * torch.linspace(0.25, 3.0, c) + torch.linspace(-2.0, 4.0, c)
+    res = torch.randn(b, n, c, generator=g)
+    w, bias = torch.randn(c, generator=g), torch.randn(c, generator=g)
+    return x.to(device, dtype), w.to(device), bias.to(device), res.to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(NORM_DTYPES))
+@pytest.mark.parametrize("b", [8, 1])
+@pytest.mark.parametrize("n,c", NORM_SITES)
+def test_point_norm_kernels_match_plain_at_every_site(cuda_device, n, c, b, dtype):
+    x, w, bias, res = norm_inputs(b, n, c, NORM_DTYPES[dtype], cuda_device, n + c + b)
+    mp, rp = group_norm_stats_plain(x, 32)
+    mk, rk = point_norm_stats(x, 32)
+    mk2, rk2 = point_norm_stats(x, 32)
+    assert torch.equal(mk, mk2) and torch.equal(rk, rk2)
+    assert ((mk - mp).abs() / (mp.abs() + 1 / rp)).max().item() <= 1e-5
+    assert ((rk - rp).abs() / rp).max().item() <= 1e-5
+    for relu, r in ((False, None), (True, None), (False, res), (True, res)):
+        out = point_norm_apply(x, mp, rp, w, bias, relu, r)
+        ref = group_norm_apply_plain(x, mp, rp, w, bias, relu, r)
+        assert out.dtype == x.dtype and torch.equal(out, ref), (relu, r is not None, int((out != ref).sum()))
+    one = point_group_norm_fused(x, w, bias, 32, relu=True, residual=res)
+    two = point_group_norm_fused(x, w, bias, 32, relu=True, residual=res)
+    assert torch.equal(one.view(torch.int16 if one.element_size() == 2 else torch.int32),
+                       two.view(torch.int16 if two.element_size() == 2 else torch.int32))
+
+
+@pytest.mark.gpu
+def test_point_norm_dispatch_takes_the_kernels_only_without_autograd(cuda_device):
+    x, w, bias, _ = norm_inputs(2, 512, 64, torch.float32, cuda_device, 7)
+    w.requires_grad_(True)
+    point_group_norm_fused.launches = 0
+    with torch.no_grad():
+        fast = point_group_norm(x, w, bias, 32, relu=True)
+    assert point_group_norm_fused.launches == 1
+    slow = point_group_norm(x, w, bias, 32, relu=True)
+    assert point_group_norm_fused.launches == 1 and slow.requires_grad
+    assert (fast - slow.detach()).abs().max().item() <= 1e-5 * slow.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("misfit", ["misaligned_residual", "residual_dtype", "groups"])
+def test_point_norm_dispatch_refuses_a_misfit_on_the_card(cuda_device, misfit):
+    """A card tensor the kernels cannot take raises from point_group_norm;
+    the plain version never stands in for the kernels there."""
+    from cofii2p_tpu_torch.utils.profiling import counter
+
+    x, w, bias, res = norm_inputs(2, 512, 64, torch.bfloat16, cuda_device, 11)
+    groups = 32
+    if misfit == "misaligned_residual":
+        res = torch.empty(res.numel() + 1, dtype=res.dtype, device=res.device)[1:].view(res.shape).copy_(res)
+    elif misfit == "residual_dtype":
+        res = res.float()
+    else:
+        groups = 3
+    fused, plain = (counter(f"cofii2p.point_norm.{k}").value for k in ("fused", "plain"))
+    point_group_norm_fused.launches = 0
+    with torch.no_grad(), pytest.raises(ValueError, match="not a shape the kernels take"):
+        point_group_norm(x, w, bias, groups, relu=True, residual=res)
+    assert point_group_norm_fused.launches == 0
+    assert counter("cofii2p.point_norm.fused").value == fused + 1
+    assert counter("cofii2p.point_norm.plain").value == plain

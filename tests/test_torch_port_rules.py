@@ -48,6 +48,7 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
     banded_maxpool_tau_apply,
     banded_maxpool_tie_count_fused,
 )
+from cofii2p_tpu_torch.ops.norm_kernel import point_group_norm_fused
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_apply, banded_residual_fused
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
 from cofii2p_tpu_torch.pose.ransac import ransac_pnp
@@ -402,6 +403,14 @@ def _ransac(device, dtype=torch.float32, grad=False):
     return lambda: ransac_pnp(gumbel, obj, uv, K, mask)
 
 
+def _point_norm(device, dtype=torch.float32, grad=False, residual=False):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 64, generator=g).to(device, dtype).requires_grad_(grad)
+    r = torch.randn(2, 64, 64, generator=g).to(device, dtype) if residual else None
+    w, b = torch.ones(64).to(device), torch.zeros(64).to(device)
+    return lambda: point_group_norm_fused(x, w, b, 32, relu=True, residual=r)
+
+
 WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool_fused, _maxpool),
             "attention": (fused_attention, _attention),
             "kpconv_aggregate": (banded_kpconv_aggregate_fused, _aggregate),
@@ -421,7 +430,10 @@ WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool
             "kpconv_bf16": (banded_kpconv_fused, _kpconv_bf16),
             "residual_fused_bf16": (banded_residual_fused, _residual_bf16),
             "attention_bf16": (fused_attention, lambda device, grad=False: _attention(device, torch.bfloat16, grad)),
-            "ransac_pnp": (ransac_pnp, _ransac)}
+            "ransac_pnp": (ransac_pnp, _ransac),
+            "point_norm": (point_group_norm_fused, _point_norm),
+            "point_norm_bf16_residual": (point_group_norm_fused, lambda device, grad=False: _point_norm(
+                device, torch.bfloat16, grad, residual=True))}
 # tau is a function of coordinates only: it has no input to refuse
 GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau"})
 # the k-NN forward wrappers and the autograd Function each names
