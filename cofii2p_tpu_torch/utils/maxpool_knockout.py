@@ -21,46 +21,30 @@ per-path totals of each wrapper are printed side by side.  A copy patches
 the source of every kernel named, so one build serves them all; a knocked
 out kernel that is not timed only makes the replayed inputs wrong.
 
-What each knock-out removes, by the source the tree has (``SOURCES``
-picks it):
- - ``csrc/maxpool.cu``: the CUDA-core forward before its redesign, then
-   the CUDA-core tie count (#12) until its redesign deleted the file.
-   no_loads replaces the walk's global load of f[j, c] by a value made
-   from j and c, so the bit walk stays; no_member tests each band row
-   against the block's first query only (the test no longer depends on
-   the query, so the compiler hoists it out of the query loop) and gives
-   every query that query's bits, so the walk keeps its length.
- - ``csrc/maxpool_fwd.cu`` (the redesigned forward, and the tie count as
-   its COUNT mode): no_loads drops the cp.async of feature rows into
-   shared memory (the walk reads stale shared memory); no_member gives
-   every query the first query's test, as above.
- - ``csrc/maxpool_bwd.cu`` (the CUDA-core routing: #15 in its TAU mode
-   until its redesign, #13 and, in its DYN mode, #14 until theirs deleted
-   the file): no_loads replaces the two global loads of the walk, out[m,
-   c] and gs[m, c], by values made from the address; no_member tests each
-   row of the block against the tile's first query once (32 lanes, one
-   ballot, d2 <= r2) and gives every query of the tile those bits, on
-   static bands and on windows alike.
- - ``csrc/maxpool_route.cu`` (the redesigned routing: #15 by tau, #13 by
-   radius on static bands, #14 by radius in its window mode): no_loads
-   drops the cp.async of the listed queries' out and gs slices (the walk
-   reads stale shared memory); no_member tests only each tile's first
-   query and gives every query of the tile its word, so every query of
-   such a tile is listed (the walk grows).  A static block walks every
-   tile of its window so; a window block its one tile.
- - ``csrc/knn_tau.cu`` (#5).  Before its redesign (a radix select of
-   8-bit digits over d2 recomputed on every pass): no_hist drops the
-   ``__match_any_sync`` and the shared atomic of each 32-row step, keeping
-   the walk, the d2 and the prefix test; no_d2 makes d2_of the square of
-   the row's distance to an index made from the query (``_ROW_VALUE``)
-   instead of the coordinates' squared distance.  After it (d2 once into a
-   slab of bits, ballot-counted bins): no_hist drops the five ballots of
-   each counting step (a lane tests its own row's bits, so its count still
-   estimates its bin's), keeping the walk, the candidate ballot and the
-   popcounts; no_d2 puts the same stand-in in the one d2 pass.  --cut
-   adds builds whose queries stop after the d2 walk (to_d2), after the
-   first counting pass (to_pass1) and after the compaction into the list
-   (to_compact), each writing a dummy tau: the time up to each phase.
+What each knock-out removes, by source:
+ - ``csrc/maxpool_fwd.cu`` (the forward, and the tie count as its COUNT
+   mode): no_loads drops the cp.async of feature rows into shared memory
+   (the walk reads stale shared memory); no_member gives every query the
+   first query's membership test (the test no longer depends on the
+   query, so the compiler hoists it out of the query loop), and every
+   query that query's bits, so the walk keeps its length.
+ - ``csrc/maxpool_route.cu`` (the routing: #15 by tau, #13 by radius on
+   static bands, #14 by radius in its window mode): no_loads drops the
+   cp.async of the listed queries' out and gs slices (the walk reads stale
+   shared memory); no_member tests only each tile's first query and gives
+   every query of the tile its word, so every query of such a tile is
+   listed (the walk grows).  A static block walks every tile of its window
+   so; a window block its one tile.
+ - ``csrc/knn_tau.cu`` (#5: d2 once into a slab of bits, ballot-counted
+   bins): no_hist drops the five ballots of each counting step (a lane
+   tests its own row's bits, so its count still estimates its bin's),
+   keeping the walk, the candidate ballot and the popcounts; no_d2 makes
+   the one d2 pass write the square of the row's distance to an index
+   made from the query (``_ROW_VALUE``) instead of the coordinates'
+   squared distance.  --cut adds builds whose queries stop after the d2
+   walk (to_d2), after the first counting pass (to_pass1) and after the
+   compaction into the list (to_compact), each writing a dummy tau: the
+   time up to each phase.
 The knocked-out builds compute wrong results: their times are the only
 output.  Needs a CUDA device.
 """
@@ -78,15 +62,13 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 
-# kernel -> (the wrappers kernel_bench --only replays, the tree's sources of
-# it in order of preference: the first that exists is patched)
+# kernel -> (the wrappers kernel_bench --only replays, the source patched)
 SOURCES = {
-    "forward": ("banded_maxpool_fused,banded_maxpool_tau", ("maxpool_fwd.cu", "maxpool.cu")),
-    "count": ("banded_maxpool_tie_count_fused", ("maxpool.cu", "maxpool_fwd.cu")),
-    "route": ("banded_maxpool_backward_tau_fused", ("maxpool_route.cu", "maxpool_bwd.cu")),
-    "radius": ("banded_maxpool_backward_fused,banded_maxpool_backward_dyn_fused",
-               ("maxpool_bwd.cu", "maxpool_route.cu")),
-    "tau": ("banded_knn_tau_kernel", ("knn_tau.cu",)),
+    "forward": ("banded_maxpool_fused,banded_maxpool_tau", "maxpool_fwd.cu"),
+    "count": ("banded_maxpool_tie_count_fused", "maxpool_fwd.cu"),
+    "route": ("banded_maxpool_backward_tau_fused", "maxpool_route.cu"),
+    "radius": ("banded_maxpool_backward_fused,banded_maxpool_backward_dyn_fused", "maxpool_route.cu"),
+    "tau": ("banded_knn_tau_kernel", "knn_tau.cu"),
 }
 
 PARTS = ("no_loads", "no_member")
@@ -118,44 +100,16 @@ def plan_header(kernels):
 # of values as with real clouds, without the coordinates' loads and math
 _ROW_VALUE = "__int2float_rn(j - (int)(__float_as_uint(qc[0]) & 255u))"
 
-# (source, part) -> [(text, replacement)]; each text must occur once.
-# maxpool.cu's and maxpool_bwd.cu's apply to the CUDA-core kernels of a
-# tree before their redesign, for the measure-first timing through --tree
+# (source, part) -> [(text, replacement)]; each text must occur once
 KNOCKOUTS = {
-    "maxpool.cu": {
-        "no_loads": [("const float v = cofii2p::load_f(feats, frow0 + (long)j * C + c, f_bf16);",
-                      "const float v = __int_as_float(j ^ c);")],
-        "no_member": [("cofii2p::membership_d2(qc_s + 3 * q, px, py, pz) <= (TAU ? thr_s[q] : r2)",
-                       "cofii2p::membership_d2(qc_s, px, py, pz) <= (TAU ? thr_s[0] : r2)")],
-    },
     "maxpool_fwd.cu": {
         "no_loads": [("cofii2p::cp_async16(d, f + e * ESZ, 16);", "(void)e;")],
         "no_member": [("const float4 qq = q_s[32 * w + k];", "const float4 qq = q_s[0];")],
-    },
-    "maxpool_bwd.cu": {
-        "no_loads": [("if (cofii2p::load_f(pooled, o, f_bf16) == fv[s]) acc[s] += gs[o];",
-                      "if (__int_as_float((int)o) == fv[s]) acc[s] += __int_as_float((int)o & 0x3fffffff);")],
-        "no_member": [("    for (int s = 0; s < TS; ++s) {\n      const bool in = valid && s >= lo && s < hi &&\n"
-                       "                      cofii2p::membership_d2(qc, pc_s[3 * s], pc_s[3 * s + 1], pc_s[3 * s + 2]) "
-                       "<= r2;",
-                       "    const float q0[3] = {0.f, 0.f, 0.f};\n"
-                       "    const unsigned bits0 = __ballot_sync(0xffffffffu, lane < TS && cofii2p::membership_d2(q0, "
-                       "pc_s[3 * lane], pc_s[3 * lane + 1], pc_s[3 * lane + 2]) <= r2);\n"
-                       "    for (int s = 0; s < TS; ++s) {\n"
-                       "      const bool in = valid && s >= lo && s < hi && ((bits0 >> s) & 1u);")],
     },
     "maxpool_route.cu": {
         "no_loads": [("cofii2p::cp_async16(d, src, 16);", "(void)src;")],
         "no_member": [("for (int r = r_lo; r < r_hi; ++r) {", "for (int r = r_lo; r < (q == 0 ? r_hi : r_lo); ++r) {"),
                       ("return bits_s[jq];", "return bits_s[jq - jq % tile];")],
-    },
-    # the CUDA-core radix select of a tree before the redesign of #5
-    "knn_tau.cu:match_any": {
-        "no_hist": [("const unsigned peers = __match_any_sync(kFull, bin);\n"
-                     "        if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));",
-                     "if (bin == kk + 4096) hist[lane] = j;")],
-        "no_d2": [("return cofii2p::membership_d2(qc, band_s[3 * j], band_s[3 * j + 1], band_s[3 * j + 2]);",
-                   "const float dj = " + _ROW_VALUE + ";\n  return __fmul_rn(dj, dj);")],
     },
     "knn_tau.cu": {
         "no_hist": [("for (int i = 0; i < 5; ++i) m &= __ballot_sync(kFull, (t & bit[i]) != 0u) ^ x[i];",
@@ -171,20 +125,6 @@ KNOCKOUTS = {
                         "      n = compact(band_walk, list, kList);\n      " + _STOP + "\n")],
     },
 }
-
-
-def knockout_edits(src: str, text: str, part: str):
-    """The edits of ``part`` for a source's text: csrc/knn_tau.cu before
-    its redesign is told apart by its call of ``__match_any_sync``."""
-    if src == "knn_tau.cu" and "__match_any_sync(kFull" in text:
-        src = "knn_tau.cu:match_any"
-    return KNOCKOUTS[src][part]
-
-
-def kernel_source(csrc: str, kernel: str) -> str:
-    """The source of ``kernel`` in a tree's csrc/."""
-    names = SOURCES[kernel][1]
-    return next((n for n in names if os.path.exists(os.path.join(csrc, n))), names[-1])
 
 
 def patch(text: str, edits) -> str:
@@ -230,9 +170,8 @@ def make_copy(tree: str, variant: str, kernels=("forward",), cut=False) -> str:
     shutil.copy(os.path.join(_PKG, "utils", "kernel_bench.py"), os.path.join(dst, "cofii2p_tpu_torch", "utils"))
     csrc = os.path.join(dst, "cofii2p_tpu_torch", "csrc")
     if variant in parts_of(kernels, cut):
-        for src in dict.fromkeys(kernel_source(csrc, k) for k in kernels):
-            _rewrite(os.path.join(csrc, src),
-                     lambda text, src=src: patch(text, knockout_edits(src, text, variant)))
+        for src in dict.fromkeys(SOURCES[k][1] for k in kernels):
+            _rewrite(os.path.join(csrc, src), lambda text, src=src: patch(text, KNOCKOUTS[src][variant]))
     elif variant != "full":
         _rewrite(os.path.join(csrc, plan_header(kernels)), lambda text: patch(text, plan_edits(text, variant)))
     return dst
@@ -271,9 +210,7 @@ def main():
         for v, res in zip(variants, ex.map(lambda v: run(roots[v], build), variants)):
             if res.returncode:
                 raise SystemExit(f"{v}: build failed\n{res.stdout}{res.stderr}")
-    csrc = os.path.join(roots["full"], "cofii2p_tpu_torch", "csrc")
-    print(f"tree {os.path.abspath(args.tree)}, sources "
-          + ", ".join(f"{k} {kernel_source(csrc, k)}" for k in kernels))
+    print(f"tree {os.path.abspath(args.tree)}, sources " + ", ".join(f"{k} {SOURCES[k][1]}" for k in kernels))
     for path in paths:
         row = {}
         for v in variants:

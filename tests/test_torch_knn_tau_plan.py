@@ -199,10 +199,10 @@ def test_knockouts_apply_to_the_tau_source(part):
     find their text once in csrc/knn_tau.cu, and a plan variant sets the
     tau plan's constants, so PERF.md's by-part timing of #5 can be run
     again."""
-    assert maxpool_knockout.kernel_source(cuda_lib.CSRC, "tau") == "knn_tau.cu"
+    assert maxpool_knockout.SOURCES["tau"][1] == "knn_tau.cu"
     with open(os.path.join(cuda_lib.CSRC, "knn_tau.cu")) as fh:
         text = fh.read()
-    assert maxpool_knockout.patch(text, maxpool_knockout.knockout_edits("knn_tau.cu", text, part)) != text
+    assert maxpool_knockout.patch(text, maxpool_knockout.KNOCKOUTS["knn_tau.cu"][part]) != text
     assert maxpool_knockout.plan_header(["tau"]) == "knn_tau_plan.cuh"
     with open(os.path.join(cuda_lib.CSRC, "knn_tau_plan.cuh")) as fh:
         header = fh.read()

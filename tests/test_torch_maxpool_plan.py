@@ -289,7 +289,7 @@ def test_knockouts_apply_to_the_count_and_route_sources(kernel, part):
     """The knock-out tool finds the tie count in csrc/maxpool_fwd.cu (its
     COUNT mode) and the k-NN and radius routings in csrc/maxpool_route.cu,
     and each of its edits finds its text once there."""
-    src = maxpool_knockout.kernel_source(cuda_lib.CSRC, kernel)
+    src = maxpool_knockout.SOURCES[kernel][1]
     assert src == {"count": "maxpool_fwd.cu", "route": "maxpool_route.cu", "radius": "maxpool_route.cu"}[kernel]
     with open(os.path.join(cuda_lib.CSRC, src)) as fh:
         assert maxpool_knockout.patch(fh.read(), maxpool_knockout.KNOCKOUTS[src][part])

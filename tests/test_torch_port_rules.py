@@ -7,7 +7,9 @@ gradients reach the kernels only through the autograd Functions, and each
 forward wrapper names the Function that differentiates through it; the
 Functions, too, take the plain versions for CPU tensors and never fall
 back for others; chip_smoke.py fails without a card; no source imports
-OpenCV, and the package copied alone runs its host path."""
+OpenCV, and the package copied alone runs its host path; under
+pytest-xdist the tests' PyTorch threads take each worker's share of the
+cores."""
 
 import ast
 import ctypes
@@ -52,6 +54,7 @@ from cofii2p_tpu_torch.ops.norm_kernel import point_group_norm_fused
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_apply, banded_residual_fused
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
 from cofii2p_tpu_torch.pose.ransac import ransac_pnp
+from tests import torch_parity
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(cofii2p_tpu_torch.__file__))
@@ -582,3 +585,16 @@ def test_chip_smoke_fails_without_card_and_alone(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True, env=env)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("workers,cores,threads", [(6, 8, 1), (2, 8, 4), (8, 4, 1), (None, 8, None), ("running", None, None)],
+                         ids=["6_workers_8_cores", "2_workers_8_cores", "8_workers_4_cores", "no_xdist", "this_process"])
+def test_each_xdist_worker_takes_its_share_of_the_cores(workers, cores, threads):
+    """tests/torch_parity.py's thread budget: an equal share of the cores
+    for each xdist worker, at least one thread, and PyTorch's default left
+    alone outside xdist; the running process's pool keeps within it."""
+    if workers == "running":
+        workers = torch_parity.xdist_workers() or 1
+        assert torch.get_num_threads() * workers <= max(torch_parity.usable_cores(), workers)
+    else:
+        assert torch_parity.cpu_threads(workers, cores) == threads

@@ -5,6 +5,7 @@ replayed and handed to the port, and outputs are compared as numpy."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,35 @@ from cofii2p_tpu.ops.pyramid import morton_order
 import cofii2p_tpu_torch.config as tconfig
 from cofii2p_tpu_torch.data.loader import _collate
 from cofii2p_tpu_torch.data.synthetic import SyntheticDataset
+
+
+def cpu_threads(worker_count: int | None, cpu_count: int) -> int | None:
+    """PyTorch's intra-op threads for each of ``worker_count`` pytest-xdist
+    workers on ``cpu_count`` cores: an equal share, at least one.  None
+    outside xdist (``worker_count`` None): PyTorch's default stands."""
+    if worker_count is None:
+        return None
+    return max(1, cpu_count // worker_count)
+
+
+def usable_cores() -> int:
+    """The cores this process may run on."""
+    return len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+
+
+def xdist_workers() -> int | None:
+    """The count of pytest-xdist workers this process is one of, or None."""
+    count = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    return int(count) if count else None
+
+
+# Left alone, each xdist worker's intra-op pool takes a thread per core, and
+# the workers' threads spin on each other's cores.  Every xdist worker
+# collects, and so imports, every test module before it runs any test, so
+# this budget holds for the whole worker, the JAX package's tests included.
+_threads = cpu_threads(xdist_workers(), usable_cores())
+if _threads is not None:
+    torch.set_num_threads(_threads)
 
 
 def cfg_pair(name: str = "TinyConfig", **overrides):
