@@ -258,11 +258,16 @@ FIXTURE_POINTS = {"kitti": 120000, "nuscenes": 50000}  # a frame's cloud, as the
 # norm_conv, unary2 and unary_shortcut; unary1, norm_conv, unary2), both
 # decoders' with a norm
 NORM_SITES = 47
-PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0, "point_norm": NORM_SITES}
+# the serving plan's windowed (query level, support level) pairs: the
+# cross pairs of support levels 1-3 and the self pairs of levels 2-3, one
+# placement (#19) each
+WINDOW_PAIRS = 5
+PER_FORWARD = {"kpconv_fused": 14, "maxpool": 4, "attention": 16, "residual_fused": 0, "point_norm": NORM_SITES,
+               "window_starts": WINDOW_PAIRS}
 # with kpconv_residual_fused: the 4 strided blocks' conv and shortcut in one
 # pass each (all fit residual_fused_fits in bf16 at w192), the other 10 convs
 PER_RESFUSE_FORWARD = {"residual_fused": 4, "kpconv_fused": 10, "maxpool": 0, "attention": 16,
-                       "point_norm": NORM_SITES}
+                       "point_norm": NORM_SITES, "window_starts": WINDOW_PAIRS}
 # the serve phase's drift readings (the four of the drift tool,
 # cofii2p_tpu_torch/tools/window_drift.py::drift) between the kernels and
 # the plain versions, measured with the CUDA-core #1 and #4 before their
@@ -338,6 +343,10 @@ KERNELS = {
     # XLA fuses; added because PyTorch runs it as ~10 passes a site
     "point_norm": ("cofii2p_tpu_torch/csrc/point_norm.cu",
                    "none (cofii2p_tpu/models/layers.py PointGroupNorm, leaky_relu are plain jnp)"),
+    # no TPU kernel: the JAX package's window placement is plain jnp, which
+    # XLA fuses; added because PyTorch runs it as ~8 broadcast passes a pair
+    "window_starts": ("cofii2p_tpu_torch/csrc/window_starts.cu",
+                      "none (cofii2p_tpu/ops/banded.py dynamic_band_starts, dynamic_knn_starts are plain jnp)"),
 }
 # the RANSAC wrapper's calls when a serving body first meets a shape: the
 # warm-up call outside CUDA graph capture and the captured one; replays
@@ -355,7 +364,7 @@ PER_T7_GATHER_FORWARD = {**{name: 0 for name in KERNELS}, "attention": 16, "poin
 MAP_SEARCHES = 13
 # the path whose launch counts the summary reports for each kernel (serve's
 # ransac_pnp: its calls at the RANSAC graph's capture)
-SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention", "ransac_pnp", "point_norm")
+SERVE_KERNELS = ("kpconv_fused", "maxpool", "attention", "ransac_pnp", "point_norm", "window_starts")
 TRAIN_KERNELS = ("kpconv_aggregate", "kpconv_transpose", "maxpool_count", "maxpool_bwd")
 T7_KERNELS = ("knn_tau", "kpconv_aggregate_tau", "kpconv_fused_tau", "maxpool_tau")
 FAST_KERNELS = ("kpconv_transpose_dyn", "maxpool_bwd_dyn")
@@ -371,6 +380,7 @@ def wrappers():
     from cofii2p_tpu_torch.ops import norm_kernel as nk
     from cofii2p_tpu_torch.ops import residual_kernel as rk
     from cofii2p_tpu_torch.ops import tau_kernel as tk
+    from cofii2p_tpu_torch.ops import window_kernel as wk
     from cofii2p_tpu_torch.pose import ransac
 
     return {"kpconv_fused": kpk.banded_kpconv_fused, "maxpool": mpk.banded_maxpool_fused,
@@ -384,7 +394,7 @@ def wrappers():
             "maxpool_bwd_dyn": mpk.banded_maxpool_backward_dyn_fused,
             "maxpool_bwd_tau": mpk.banded_maxpool_backward_tau_fused,
             "residual_fused": rk.banded_residual_fused, "ransac_pnp": ransac.ransac_pnp,
-            "point_norm": nk.point_group_norm_fused}
+            "point_norm": nk.point_group_norm_fused, "window_starts": wk.best_windows_fused}
 
 
 def body_launches(per_forward, first):
@@ -661,6 +671,7 @@ def check_kernels(device, gen, tally):
     check_residual_kernel(device, gen, tally, cfg)
     check_kernel_sizes(device, cfg)
     check_point_norm(device, tally)
+    check_window_starts(device, tally)
 
 
 def point_norm_gaps(x, weight, bias, num_groups, eps=1e-5, relu=False, residual=None):
@@ -684,18 +695,6 @@ def point_norm_gaps(x, weight, bias, num_groups, eps=1e-5, relu=False, residual=
     return mean_gap, rstd_gap, same, int((out != ref).sum())
 
 
-def graphed(fn):
-    """``fn`` captured as a CUDA graph after an eager warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph
-
-
 def check_point_norm(device, tally):
     """#18 on the group-norm calls of one bf16 B=8 serving forward, each
     on its recorded inputs: the statistics within 1e-5 of the plain
@@ -710,7 +709,7 @@ def check_point_norm(device, tally):
 
     import torch
 
-    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, kernel_wrappers, record_serve, time_ms
+    from cofii2p_tpu_torch.utils.kernel_bench import call_bound, graphed, kernel_wrappers, record_serve, time_ms
 
     _, kern, plain = kernel_wrappers()["point_group_norm_fused"]
     calls = [c for c in record_serve(BATCH, 0, device) if c[0] == "point_group_norm_fused"]
@@ -738,6 +737,39 @@ def check_point_norm(device, tally):
         f"inputs: statistics within {worst:.2e} of the plain version's, the same bits on two launches, the apply "
         f"bit-equal on the plain statistics; kernels {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
         "(bytes at 3.35 TB/s)")
+
+
+def check_window_starts(device, tally):
+    """#19 on the window placements of one bf16 B=8 serving forward, each on
+    its recorded inputs: the starts bit-equal to the plain version's and the
+    same on two launches; then the calls through the kernel and through the
+    plain version, each set replayed as one CUDA graph as a serving request
+    runs it, beside the bound (kernel_bench.call_work: the points read
+    once, 9 fp32 operations a (query, sampled row) pair at 67 TFLOP/s)."""
+    import torch
+
+    from cofii2p_tpu_torch.utils.kernel_bench import (_describe, call_bound, graphed, kernel_wrappers, record_serve,
+                                                      time_ms)
+
+    _, kern, plain = kernel_wrappers()["best_windows_fused"]
+    calls = [c for c in record_serve(BATCH, 0, device) if c[0] == "best_windows_fused"]
+    if len(calls) != WINDOW_PAIRS:
+        raise PhaseError(f"window_starts: {len(calls)} placements in a serving forward, expected {WINDOW_PAIRS}")
+    b_ms, shapes = 0.0, []
+    for name, a, kw in calls:
+        got, again, want = kern(*a, **kw), kern(*a, **kw), plain(*a, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(got, again):
+            raise PhaseError(f"window_starts {_describe(name, a, kw)}: {(got != want).sum().item()} starts differ "
+                             f"from the plain version's, the same on two launches {torch.equal(got, again)}")
+        b_ms += call_bound(name, a, kw)[0]
+        shapes.append(f"{_describe(name, a, kw)} {tuple(got.shape)}")
+    k_ms = time_ms(graphed(lambda: [kern(*a, **kw) for _, a, kw in calls]).replay)
+    p_ms = time_ms(graphed(lambda: [plain(*a, **kw) for _, a, kw in calls]).replay, 3)
+    tally.add("window_starts", 0.0, k_ms, p_ms, (b_ms, "operations"))
+    say("kernels", f"window_starts: the {len(calls)} placements of a bf16 B={BATCH} serving forward ("
+        + "; ".join(shapes) + f") on their own inputs: starts bit-equal to the plain version's, the same on two "
+        f"launches; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms (both as one CUDA graph each)")
 
 
 def check_training_kernels(device, gen, tally, cfg):
@@ -2023,9 +2055,11 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
     gen = torch.Generator(device).manual_seed(seed)
     reset_launches()
     nodes, captures = (counter(f"cofii2p.ransac.{c}").value for c in ("graph_nodes", "captures"))
+    windows = {k: counter(f"cofii2p.windows.{k}").value for k in ("kernel", "plain")}
     run(requests[0], gen)  # warm-up: every stage's graph capture
     torch.cuda.synchronize()
     captured = read_launches()
+    windows = {k: counter(f"cofii2p.windows.{k}").value - v for k, v in windows.items()}
     graph_nodes = (counter("cofii2p.ransac.graph_nodes").value - nodes) // max(
         1, counter("cofii2p.ransac.captures").value - captures)
     reset_launches()
@@ -2056,9 +2090,13 @@ def serve(device, seed, smi_line, profile=False, residual_fused=False, n_request
                 f"{phase}: {name} launched {captured[name]} times at the capture and {launches[name]} in "
                 f"{n_requests} replayed requests, expected {want} a forward twice, then none "
                 + ("(10 KPConvs, 4 strided blocks' conv and shortcut in one pass, 8 layers x 2 attention calls, "
-                   "47 group norms)" if residual_fused else
-                   "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls, 47 group norms)")
+                   "47 group norms, 5 window placements)" if residual_fused else
+                   "(14 KPConvs, 4 strided shortcuts, 8 layers x 2 attention calls, 47 group norms, 5 window "
+                   "placements)")
             )
+    if windows != {"kernel": AT_CAPTURE * WINDOW_PAIRS, "plain": 0}:
+        raise PhaseError(f"{phase}: window placements counted {windows} at the capture, expected kernel "
+                         f"{AT_CAPTURE * WINDOW_PAIRS}, plain 0")
     nonfinite_pose = check_pose_outputs(phase, outs, cfg, device)
     fps = n_requests * BATCH / dt
     succ = sum(int(o.success.sum()) for o in outs)
@@ -2223,7 +2261,8 @@ def check_serve_drift(cfg, model, hb, device, seed, per_forward=PER_FORWARD):
     output; 'full' would return fp32): coarse-argmax drift, selection
     drift, fine-cell drift among the selected superpoints and max score
     drift.  Each must stay within twice the parent kernels' reading plus
-    one point (SERVE_DRIFT_LIMITS)."""
+    one point (SERVE_DRIFT_LIMITS).  Both forwards place their windows by
+    #19, which gives the plain version's starts."""
     import torch
 
     from cofii2p_tpu_torch.data.device_pipeline import prepare_samples
@@ -2251,7 +2290,12 @@ def check_serve_drift(cfg, model, hb, device, seed, per_forward=PER_FORWARD):
             tf.fused_attention = kernel_attention
         plain_launches = read_launches()
     del plain
-    if plain_launches != launches or launches["kpconv_fused"] != per_forward["kpconv_fused"]:
+    # the plain forward launches nothing but its window placements: #19 takes
+    # every placement off the CPU, whatever the setting (the plain version's
+    # starts, bit for bit)
+    if (plain_launches != dict(launches, window_starts=2 * launches["window_starts"])
+            or launches["kpconv_fused"] != per_forward["kpconv_fused"]
+            or launches["window_starts"] != per_forward["window_starts"]):
         raise PhaseError(f"drift: launches {launches} through the kernels, {plain_launches} after the plain forward")
     d, n_sel = drift(ref, got), selected(ref, got)
     over = {k: v for k, v in d.items() if v > SERVE_DRIFT_LIMITS[k]}
@@ -2981,7 +3025,7 @@ def real_data(device, seed, smi_line, dataset):
 # other 3 shortcuts
 SERVE_COMPACT = dict(maxpool_compact_plan=(128,), aggregate_compact_plan=(128, 0, 0, 0, 128))
 PER_COMPACT_FORWARD = {"kpconv_fused": 9, "maxpool": 3, "attention": 16, "residual_fused": 0, "knn_tau": 0,
-                       "point_norm": NORM_SITES}
+                       "point_norm": NORM_SITES, "window_starts": WINDOW_PAIRS}
 COMPACT_REQUESTS = 3
 # t7_compact: every conv and shortcut of the `.t7` config compacted at
 # k = knn_k: no tau (#5) and no banded kernel in the forward, #4 alone

@@ -10,7 +10,8 @@ Everything here is batched over a leading frame axis: q_points (B, M, 3),
 s_points (B, N, 3), s_feats (B, N, C).  These are the plain versions the
 CPU tests compare against the JAX package and that ``chip_smoke.py``
 compares the CUDA kernels against; the kernels themselves live in
-ops/kpconv_kernel.py and ops/maxpool_kernel.py.
+ops/kpconv_kernel.py, ops/maxpool_kernel.py and, for the dynamic windows'
+placement, ops/window_kernel.py.
 
 Exactness rules kept from the JAX package:
  - membership is ``d2 <= r2`` with d2 from :func:`_membership_d2` — centred
@@ -27,6 +28,8 @@ import functools
 import numpy as np
 import torch
 import torch.utils.checkpoint
+
+from cofii2p_tpu_torch.utils.profiling import counter
 
 # elements of the largest intermediate one chunk of tiles may hold; bounds
 # the plain versions' memory at KITTI scale
@@ -673,7 +676,7 @@ def dynamic_band_starts(q_points, s_points, r_active, tile=128, width=256, cente
     """
     r2 = np.float32(np.float32(r_active * r_active) * np.float32(1.0001))
     if center == "best":
-        return _best_windows(q_points, s_points, lambda t0, t1: float(r2), tile, width, stride)
+        return _windows(q_points, s_points, float(r2), tile, width, stride)
     if center not in ("centroid", "span"):
         raise ValueError(f"center {center!r} is not 'best', 'centroid' or 'span'")
     if stride > 1:
@@ -706,17 +709,31 @@ def dynamic_knn_starts(q_points, s_points, tau, tile=128, width=256, stride=1):
     """Per-tile window starts under k-NN semantics (cofii2p_tpu/ops/
     banded.py:193-244): as :func:`dynamic_band_starts`, with membership
     ``d2 <= tau[m]`` per query.  tau (B, M) -> (B, num_tiles) int32."""
-    b, m = q_points.shape[:2]
-    tt = tau.reshape(b, -1, _dyn_tile(m, tile)[0], 1)
-    return _best_windows(q_points, s_points, lambda t0, t1: tt[:, t0:t1], tile, width, stride)
+    return _windows(q_points, s_points, tau, tile, width, stride)
 
 
-def _best_windows(q_points, s_points, threshold, tile, width, stride):
+def _windows(q_points, s_points, threshold, tile, width, stride):
+    """The starts of :func:`_best_windows`: kernel #19 for a tensor off the
+    CPU (a card tensor it does not take raises; no fallback), the plain
+    version on the CPU; each call adds one to ``cofii2p.windows.kernel`` or
+    ``cofii2p.windows.plain``."""
+    if q_points.device.type == "cpu":
+        counter("cofii2p.windows.plain").add()
+        return _best_windows(q_points, s_points, threshold, tile, width, stride)
+    # imported here: ops/window_kernel.py imports this module
+    from cofii2p_tpu_torch.ops import window_kernel
+
+    counter("cofii2p.windows.kernel").add()
+    return window_kernel.best_windows_fused(q_points, s_points, threshold, tile, width, stride)
+
+
+def _best_windows(q_points, s_points, threshold, tile=128, width=256, stride=1):
     """Each query tile's width-W window of support rows holding the most
-    (query, row) pairs with d2 <= ``threshold(t0, t1)`` (a scalar, or the
-    (B, t, T, 1) thresholds of tiles t0..t1), counted on every
-    ``stride``-th row; the static proportional start where no sampled row
-    is a member.  Returns (B, num_tiles) int32 starts in [0, N - width]."""
+    (query, row) pairs with d2 <= ``threshold`` (one float, or (B, M), one
+    a query), counted on every ``stride``-th row; the static proportional
+    start where no sampled row is a member.  Returns (B, num_tiles) int32
+    starts in [0, N - width].  The plain version of kernel #19
+    (ops/window_kernel.py), which the CPU runs."""
     b, m = q_points.shape[:2]
     n = s_points.shape[1]
     tile, num_tiles = _dyn_tile(m, tile)
@@ -725,9 +742,12 @@ def _best_windows(q_points, s_points, threshold, tile, width, stride):
     n_sub = s_sub.shape[1]
     w_sub = max(width // stride, 1)
     qt = q_points.reshape(b, num_tiles, tile, 3)
+    per_query = isinstance(threshold, torch.Tensor)
+    tt = threshold.reshape(b, num_tiles, tile, 1) if per_query else threshold
     out = torch.empty(b, num_tiles, dtype=torch.int64, device=q_points.device)
     for t0, t1 in _tile_chunks(num_tiles, b * tile * n_sub):
-        within = _membership_d2(qt[:, t0:t1], s_sub[:, None]) <= threshold(t0, t1)  # (B, t, T, n_sub)
+        thr = tt[:, t0:t1] if per_query else tt
+        within = _membership_d2(qt[:, t0:t1], s_sub[:, None]) <= thr  # (B, t, T, n_sub)
         wcnt = within.sum(dim=2)  # (B, t, n_sub)
         has = wcnt.sum(-1) > 0
         cs = torch.nn.functional.pad(torch.cumsum(wcnt, dim=-1), (1, 0))

@@ -77,6 +77,7 @@ SIGNATURES = {
     "ransac_refine_launch": [_I, _P, _P, _I, _I, _I, _F, _I, _P],
     "point_norm_stats_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "point_norm_apply_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "window_starts_launch": [_P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -28,7 +28,9 @@ peak rate of their type).  Where one PyTorch call computes the same
 function (the fused attention: ``scaled_dot_product_attention``), it is
 timed beside them as a yardstick.  One line per call, then per-kernel
 totals; ``--only`` replays the calls of the named wrappers alone (e.g.
-``banded_maxpool_fused,banded_maxpool_tau``).
+``banded_maxpool_fused,banded_maxpool_tau``).  The window placement (#19,
+``best_windows_fused``) and its plain version are timed as CUDA graph
+replays.
 Needs a CUDA device.
 """
 
@@ -63,6 +65,17 @@ def time_ms(fn, reps=10):
     return t0.elapsed_time(t1) / reps
 
 
+def graphed(fn):
+    """``fn`` captured as a CUDA graph after an eager warm-up (time its
+    ``replay``: device time, not the host's pace of small launches)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
 def bound_ms(nbytes, ops32=0.0, ops16=0.0, ops_tf32x3=0.0):
     """(ms, 'bytes' | 'operations'): the larger of the bytes over the HBM
     rate and the operations over the peak rate of their type (fp32 on the
@@ -91,6 +104,8 @@ def kernel_wrappers() -> dict:
     from cofii2p_tpu_torch.ops import norm_kernel as nk
     from cofii2p_tpu_torch.ops import residual_kernel as rk
     from cofii2p_tpu_torch.ops import tau_kernel as tk
+    from cofii2p_tpu_torch.ops import window_kernel as wk
+    from cofii2p_tpu_torch.ops.banded import _best_windows
 
     return {
         "banded_knn_tau_kernel": (kpc, tk.banded_knn_tau_kernel, tk.banded_knn_tau_plain),
@@ -115,6 +130,7 @@ def kernel_wrappers() -> dict:
         "fused_attention": (tf, att.fused_attention, att.fused_attention_plain),
         "banded_residual_fused": (rk, rk.banded_residual_fused, rk.banded_residual_fused_plain),
         "point_group_norm_fused": (nk, nk.point_group_norm_fused, nk.point_group_norm_plain),
+        "best_windows_fused": (wk, wk.best_windows_fused, _best_windows),
     }
 
 
@@ -169,6 +185,14 @@ def call_work(name: str, args, kwargs=None) -> dict:
     q, s = a["q_points"], a["s_points"]
     b, m = q.shape[:2]
     n = s.shape[1]
+    if name == "best_windows_fused":
+        # the queries and the sampled rows read once (and a threshold a
+        # query), the starts written; one d2 (3 subtractions, 3 products, 2
+        # sums) and one comparison a (query, sampled row) pair
+        n_sub = -(-n // a["stride"])
+        thr = a["threshold"]
+        io = b * (m + n_sub) * 3 * 4 + (thr.numel() * 4 if isinstance(thr, torch.Tensor) else 0)
+        return _work(io + b * -(-m // a["tile"]) * 4, ops32=9.0 * b * m * n_sub)
     pts = b * (m + n) * 3 * 4
     starts = a.get("starts")
     tau = a.get("tau")
@@ -271,6 +295,10 @@ def _describe(name, args, kwargs):
     if name == "point_group_norm_fused":
         chain = ("", " +residual")[a["residual"] is not None] + ("", " relu")[bool(a["relu"])]
         return f"x {tuple(a['x'].shape)} G {a['num_groups']}{chain} {a['x'].dtype}"
+    if name == "best_windows_fused":
+        kind = "tau" if isinstance(a["threshold"], torch.Tensor) else "radius"
+        n = a["s_points"].shape[1]
+        return f"M {a['q_points'].shape[1]} N {n} rows {-(-n // a['stride'])} w{a['width']} {kind}"
     lead = a.get("s_feats", a.get("g_weighted", a.get("agg_feats")))
     band = ("w%d" if a.get("starts") is not None else "bw%d") % a["band_width"]
     extra = f" Cout {a['weights'].shape[-1]}" if "weights" in a else ""
@@ -447,8 +475,15 @@ def main():
     with torch.no_grad():
         for name, a, kw in calls:
             _, kern, plain = wrappers[name]
-            k_ms = time_ms(lambda: kern(*a, **kw), args.reps)
-            p_ms = time_ms(lambda: plain(*a, **kw), max(1, args.reps // 3))
+            if name == "best_windows_fused":
+                # #19 and its plain version as CUDA graph replays, as a serving
+                # request runs them: timed eagerly, the plain version's chain of
+                # small launches would time the host, not the device
+                k_ms = time_ms(graphed(lambda: kern(*a, **kw)).replay, args.reps)
+                p_ms = time_ms(graphed(lambda: plain(*a, **kw)).replay, max(1, args.reps // 3))
+            else:
+                k_ms = time_ms(lambda: kern(*a, **kw), args.reps)
+                p_ms = time_ms(lambda: plain(*a, **kw), max(1, args.reps // 3))
             b_ms, by = call_bound(name, a, kw)
             # kernel #16 beside the pair it fuses, on the same inputs
             pair_ms = time_ms(lambda: unfused_pair(*a, **kw), args.reps) if name == "banded_residual_fused" else None

@@ -16,7 +16,8 @@ cofii2p_tpu/utils/profiling.py, plus the spans).
   span entered while its stream is being captured into a CUDA graph
   records no events.
 - :func:`counter` counts an event (a graph capture, a build, the path a
-  point-branch group norm took); counters are always on.
+  point-branch group norm or a window placement took); counters are always
+  on.
 - :func:`span_table` tabulates the registry, :func:`reset` clears it, and
   ``SPAN_NAMES`` lists every span and counter the package records.
 - :func:`trace` wraps ``torch.profiler`` (CPU activity, and CUDA activity
@@ -65,6 +66,8 @@ SPAN_NAMES = (
     "cofii2p.loader.wait",
     "cofii2p.point_norm.fused",
     "cofii2p.point_norm.plain",
+    "cofii2p.windows.kernel",
+    "cofii2p.windows.plain",
 )
 
 

@@ -53,6 +53,7 @@ from cofii2p_tpu_torch.ops.maxpool_kernel import (
 from cofii2p_tpu_torch.ops.norm_kernel import point_group_norm_fused
 from cofii2p_tpu_torch.ops.residual_kernel import banded_residual_apply, banded_residual_fused
 from cofii2p_tpu_torch.ops.tau_kernel import banded_knn_tau_kernel
+from cofii2p_tpu_torch.ops.window_kernel import best_windows_fused
 from cofii2p_tpu_torch.pose.ransac import ransac_pnp
 from tests import torch_parity
 
@@ -414,6 +415,12 @@ def _point_norm(device, dtype=torch.float32, grad=False, residual=False):
     return lambda: point_group_norm_fused(x, w, b, 32, relu=True, residual=r)
 
 
+def _window_starts(device, dtype=torch.float32, grad=False, per_query=False):
+    _, pts, _ = _inputs(device, dtype, False)
+    thr = torch.rand(1, 256, generator=torch.Generator().manual_seed(1)).to(device) if per_query else 1.0
+    return lambda: best_windows_fused(pts, pts, thr, 128, 64, 2)
+
+
 WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool_fused, _maxpool),
             "attention": (fused_attention, _attention),
             "kpconv_aggregate": (banded_kpconv_aggregate_fused, _aggregate),
@@ -436,9 +443,13 @@ WRAPPERS = {"kpconv": (banded_kpconv_fused, _kpconv), "maxpool": (banded_maxpool
             "ransac_pnp": (ransac_pnp, _ransac),
             "point_norm": (point_group_norm_fused, _point_norm),
             "point_norm_bf16_residual": (point_group_norm_fused, lambda device, grad=False: _point_norm(
-                device, torch.bfloat16, grad, residual=True))}
-# tau is a function of coordinates only: it has no input to refuse
-GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau"})
+                device, torch.bfloat16, grad, residual=True)),
+            "window_starts": (best_windows_fused, _window_starts),
+            "window_starts_per_query": (best_windows_fused, lambda device, grad=False: _window_starts(
+                device, per_query=True))}
+# tau and the window starts are functions of coordinates only, with no
+# gradient: they have no input to refuse
+GRAD_WRAPPERS = sorted(set(WRAPPERS) - {"knn_tau", "window_starts", "window_starts_per_query"})
 # the k-NN forward wrappers and the autograd Function each names
 TAU_BACKWARDS = {"kpconv_tau": "BandedKPConvTauFn", "kpconv_aggregate_tau": "BandedKPConvTauFn",
                  "maxpool_tau": "BandedMaxpoolTauFn"}
